@@ -1,0 +1,18 @@
+"""bayesic_tpu_torch — the PyTorch/CUDA port of bayesic_tpu.
+
+Mirrors the JAX package's module tree; ``bayesic_tpu`` stays the reference
+each module is tested against.  Ported so far: the DLGM SVI path.
+
+Layering:
+  dist/      distributions + transforms
+  core/      model DSL + joint log-prob compiler
+  infer/svi  STL ELBO, amortized guide, Adam driver
+  ops/       hand-written Hopper kernels (csrc/) + plain PyTorch versions
+  models/    the DLGM
+  interop    JAX parameters (as numpy) -> the port's parameters
+"""
+
+__version__ = "0.1.0"
+
+from . import dist  # noqa: F401
+from .core import param, plate, sample  # noqa: F401

@@ -1,0 +1,185 @@
+"""Joint log-prob compiler: model graph -> log-density in unconstrained
+space.
+
+Counterpart of ``bayesic_tpu/core/logjoint.py`` without discrete
+enumeration.  The compiler traces the model once to discover its sites,
+then returns closures that replay it under ``substitute``.  JAX replays at
+trace time only; PyTorch is eager, so every call of ``logdensity`` replays
+the handler stack in Python.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from ..dist.transforms import biject_to
+from . import handlers
+
+__all__ = ["ModelInfo", "inspect_model", "build_logjoint"]
+
+
+class ModelInfo(NamedTuple):
+    """Static description of a model's site graph (one discovery trace)."""
+
+    latent_names: tuple
+    observed_names: tuple
+    transforms: dict          # latent name -> Transform (R^n -> support)
+    site_shapes: dict         # latent name -> constrained shape
+    unconstrained_shapes: dict  # latent name -> unconstrained shape
+    has_subsample: bool
+    subsample_sites: dict     # "{plate}__idx" -> (size, ssize, replacement)
+    param_names: tuple        # learnable model params (`param` sites)
+    param_transforms: dict    # param name -> Transform
+    param_init: dict          # param name -> unconstrained init value
+
+    @property
+    def unconstrained_dim(self):
+        return sum(math.prod(s) for s in self.unconstrained_shapes.values())
+
+
+def _default_generator():
+    return torch.Generator().manual_seed(0)
+
+
+def _model_trace(model, args, kwargs, generator):
+    return handlers.trace(
+        handlers.seed(model, rng_key=generator)
+    ).get_trace(*args, **kwargs)
+
+
+def inspect_model(model, *args, rng_key=None, **kwargs) -> ModelInfo:
+    """Trace ``model`` once.  ``rng_key`` is a ``torch.Generator`` on the
+    device the model's draws must land on (CPU generator by default)."""
+    gen = rng_key if rng_key is not None else _default_generator()
+    tr = _model_trace(model, args, kwargs, gen)
+    latents, observed = [], []
+    transforms, shapes, ushapes, subsample_sites = {}, {}, {}, {}
+    param_names, param_transforms, param_init = [], {}, {}
+    has_subsample = False
+    for name, site in tr.items():
+        if site["type"] == "sample":
+            if site["is_observed"]:
+                observed.append(name)
+                continue
+            if site["dist"].support.is_discrete:
+                raise ValueError(
+                    f"latent site {name!r} is discrete — observe it "
+                    f"(enumeration is not ported)."
+                )
+            latents.append(name)
+            t = biject_to(site["dist"].support)
+            transforms[name] = t
+            shapes[name] = tuple(site["value"].shape)
+            ushapes[name] = t.inverse_shape(shapes[name])
+        elif site["type"] == "subsample":
+            if site["subsample_size"] is not None \
+                    and site["subsample_size"] < site["size"]:
+                has_subsample = True
+                subsample_sites[name] = (
+                    site["size"], site["subsample_size"],
+                    site.get("replacement", True),
+                )
+        elif site["type"] == "param":
+            t = biject_to(site["constraint"])
+            param_transforms[name] = t
+            if site["value"] is None:
+                raise ValueError(f"param site {name!r} needs init_value=")
+            param_init[name] = t.inverse(site["value"])
+            param_names.append(name)
+    return ModelInfo(
+        tuple(latents), tuple(observed), transforms, shapes, ushapes,
+        has_subsample, subsample_sites, tuple(param_names),
+        param_transforms, param_init,
+    )
+
+
+def build_logjoint(model, *args, rng_key=None, **kwargs):
+    """Compile ``model`` into callables on tensors.
+
+    Returns ``(info, logdensity, constrain, postprocess)`` where
+
+    * ``logdensity(uparams, rng_key=None, subsample=None, model_args=None,
+      model_kwargs=None, params=None) -> scalar``: joint log-density (model
+      density + change-of-variable Jacobians) at the unconstrained dict
+      ``uparams``.  ``rng_key`` (a ``torch.Generator``) only matters for
+      models with subsampled plates when ``subsample`` does not force the
+      ``"{plate}__idx"`` index arrays.  ``params`` gives unconstrained
+      values of the model's ``param`` sites.
+    * ``constrain(uparams) -> dict``: latent values in the support.
+    * ``postprocess(uparams, rng_key=None, params=None) -> dict``:
+      constrained latents (full replay).
+
+    ``rng_key`` here is the generator of the discovery trace; it fixes the
+    device of the draws made while inspecting the model.
+    """
+    info = inspect_model(model, *args, rng_key=rng_key, **kwargs)
+    # draws that a replay without its own generator needs (unforced
+    # subsample indices) come from a generator reset to one seed per call,
+    # so such replays see one fixed mini-batch, as with PRNGKey(0) in JAX
+    gen0 = torch.Generator(
+        device=rng_key.device if rng_key is not None else "cpu")
+
+    def _replay(uparams, rng_key, subsample, model_args=None,
+                model_kwargs=None, params=None):
+        values = {
+            n: info.transforms[n].forward(uparams[n])
+            for n in info.latent_names
+        }
+        data = dict(values)
+        if subsample:
+            data.update(subsample)
+        if params is not None:
+            data.update({
+                n: info.param_transforms[n].forward(params[n])
+                for n in info.param_names
+            })
+        gen = rng_key if rng_key is not None else gen0.manual_seed(0)
+        call_args = args if model_args is None else model_args
+        call_kwargs = kwargs if model_kwargs is None else model_kwargs
+        tr = handlers.trace(
+            handlers.substitute(
+                handlers.seed(model, rng_key=gen), data=data
+            )
+        ).get_trace(*call_args, **call_kwargs)
+        return tr, values
+
+    def _apply_mask(site, lp):
+        # handlers.mask: excluded terms contribute exactly zero
+        m = site.get("mask")
+        return lp if m is None else torch.where(m, lp, torch.zeros_like(lp))
+
+    def _accumulate(tr, uparams):
+        total = 0.0
+        for name, site in tr.items():
+            if site["type"] != "sample":
+                continue
+            lp = _apply_mask(site, site["dist"].log_prob(site["value"]))
+            total = total + site["scale"] * torch.sum(lp)
+            if name in info.transforms:
+                ldj = _apply_mask(site, info.transforms[name]
+                                  .log_det_jacobian(uparams[name]))
+                total = total + site["scale"] * torch.sum(ldj)
+        return total
+
+    def logdensity(uparams, rng_key=None, subsample=None, model_args=None,
+                   model_kwargs=None, params=None):
+        tr, _ = _replay(uparams, rng_key, subsample, model_args,
+                        model_kwargs, params)
+        return _accumulate(tr, uparams)
+
+    def constrain(uparams):
+        return {
+            n: info.transforms[n].forward(uparams[n])
+            for n in info.latent_names
+        }
+
+    def postprocess(uparams, rng_key=None, params=None):
+        # deterministic sites are not ported, so a replay adds nothing to
+        # the constrained latents yet; it still checks the model runs
+        _, values = _replay(uparams, rng_key, None, params=params)
+        return values
+
+    return info, logdensity, constrain, postprocess

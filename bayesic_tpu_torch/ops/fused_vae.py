@@ -1,0 +1,295 @@
+"""Whole-run fused DLGM/VAE trainer: one C call runs every SVI step.
+
+Counterpart of ``bayesic_tpu/ops/fused_vae.py``.  On a CUDA tensor,
+``fused_train`` runs the hand-written Hopper kernel in
+``csrc/fused_vae.cu``: the data, parameters and Adam state stay on the
+device, and one call enqueues all ``steps`` steps on the current stream
+with no host sync and no Python between steps.  On a CPU tensor it runs
+the plain version below (``reference_train``), which carries the same
+hand-derived backward.  Nothing falls back: on a CUDA tensor the kernel
+runs or the call raises.
+
+Semantics match ``SVI(model, NeuralGuide, Adam(lr))`` on
+``models/dlgm.py``: stick-the-landing single-sample minibatch ELBO with N/B
+plate scaling, sigma_x through the Exp bijector, optax-equal Adam.  The
+mini-batch is an exact iid with-replacement gather of rows; the TPU
+package's "onehot", "loop" and "block" gather modes were workarounds for
+the TPU compiler and are not ported.
+
+Math (B=batch, D=data dim, H=hidden, Z=latent, s=N/B, sigma=exp(usig)):
+
+    h1  = tanh(xb W1e + b1e)          mu = h1 Wmu + bmu
+    ls  = clip(h1 Wsig + bsig, -6, 3)  z = mu + e^ls eps,  eps~N(0,1)
+    hd  = tanh(z W1d + b1d)           mx = hd W2d + b2d
+    elbo = s * [ sum(-.5 z^2 - c) + sum(-.5((xb-mx)/sig)^2 - ln sig - c)
+                 - sum(-ls - .5 eps^2 - c) ]          (c = .5 ln 2pi)
+
+Parameter leaves keep the JAX package's (in, out) layout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple
+
+import torch
+
+from . import _build
+from ._kernel_common import adam_leaf
+
+_C = 0.5 * math.log(2.0 * math.pi)
+
+# parameter leaf order, fixed (the kernel's flat buffer follows it)
+LEAVES = ("w1e", "b1e", "wmu", "bmu", "wsig", "bsig",
+          "w1d", "b1d", "w2d", "b2d", "usig")
+
+# calls of the kernel's C entry, through either entry point: one per call,
+# though each call enqueues three kernels (rows, A^T G tiles, Adam) for
+# every one of its steps
+LAUNCHES = 0
+
+_ROWS = 8          # rows per block of the row kernel (csrc/fused_vae.cu)
+
+
+class FusedVAEDims(NamedTuple):
+    n: int
+    d: int
+    h: int
+    z: int
+    b: int
+
+
+def leaf_shapes(dims: FusedVAEDims):
+    d, h, z = dims.d, dims.h, dims.z
+    return {
+        "w1e": (d, h), "b1e": (1, h), "wmu": (h, z), "bmu": (1, z),
+        "wsig": (h, z), "bsig": (1, z), "w1d": (z, h), "b1d": (1, h),
+        "w2d": (h, d), "b2d": (1, d), "usig": (1, 1),
+    }
+
+
+# ---------------------------------------------------------------------------
+# plain step math (the kernel's oracle; same hand-derived backward as JAX)
+# ---------------------------------------------------------------------------
+
+def _step_math(params, xb, eps, scale):
+    """One STL ELBO step on a gathered batch.  Returns (elbo, grads) where
+    grads[k] = d elbo / d params[k] (ascent direction), all hand-derived."""
+    (w1e, b1e, wmu, bmu, wsig, bsig, w1d, b1d, w2d, b2d, usig) = params
+    csum = lambda a: torch.sum(a, dim=0, keepdim=True)  # noqa: E731
+
+    # forward
+    h1 = torch.tanh(xb @ w1e + b1e)                    # (B,H)
+    mu = h1 @ wmu + bmu                                # (B,Z)
+    pre = h1 @ wsig + bsig
+    ls = torch.clamp(pre, -6.0, 3.0)                   # (B,Z)
+    e_ls = torch.exp(ls)
+    zl = mu + e_ls * eps                               # (B,Z)
+    hd = torch.tanh(zl @ w1d + b1d)                    # (B,H)
+    mx = hd @ w2d + b2d                                # (B,D)
+    u = usig[0, 0]
+    inv_s2 = torch.exp(-2.0 * u)
+    r = mx - xb
+    prior = torch.sum(-0.5 * zl * zl - _C)
+    lik = torch.sum(-0.5 * r * r * inv_s2 - u - _C)
+    logq = torch.sum(-ls - 0.5 * eps * eps - _C)
+    elbo = scale * (prior + lik - logq)
+
+    # backward (d elbo; STL: d(-logq)/dz = + eps e^{-ls})
+    g_mx = -scale * r * inv_s2                         # (B,D)
+    g_usig = (scale * torch.sum(r * r * inv_s2 - 1.0)).reshape(1, 1)
+    g_w2d = hd.T @ g_mx
+    g_b2d = csum(g_mx)
+    g_hd = g_mx @ w2d.T
+    g_a1d = g_hd * (1.0 - hd * hd)
+    g_w1d = zl.T @ g_a1d
+    g_b1d = csum(g_a1d)
+    g_z = (g_a1d @ w1d.T - scale * zl
+           + scale * eps * torch.exp(-ls))             # (B,Z)
+    clip_mask = ((pre > -6.0) & (pre < 3.0)).to(torch.float32)
+    # STL stops q-params inside logq, so ls gets gradient only through the
+    # z = mu + e^ls eps path
+    g_pre = g_z * eps * e_ls * clip_mask
+    g_wmu = h1.T @ g_z
+    g_bmu = csum(g_z)
+    g_wsig = h1.T @ g_pre
+    g_bsig = csum(g_pre)
+    g_h1 = g_z @ wmu.T + g_pre @ wsig.T
+    g_a1e = g_h1 * (1.0 - h1 * h1)
+    g_w1e = xb.T @ g_a1e
+    g_b1e = csum(g_a1e)
+
+    grads = (g_w1e, g_b1e, g_wmu, g_bmu, g_wsig, g_bsig,
+             g_w1d, g_b1d, g_w2d, g_b2d, g_usig)
+    return elbo, grads
+
+
+def _adam(params, m, v, grads, t, lr):
+    """optax.adam over all leaves (adam_leaf is the single-leaf update)."""
+    out = [adam_leaf(p, mm_, vv_, g, t, lr)
+           for p, mm_, vv_, g in zip(params, m, v, grads)]
+    return (tuple(o[0] for o in out), tuple(o[1] for o in out),
+            tuple(o[2] for o in out))
+
+
+def _flatten(tree, device=None):
+    return [torch.as_tensor(tree[k], dtype=torch.float32, device=device)
+            for k in LEAVES]
+
+
+def _thin(steps):
+    """Loss-trace thinning of the JAX kernel: at most 2048 entries; entry
+    k holds the loss of the last step i with i // thin == k."""
+    loss_len = min(steps, 2048)
+    return -(-steps // loss_len)
+
+
+def reference_train(x, params, m, v, *, idx_stream, eps_stream, lr, t0=0):
+    """Run the plain ``_step_math`` + ``_adam`` over injected (steps, B)
+    index and (steps, B, Z) noise streams.  Returns (params, m, v, losses
+    (steps,)) — the kernel's parity oracle."""
+    n = x.shape[0]
+    b = idx_stream.shape[1]
+    scale = n / b
+    p = tuple(_flatten(params, x.device))
+    mm = tuple(_flatten(m, x.device))
+    vv = tuple(_flatten(v, x.device))
+    losses = []
+    for i in range(idx_stream.shape[0]):
+        xb = x[idx_stream[i]]
+        elbo, grads = _step_math(p, xb, eps_stream[i], scale)
+        p, mm, vv = _adam(p, mm, vv, grads, float(t0 + i + 1), lr)
+        losses.append(-elbo)
+    return (dict(zip(LEAVES, p)), dict(zip(LEAVES, mm)),
+            dict(zip(LEAVES, vv)), torch.stack(losses))
+
+
+# ---------------------------------------------------------------------------
+# the kernel's wrapper
+# ---------------------------------------------------------------------------
+
+def _check(x, params, m, v, batch):
+    if x.dtype != torch.float32 or x.dim() != 2:
+        raise ValueError("x must be a float32 (N, D) tensor")
+    n, d = x.shape
+    h = params["w1e"].shape[1]
+    z = params["wmu"].shape[1]
+    dims = FusedVAEDims(n, d, h, z, int(batch))
+    shapes = leaf_shapes(dims)
+    for tree in (params, m, v):
+        for k in LEAVES:
+            t = tree[k]
+            if tuple(t.shape) != shapes[k] or t.dtype != torch.float32 \
+                    or t.device != x.device:
+                raise ValueError(
+                    f"leaf {k!r}: want float32 {shapes[k]} on {x.device}, "
+                    f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if dims.b % _ROWS:
+        raise ValueError(f"batch must be a multiple of {_ROWS} on CUDA")
+    return dims
+
+
+def _pack(tree):
+    return torch.cat([tree[k].reshape(-1) for k in LEAVES]).contiguous()
+
+
+def _unpack(flat, dims):
+    shapes = leaf_shapes(dims)
+    out, o = {}, 0
+    for k in LEAVES:
+        size = math.prod(shapes[k])
+        out[k] = flat[o:o + size].view(shapes[k])
+        o += size
+    return out
+
+
+def _launch(x, params, m, v, dims, *, steps, lr, seed, t0, thin, idx, eps):
+    lib = _build.load()
+    x = x.contiguous()
+    p, mf, vf = _pack(params), _pack(m), _pack(v)
+    losses = torch.empty(-(-steps // thin), dtype=torch.float32,
+                         device=x.device)
+    scratch = torch.empty(
+        lib.fused_vae_scratch_floats(dims.d, dims.h, dims.z, dims.b),
+        dtype=torch.float32, device=x.device)
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr() if t is not None  # noqa
+                                    else None)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.fused_vae_train(
+            ptr(x), ptr(p), ptr(mf), ptr(vf), ptr(losses), ptr(scratch),
+            ptr(idx), ptr(eps), dims.n, dims.d, dims.h, dims.z, dims.b,
+            int(steps), int(t0), int(thin), float(lr),
+            float(dims.n / dims.b), int(seed) & 0xFFFFFFFFFFFFFFFF,
+            ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(
+            f"fused_vae kernel launch failed: CUDA error {err} "
+            f"({_build.error_string(err)})")
+    return _unpack(p, dims), _unpack(mf, dims), _unpack(vf, dims), losses
+
+
+def fused_train(x, params, m, v, *, steps, lr, seed, batch=256, t0=0):
+    """Run ``steps`` fused DLGM ELBO steps.
+
+    x (N,D) f32; params/m/v: dicts over LEAVES (see leaf_shapes), on x's
+    device; t0: global Adam step count already taken (bias correction and
+    the Philox counter continue from it, so successive calls never repeat
+    a stream).  Returns (params, m, v, losses), losses thinned to at most
+    2048 entries by the JAX kernel's rule.
+
+    CUDA tensors run the kernel with in-kernel Philox streams; CPU tensors
+    run ``reference_train`` with streams from a ``torch.Generator`` seeded
+    from (seed, t0) — a different, equally uniform stream, so the two agree
+    in distribution, not bitwise.
+    """
+    global LAUNCHES
+    steps = int(steps)
+    thin = _thin(steps)
+    if x.device.type == "cuda":
+        dims = _check(x, params, m, v, batch)
+        out = _launch(x, params, m, v, dims, steps=steps, lr=lr, seed=seed,
+                      t0=t0, thin=thin, idx=None, eps=None)
+        LAUNCHES += 1
+        return out
+    if x.device.type != "cpu":
+        raise ValueError(f"fused_train: unsupported device {x.device}")
+    n = x.shape[0]
+    z = params["wmu"].shape[1]
+    gen = torch.Generator().manual_seed(
+        (int(seed) * 1_000_003 + int(t0)) % (2**63))
+    idx = torch.randint(0, n, (steps, int(batch)), generator=gen)
+    eps = torch.randn((steps, int(batch), z), generator=gen)
+    p, mm, vv, losses = reference_train(x, params, m, v, idx_stream=idx,
+                                        eps_stream=eps, lr=lr, t0=t0)
+    keep = torch.clamp(torch.arange(-(-steps // thin)) * thin + thin - 1,
+                       max=steps - 1)
+    return p, mm, vv, losses[keep]
+
+
+def fused_train_injected(x, params, m, v, *, idx_stream, eps_stream, lr):
+    """The kernel with injected index/noise streams (the parity entry):
+    reads idx (steps, B) and eps (steps, B, Z) instead of drawing them.
+    Adam's step count starts at 0, as in the JAX package's entry."""
+    global LAUNCHES
+    steps, b = idx_stream.shape
+    if x.device.type == "cuda":
+        dims = _check(x, params, m, v, b)
+        if tuple(eps_stream.shape) != (steps, b, dims.z) \
+                or eps_stream.device != x.device \
+                or idx_stream.device != x.device:
+            raise ValueError("eps_stream must be (steps, B, Z) on x's device")
+        idx = idx_stream.to(torch.int32).contiguous()
+        if int(idx.min()) < 0 or int(idx.max()) >= dims.n:
+            raise ValueError("idx_stream out of range")
+        eps = eps_stream.to(torch.float32).contiguous()
+        out = _launch(x, params, m, v, dims, steps=steps, lr=lr, seed=0,
+                      t0=0, thin=1, idx=idx, eps=eps)
+        LAUNCHES += 1
+        return out
+    if x.device.type != "cpu":
+        raise ValueError(f"fused_train_injected: unsupported device "
+                         f"{x.device}")
+    return reference_train(x, params, m, v, idx_stream=idx_stream,
+                           eps_stream=eps_stream, lr=lr)

@@ -1,0 +1,319 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's DLGM SVI main path once on one NVIDIA GPU.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
+hand-written kernel from ``bayesic_tpu_torch/csrc/``, checks it against its
+plain PyTorch version at the bench shape (N=65,536, D=128, Z=32, H=256,
+B=1024), drives both DLGM entry points (``run_svi`` and
+``run_svi_fused``), times the kernel and the plain version, and traces
+where the device time of each path goes.  Each phase prints one line and
+raises on failure.  The line before the last is a JSON object with one
+entry per kernel, whose ``launches`` counts ``fused_vae.LAUNCHES``: one per
+call of the kernel's C entry, which enqueues three kernels for each of the
+call's steps.  The last line is ``{"ok": true, "device": {...}}``.  Without
+a CUDA device, or outside a checkout, it exits non-zero and prints no
+result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+BENCH = dict(num_data=65_536, data_dim=128, latent_dim=32, hidden=256,
+             batch_size=1024)
+LR = 1e-3
+# steps per traced window (phase 7): the kernel path, and the host-bound
+# generic engine and plain version
+TRACE_FUSED_STEPS, TRACE_HOST_STEPS = 200, 20
+
+
+def _fail(msg):
+    print(f"chip_smoke: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def _card():
+    res = subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def _cuda_ms(torch, fn, reps=1):
+    """Milliseconds per call of ``fn`` by CUDA events (caller warms up)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+def _trace(torch, fn, steps):
+    """Profile one call of ``fn`` (already warm) that runs ``steps`` steps:
+    device busy ms per step (union of kernel intervals), idle share of the
+    window from the first kernel's start to the last one's end, kernels
+    per step, and the three busiest kernel names with their share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        return "not measured (the profiler recorded no device kernel)"
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted((e.time_range.start, e.time_range.end)
+                       for e in kern):
+        if cur_e is None or s > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    window = (max(e.time_range.end for e in kern)
+              - min(e.time_range.start for e in kern))
+    by_name = {}
+    for e in kern:
+        name = e.name.replace("(anonymous namespace)::", "")
+        name = name.split("(")[0].split("<")[0].split()[-1]
+        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
+    total = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    return (f"busy {busy / 1e3 / steps:.4f} ms/step, idle "
+            f"{100 * (1 - busy / window):.1f}%, "
+            f"{len(kern) / steps:.1f} kernels/step ("
+            + ", ".join(f"{k} {100 * t / total:.1f}%" for k, t in top) + ")")
+
+
+def _ptxas_summary(log):
+    """'kernel N regs, S B spill' for each entry function in nvcc's log."""
+    stats, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            name = next((k for k in ("row_kernel", "atg_kernel",
+                                     "adam_kernel") if k in mangled), mangled)
+            stats[name] = {}
+        elif name and "spill stores" in line:
+            stats[name]["spill"] = (line.split("bytes spill stores")[0]
+                                    .split(",")[-1].strip())
+        elif name and "Used" in line and "registers" in line:
+            stats[name]["regs"] = (line.split("Used")[1]
+                                   .split("registers")[0].strip())
+    return "; ".join(
+        f"{k} {v.get('regs', '?')} regs, {v.get('spill', '?')} B spill"
+        for k, v in stats.items()) or "library already built"
+
+
+def main():
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not torch.cuda.is_available():
+        _fail("no CUDA device (torch.cuda.is_available() is False)")
+    if not os.path.isdir(os.path.join(ROOT, "bayesic_tpu_torch", "csrc")):
+        _fail("run me from a checkout of the repository")
+    sys.path.insert(0, ROOT)
+    from bayesic_tpu_torch.models import dlgm
+    from bayesic_tpu_torch.ops import _build
+    from bayesic_tpu_torch.ops import _kernel_common as kc
+    from bayesic_tpu_torch.ops import fused_vae as fv
+
+    card = _card()
+    print(card, flush=True)
+    dev = torch.device("cuda", 0)
+
+    # -- 1. build ----------------------------------------------------------
+    t = time.perf_counter()
+    _build.load()
+    build_s = time.perf_counter() - t
+    print(f"phase 1 build ok in {build_s:.1f} s: "
+          f"{_ptxas_summary(_build.build_log())}", flush=True)
+
+    cfg = dlgm.Config(**BENCH, lr=LR, seed=0, device="cuda")
+    x = torch.as_tensor(dlgm.make_data(cfg), device=dev)
+    p0, m0, v0 = dlgm.fused_init(cfg, torch.Generator().manual_seed(0), dev)
+    n, b, z = cfg.num_data, cfg.batch_size, cfg.latent_dim
+    scale = n / b
+    rng = np.random.default_rng(1)
+
+    def streams(steps):
+        idx = torch.as_tensor(rng.integers(0, n, (steps, b)), device=dev)
+        eps = torch.as_tensor(
+            rng.standard_normal((steps, b, z)).astype(np.float32),
+            device=dev)
+        return idx, eps
+
+    # -- 2. gradients of one injected step -------------------------------
+    idx, eps = streams(1)
+    _, m1, _, l1 = fv.fused_train_injected(x, p0, m0, v0, idx_stream=idx,
+                                           eps_stream=eps, lr=LR)
+    torch.cuda.synchronize()
+    elbo, grads = fv._step_math(tuple(p0[k] for k in fv.LEAVES), x[idx[0]],
+                                eps[0], scale)
+    worst_rel, max_abs_err = 0.0, 0.0
+    for k, g in zip(fv.LEAVES, grads):
+        gk = -m1[k] / 0.1          # one Adam step from zero: m = -0.1 g
+        err = (gk - g).abs()
+        tol = 1e-4 * g.abs() + 1e-5 * float(g.abs().max())
+        if bool((err > tol).any()):
+            raise AssertionError(
+                f"phase 2: grad {k} differs, max abs err {float(err.max())}")
+        max_abs_err = max(max_abs_err, float(err.max()))
+        worst_rel = max(worst_rel, float((err / tol).max()))
+    loss_err = abs(float(l1[0]) + float(elbo)) / abs(float(elbo))
+    if loss_err > 1e-4:
+        raise AssertionError(f"phase 2: loss rel err {loss_err}")
+    print(f"phase 2 gradients ok: 11 leaves, max abs err {max_abs_err:.3e}, "
+          f"worst err/tol {worst_rel:.3f}, loss rel err {loss_err:.2e}",
+          flush=True)
+
+    # -- 3. 50-step injected trajectory ----------------------------------
+    idx, eps = streams(50)
+    pk, _, _, lk = fv.fused_train_injected(x, p0, m0, v0, idx_stream=idx,
+                                           eps_stream=eps, lr=LR)
+    pr, _, _, lr_ = fv.reference_train(x, p0, m0, v0, idx_stream=idx,
+                                       eps_stream=eps, lr=LR)
+    rel = float(((lk - lr_).abs() / lr_.abs()).max())
+    if rel > 1e-3:
+        raise AssertionError(f"phase 3: loss rel err {rel}")
+    prel = max(float(((pk[k] - pr[k]).abs()).max()
+                     / max(float(pr[k].abs().max()), 1e-30))
+               for k in fv.LEAVES)
+    print(f"phase 3 trajectory ok: 50 steps, loss max rel err {rel:.2e}, "
+          f"param max err / leaf max {prel:.2e}", flush=True)
+
+    # -- 4. Philox path ----------------------------------------------------
+    seed = 12345
+    _, _, _, lk = fv.fused_train(x, p0, m0, v0, steps=50, lr=LR, seed=seed,
+                                 batch=b)
+    idx, eps = kc.philox_streams(seed, 0, 50, b, n, z, device=dev)
+    _, _, _, lr_ = fv.reference_train(x, p0, m0, v0, idx_stream=idx,
+                                      eps_stream=eps, lr=LR)
+    bits_rel = float(((lk - lr_).abs() / lr_.abs()).max())
+    if bits_rel > 1e-3:
+        raise AssertionError(f"phase 4: in-kernel Philox streams differ "
+                             f"from the plain twin, loss rel err {bits_rel}")
+    steps = 3000
+    _, _, _, lk = fv.fused_train(x, p0, m0, v0, steps=steps, lr=LR,
+                                 seed=seed, batch=b)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.randint(0, n, (steps, b), generator=gen, device=dev)
+    eps = torch.randn((steps, b, z), generator=gen, device=dev)
+    _, _, _, lp = fv.reference_train(x, p0, m0, v0, idx_stream=idx,
+                                     eps_stream=eps, lr=LR)
+    thin = fv._thin(steps)
+    keep = torch.clamp(torch.arange(len(lk), device=dev) * thin + thin - 1,
+                       max=steps - 1)
+    lk, lp = lk.cpu().numpy(), lp[keep].cpu().numpy()
+    k_last, p_last = float(lk[-200:].mean()), float(lp[-200:].mean())
+    k_first, p_first = float(lk[:100].mean()), float(lp[:100].mean())
+    gap = abs(k_last - p_last) / abs(p_last)
+    if not (np.isfinite(lk).all() and np.isfinite(lp).all()):
+        raise AssertionError("phase 4: non-finite losses")
+    if gap > 0.02 or not (k_last < k_first and p_last < p_first):
+        raise AssertionError(
+            f"phase 4: kernel last-200 {k_last} vs plain {p_last} "
+            f"(first-100 {k_first} / {p_first})")
+    print(f"phase 4 philox ok: 50-step twin rel err {bits_rel:.2e}; "
+          f"{steps} steps last-200 mean kernel {k_last:.1f} plain "
+          f"{p_last:.1f} (gap {100 * gap:.3f}%), first-100 {k_first:.1f} / "
+          f"{p_first:.1f}", flush=True)
+
+    # -- 5. main path through the user's entry points ---------------------
+    cfg_g = dlgm.Config(**BENCH, lr=LR, seed=0, steps=300, device="cuda")
+    cfg_f = dlgm.Config(**BENCH, lr=LR, seed=0, steps=3000, device="cuda")
+    fv.LAUNCHES = 0
+    out_g = dlgm.run_svi(cfg_g)
+    out_f = dlgm.run_svi_fused(cfg_f)
+    torch.cuda.synchronize()
+    launches = fv.LAUNCHES
+    if launches < 1:
+        raise AssertionError("phase 5: run_svi_fused never launched the "
+                             "kernel")
+    for name, out in (("run_svi", out_g), ("run_svi_fused", out_f)):
+        ls = out["losses"]
+        if not (np.isfinite(ls).all() and np.isfinite(out["sigma_x"])
+                and out["sigma_x"] > 0):
+            raise AssertionError(f"phase 5: {name} gave non-finite output")
+        if not ls[-20:].mean() < ls[:20].mean():
+            raise AssertionError(f"phase 5: {name} loss did not fall")
+    # timing, after the runs above warmed everything up
+    gen = torch.Generator(device=dev).manual_seed(1)
+    svi, res = out_g["svi"], out_g["result"]
+    g_steps = 200
+    g_ms, _ = _cuda_ms(torch, lambda: svi.run(gen, g_steps, state=res.state,
+                                              model_args=(out_g["x"],)))
+    f_steps = 3000
+    pf, (mf, vf) = out_f["params"], out_f["opt_state"]
+    f_ms, _ = _cuda_ms(torch, lambda: fv.fused_train(
+        out_f["x"], pf, mf, vf, steps=f_steps, lr=LR, seed=7, batch=b,
+        t0=cfg_f.steps))
+    g_rate, f_rate = 1e3 * g_steps / g_ms, 1e3 * f_steps / f_ms
+    print(f"phase 5 main path ok [{card}]: run_svi final ELBO "
+          f"{out_g['final_elbo']:.1f} sigma_x {out_g['sigma_x']:.4f} "
+          f"{g_rate:.1f} steps/s; run_svi_fused final ELBO "
+          f"{out_f['final_elbo']:.1f} sigma_x {out_f['sigma_x']:.4f} "
+          f"{f_rate:.1f} steps/s; kernel C calls (LAUNCHES) {launches}, "
+          f"{3 * cfg_f.steps} kernels enqueued",
+          flush=True)
+
+    # -- 6. plain version's time at the same shape ------------------------
+    idx, eps = streams(200)
+    fv.reference_train(x, p0, m0, v0, idx_stream=idx[:20],
+                       eps_stream=eps[:20], lr=LR)
+    plain_ms, _ = _cuda_ms(torch, lambda: fv.reference_train(
+        x, p0, m0, v0, idx_stream=idx, eps_stream=eps, lr=LR))
+    plain_step_ms = plain_ms / 200
+    kernel_step_ms = f_ms / f_steps
+    print(f"phase 6 plain timing ok [{card}]: reference_train "
+          f"{plain_step_ms:.4f} ms/step, kernel {kernel_step_ms:.4f} "
+          f"ms/step", flush=True)
+
+    # -- 7. where the device time goes, under torch.profiler --------------
+    traces = {
+        "fused_train": _trace(torch, lambda: fv.fused_train(
+            out_f["x"], pf, mf, vf, steps=TRACE_FUSED_STEPS, lr=LR, seed=8,
+            batch=b, t0=cfg_f.steps + f_steps), TRACE_FUSED_STEPS),
+        "run_svi engine": _trace(torch, lambda: svi.run(
+            gen, TRACE_HOST_STEPS, state=res.state,
+            model_args=(out_g["x"],)), TRACE_HOST_STEPS),
+        "reference_train": _trace(torch, lambda: fv.reference_train(
+            x, p0, m0, v0, idx_stream=idx[:TRACE_HOST_STEPS],
+            eps_stream=eps[:TRACE_HOST_STEPS], lr=LR), TRACE_HOST_STEPS),
+    }
+    print(f"phase 7 trace ok [{card}]: "
+          + "; ".join(f"{k} {v}" for k, v in traces.items()), flush=True)
+
+    kernels = {"kernels": [{
+        "name": "fused_vae_train",
+        "route": "cuda",
+        "source": "bayesic_tpu_torch/csrc/fused_vae.cu",
+        "replaces": "bayesic_tpu/ops/fused_vae.py:199",
+        "launches": launches,
+        "max_abs_err": max_abs_err,
+        "ms": kernel_step_ms,
+        "plain_ms": plain_step_ms,
+    }]}
+    print(json.dumps(kernels))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()
