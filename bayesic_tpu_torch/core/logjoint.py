@@ -18,7 +18,8 @@ import torch
 from ..dist.transforms import biject_to
 from . import handlers
 
-__all__ = ["ModelInfo", "inspect_model", "build_logjoint"]
+__all__ = ["ModelInfo", "inspect_model", "build_logjoint", "init_to_prior",
+           "init_to_uniform"]
 
 
 class ModelInfo(NamedTuple):
@@ -94,6 +95,36 @@ def inspect_model(model, *args, rng_key=None, **kwargs) -> ModelInfo:
         has_subsample, subsample_sites, tuple(param_names),
         param_transforms, param_init,
     )
+
+
+def init_to_prior(model, info, *args, rng_key=None, **kwargs):
+    """Initial unconstrained params from one prior draw (``rng_key`` a
+    ``torch.Generator``; a CPU generator seeded with 0 by default)."""
+    gen = rng_key if rng_key is not None else _default_generator()
+    tr = _model_trace(model, args, kwargs, gen)
+    return {n: info.transforms[n].inverse(tr[n]["value"])
+            for n in info.latent_names}
+
+
+def init_to_uniform(info, rng_key=None, radius=2.0, uniforms=None):
+    """Stan-style init: u ~ Uniform(-radius, radius) per coordinate.
+
+    The U(0, 1) draws come from the ``torch.Generator`` ``rng_key``, one
+    site after another, or are given as ``uniforms`` (..., dim) in the
+    flat order of ``infer.svi.unraveler`` — ``MCMC`` passes per-chain
+    streams so, leading chain axes and all, each chain's init depends on its
+    logical index only."""
+    if uniforms is None:
+        if rng_key is None:
+            raise ValueError("init_to_uniform needs rng_key or uniforms")
+        uniforms = torch.cat([
+            torch.rand(math.prod(info.unconstrained_shapes[n]),
+                       generator=rng_key, device=rng_key.device)
+            for n in info.latent_names])
+    from ..infer.svi.guides import unraveler
+
+    _, unravel, _ = unraveler(info)
+    return unravel(radius * (2.0 * uniforms - 1.0))
 
 
 def build_logjoint(model, *args, rng_key=None, **kwargs):

@@ -1,1 +1,1 @@
-"""Inference backends (SVI so far)."""
+"""Inference backends: SVI and MCMC (NUTS, HMC)."""

@@ -1,12 +1,45 @@
 """Variational guides over a model's unconstrained latent space.
 
 Counterpart of ``bayesic_tpu/infer/svi/guides.py``; the DLGM path needs the
-interface and the amortized ``NeuralGuide``.
+interface and the amortized ``NeuralGuide``; ``MCMC`` needs ``unraveler``.
 """
 
 from __future__ import annotations
 
-__all__ = ["Guide", "NeuralGuide"]
+import math
+
+import torch
+
+__all__ = ["unraveler", "Guide", "NeuralGuide"]
+
+
+def unraveler(info):
+    """(dim, unravel, ravel) for ``info.unconstrained_shapes``; ``unravel``
+    and ``ravel`` keep any leading batch dims of their input."""
+    names = list(info.latent_names)
+    shapes = [tuple(info.unconstrained_shapes[n]) for n in names]
+    sizes = [math.prod(s) for s in shapes]
+    offsets = [0]
+    for s in sizes:
+        offsets.append(offsets[-1] + s)
+    dim = offsets[-1]
+
+    def unravel(flat):
+        batch = tuple(flat.shape[:-1])
+        return {
+            n: flat[..., o:o + s].reshape(batch + shape)
+            for n, o, s, shape in zip(names, offsets, sizes, shapes)
+        }
+
+    def ravel(uparams):
+        some = uparams[names[0]]
+        batch = tuple(some.shape[:some.dim() - len(shapes[0])])
+        return torch.cat(
+            [uparams[n].reshape(batch + (s,)) for n, s in zip(names, sizes)],
+            dim=-1,
+        )
+
+    return dim, unravel, ravel
 
 
 class Guide:

@@ -1,1 +1,1 @@
-"""Example models ported so far: the DLGM (SVI half)."""
+"""Example models ported so far: the DLGM (SVI and local-posterior NUTS)."""

@@ -1,5 +1,5 @@
 """Example 5 — deep latent Gaussian model (DLGM) with a VAE-style amortized
-guide: the SVI half.
+guide, and NUTS over the local latents under the trained decoder.
 
 Counterpart of ``bayesic_tpu/models/dlgm.py``.  Two entry points train the
 same model with the same estimator:
@@ -9,7 +9,13 @@ same model with the same estimator:
 * ``run_svi_fused``: ``ops/fused_vae.fused_train``, which on a GPU runs all
   steps in the hand-written kernel.
 
-The NUTS half (``local_posterior_mcmc``) waits for the MCMC port.
+Two entry points sample the local posterior of z for a batch of rows:
+
+* ``local_posterior_mcmc``: DSL model -> ``build_logjoint`` -> ``MCMC`` ->
+  the batched NUTS core, one Python leaf at a time.
+* ``local_posterior_mcmc_fused``: the same ``MCMC`` sampler with its
+  ``batched_transition`` hook running ``ops/fused_nuts``, which on a GPU
+  runs each whole transition of every chain in one kernel launch.
 
 Run: ``python -m bayesic_tpu_torch.models.dlgm --smoke true --device cuda``
 """
@@ -27,8 +33,11 @@ from torch.func import functional_call
 from .. import dist
 from ..core import param, plate, sample
 from ..dist import constraints
+from ..infer.mcmc import MCMC
 from ..infer.svi import SVI, Adam, NeuralGuide
 from ..ops import fused_vae as fv
+from ..ops.fused_nuts import make_batched_transition
+from ..utils import diagnostics as diag
 from ..utils.config import dump_config, parse_config
 from .common import bench_line, timed_steps
 
@@ -48,6 +57,11 @@ class Config:
     steps: int = 3000
     lr: float = 1e-3
     seed: int = 0
+    # NUTS variant
+    num_chains: int = 64
+    nuts_batch: int = 4
+    num_warmup: int = 300
+    num_samples: int = 300
     smoke: bool = False
     bench: bool = False
     device: str = "cpu"
@@ -276,11 +290,69 @@ def run_svi_fused(cfg: Config, generator=None):
     }
 
 
+def local_posterior_model(cfg: Config, dec, dec_params, sigma_x, x_batch):
+    """The model of z for the rows of ``x_batch`` under a fixed decoder:
+    z ~ N(0, I) (nb, latent), x ~ N(dec(z), sigma_x)."""
+    nb = int(x_batch.shape[0])
+
+    def model():
+        z = sample(
+            "z", dist.Normal(0.0, 1.0).expand((nb, cfg.latent_dim))
+            .to_event(2)
+        )
+        mu = functional_call(dec, dec_params, (z,))
+        sample("obs", dist.Normal(mu, sigma_x).to_event(2), obs=x_batch)
+
+    return model
+
+
+def local_posterior_mcmc(cfg: Config, dec, dec_params, sigma_x, x_batch,
+                         seed, shared_adapt=None):
+    """NUTS over the local latents z of ``x_batch``'s rows for a fixed
+    decoder: the many-chain workload of the DLGM, on ``x_batch``'s device.
+    Returns ``(mcmc, result)``.  Chain sharding over a mesh is not
+    ported."""
+    if shared_adapt is None:
+        # pooled adaptation is the right default once chains are many
+        shared_adapt = cfg.num_chains >= 64
+    mcmc = MCMC(local_posterior_model(cfg, dec, dec_params, sigma_x, x_batch),
+                num_warmup=cfg.num_warmup, num_samples=cfg.num_samples,
+                num_chains=cfg.num_chains, init_step_size=0.2,
+                shared_adapt=shared_adapt,
+                device=x_batch.device)
+    return mcmc, mcmc.run(seed)
+
+
+def local_posterior_mcmc_fused(cfg: Config, dec, dec_params, sigma_x,
+                               x_batch, *, max_doublings=6, run_seed=None):
+    """The same workload through ``ops/fused_nuts``: the same model density
+    and ``MCMC`` sampler (pooled adaptation, Welford windows, diagnostics),
+    with each transition of every chain in one kernel launch on a GPU.
+    Returns the ``MCMC`` object, or ``(mcmc, mcmc.run(run_seed))``.
+
+    The JAX function's ``block_chains``, ``mm_dtype`` and ``interpret``
+    are not ported: the kernel runs one thread block per chain, so there
+    is no chain block to size; every product is fp32, so there is no
+    precision split to choose; and a CPU tensor runs the plain version, so
+    no interpret mode is needed."""
+    bt = make_batched_transition(dec_params, float(sigma_x), x_batch,
+                                 max_doublings=max_doublings)
+    mcmc = MCMC(local_posterior_model(cfg, dec, dec_params, sigma_x, x_batch),
+                num_warmup=cfg.num_warmup, num_samples=cfg.num_samples,
+                num_chains=cfg.num_chains, init_step_size=0.2,
+                shared_adapt=True, batched_transition=bt,
+                device=x_batch.device)
+    if run_seed is not None:
+        return mcmc, mcmc.run(run_seed)
+    return mcmc
+
+
 def run(cfg: Config, generator=None):
     if cfg.smoke:
         cfg = dataclasses.replace(
             cfg, num_data=512, data_dim=8, latent_dim=3, hidden=16,
-            batch_size=64, steps=300,
+            batch_size=64, steps=300, num_chains=8, num_warmup=100,
+            num_samples=100, nuts_batch=2,
         )
     out = run_svi(cfg, generator)
     # reconstruction check
@@ -290,6 +362,16 @@ def run(cfg: Config, generator=None):
         recon = functional_call(out["decoder"], out["decoder_params"],
                                 (mu_z,))
     out["recon_rmse"] = float(torch.sqrt(torch.mean((recon - x) ** 2)))
+
+    # NUTS variant on a small batch
+    _, mres = local_posterior_mcmc(
+        cfg, out["decoder"], out["decoder_params"], out["sigma_x"],
+        out["x"][:cfg.nuts_batch], cfg.seed + 1,
+    )
+    z = mres.samples["z"]
+    out["nuts_min_ess"] = float(torch.min(
+        diag.ess(z.reshape(z.shape[0], z.shape[1], -1))))
+    out["nuts_divergences"] = int(mres.extra["diverging"].sum())
     return out
 
 
@@ -300,6 +382,8 @@ def main(argv=None):
     print(f"final ELBO = {out['final_elbo']:.1f}")
     print(f"sigma_x = {out['sigma_x']:.3f} (true 0.3)")
     print(f"recon RMSE = {out['recon_rmse']:.3f}")
+    print(f"NUTS z-posterior: min ESS = {out['nuts_min_ess']:.0f}, "
+          f"divergences = {out['nuts_divergences']}")
 
 
 if __name__ == "__main__":

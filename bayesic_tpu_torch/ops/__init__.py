@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels (``csrc/``) with their plain PyTorch
 versions.  A wrapper runs the plain version only for tensors on the CPU; on
-a CUDA tensor it launches the kernel or raises."""
+a CUDA tensor it launches the kernel or raises.  ``fused_nuts`` builds on
+``infer.mcmc`` and is imported as a module."""
 
 from .fused_vae import fused_train, fused_train_injected, reference_train
 

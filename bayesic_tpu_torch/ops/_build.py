@@ -2,9 +2,11 @@
 
 The sources have a plain C interface and are bound with ``ctypes``: a build
 takes seconds, where one that includes PyTorch's headers takes minutes.
-The library lands in ``csrc/build/`` under a name that carries a hash of
-the sources, so an edited source is rebuilt and a stale library is never
-loaded.  A missing ``nvcc`` or a failed build raises.
+Each ``.cu`` compiles in its own ``nvcc`` process, all started together,
+and one more links them into a library that lands in ``csrc/build/`` under
+a name that carries a hash of the sources, so an edited source is rebuilt
+and a stale library is never loaded.  A missing ``nvcc`` or a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "load", "build_log",
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -58,6 +60,43 @@ def _declare(lib):
     lib.fused_vae_train.restype = i32
     lib.bt_error_string.argtypes = [i32]
     lib.bt_error_string.restype = ctypes.c_char_p
+    f32 = ctypes.c_float
+    lib.fused_nuts_smem_bytes.argtypes = [i32] * 5
+    lib.fused_nuts_smem_bytes.restype = ctypes.c_size_t
+    lib.fused_nuts_transition.argtypes = (
+        [vp] * 22 + [i32] * 6 + [f32, f32, vp])
+    lib.fused_nuts_transition.restype = i32
+    lib.fused_nuts_potential.argtypes = [vp] * 8 + [i32] * 5 + [f32, vp]
+    lib.fused_nuts_potential.restype = i32
+
+
+def _run_all(cmds):
+    """Run the commands side by side; returns their combined output, or
+    raises with it if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(outs)
+    bad = [(c, p.returncode) for c, p in zip(cmds, procs) if p.returncode]
+    if bad:
+        raise RuntimeError(f"nvcc failed ({bad[0][1]}): "
+                           f"{' '.join(bad[0][0])}\n{log}")
+    return log
+
+
+def _compile(cus, tmp, so):
+    """One nvcc per source, all at once, then one link; the library is
+    moved into place only when complete."""
+    nvcc = _nvcc()
+    objs = [tmp / (cu.stem + ".o") for cu in cus]
+    log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(cu)]
+                    for cu, o in zip(cus, objs)])
+    out = tmp / so.name
+    log += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(out),
+                      *map(str, objs)]])
+    os.replace(out, so)
+    return log
 
 
 def load():
@@ -75,16 +114,8 @@ def load():
         so = BUILD_DIR / f"libbayesic_kernels_{h.hexdigest()[:16]}.so"
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cus)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            _log = res.stdout + res.stderr
-            if res.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}):\n{_log}")
-            os.replace(tmp, so)
+            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+                _log = _compile(cus, Path(tmp), so)
         lib = ctypes.CDLL(str(so))
         _declare(lib)
         _lib = lib

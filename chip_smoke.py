@@ -1,18 +1,30 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's DLGM SVI main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's two DLGM main paths once on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
-hand-written kernel from ``bayesic_tpu_torch/csrc/``, checks it against its
-plain PyTorch version at the bench shape (N=65,536, D=128, Z=32, H=256,
-B=1024), drives both DLGM entry points (``run_svi`` and
-``run_svi_fused``), times the kernel and the plain version, and traces
-where the device time of each path goes.  Each phase prints one line and
-raises on failure.  The line before the last is a JSON object with one
-entry per kernel, whose ``launches`` counts ``fused_vae.LAUNCHES``: one per
-call of the kernel's C entry, which enqueues three kernels for each of the
-call's steps.  The last line is ``{"ok": true, "device": {...}}``.  Without
-a CUDA device, or outside a checkout, it exits non-zero and prints no
-result.
+hand-written kernels from ``bayesic_tpu_torch/csrc/``.
+
+Phases 1-7, the SVI path: check the fused VAE kernel against its plain
+PyTorch version at the SVI bench shape (N=65,536, D=128, Z=32, H=256,
+B=1024), drive both entry points (``run_svi`` and ``run_svi_fused``), time
+the kernel and the plain version, and trace where the device time goes.
+
+Phases 8-11, the local-posterior NUTS path at its bench shape (1024
+chains, 64 rows, latent 8, hidden 64, data 32): check the fused NUTS
+kernel's potential and one whole transition against the plain versions,
+drive ``local_posterior_mcmc_fused`` and ``local_posterior_mcmc`` after
+training the decoder with ``run_svi``, gate their posteriors (split-R-hat,
+agreement of the means and variances within Monte-Carlo error), time one
+transition of the kernel and of the plain version, and trace both paths
+and the stream draws.
+
+Each phase prints one line and raises on failure.  The line before the
+last is a JSON object with one entry per kernel: ``fused_vae_train``'s
+``launches`` counts calls of its C entry (each enqueues three kernels per
+step), ``fused_nuts_transition``'s counts kernel launches (one transition
+of every chain each).  The last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or outside a checkout, it exits non-zero and prints
+no result.
 """
 
 from __future__ import annotations
@@ -30,6 +42,17 @@ LR = 1e-3
 # steps per traced window (phase 7): the kernel path, and the host-bound
 # generic engine and plain version
 TRACE_FUSED_STEPS, TRACE_HOST_STEPS = 200, 20
+# the local-posterior NUTS bench (JAX benchmarks/harness.py:644-684): the
+# decoder is trained by run_svi on NUTS_SVI, then 1024 chains sample the z
+# of 64 rows, 200 warmup and 200 sampling transitions, pooled adaptation
+NUTS_SVI = dict(num_data=2048, data_dim=32, latent_dim=8, hidden=64,
+                batch_size=256, steps=200)
+NUTS_CHAINS, NUTS_ROWS, NUTS_WARMUP, NUTS_SAMPLES = 1024, 64, 200, 200
+NUTS_K, GENERIC_DEPTH = 6, 10       # max_doublings (fused), max_depth
+# phase 9 step sizes at a random start: the trees reach depth 3-6 at the
+# first; at the second about a quarter of the chains diverge
+EPS_SMALL, EPS_DIVERGE = 0.05, 0.27
+TRACE_NUTS_FUSED, TRACE_NUTS_GENERIC = 20, 3     # transitions per trace
 
 
 def _fail(msg):
@@ -57,11 +80,12 @@ def _cuda_ms(torch, fn, reps=1):
     return start.elapsed_time(end) / reps, out
 
 
-def _trace(torch, fn, steps):
-    """Profile one call of ``fn`` (already warm) that runs ``steps`` steps:
-    device busy ms per step (union of kernel intervals), idle share of the
-    window from the first kernel's start to the last one's end, kernels
-    per step, and the three busiest kernel names with their share."""
+def _trace(torch, fn, steps, unit="step"):
+    """Profile one call of ``fn`` (already warm) that runs ``steps`` steps
+    (or transitions, ``unit``): device busy ms per step (union of kernel
+    intervals), idle share of the window from the first kernel's start to
+    the last one's end, kernels per step, and the three busiest kernel
+    names with their share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -91,9 +115,9 @@ def _trace(torch, fn, steps):
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
     total = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
-    return (f"busy {busy / 1e3 / steps:.4f} ms/step, idle "
+    return (f"busy {busy / 1e3 / steps:.4f} ms/{unit}, idle "
             f"{100 * (1 - busy / window):.1f}%, "
-            f"{len(kern) / steps:.1f} kernels/step ("
+            f"{len(kern) / steps:.1f} kernels/{unit} ("
             + ", ".join(f"{k} {100 * t / total:.1f}%" for k, t in top) + ")")
 
 
@@ -104,7 +128,9 @@ def _ptxas_summary(log):
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             name = next((k for k in ("row_kernel", "atg_kernel",
-                                     "adam_kernel") if k in mangled), mangled)
+                                     "adam_kernel", "nuts_kernel",
+                                     "potential_kernel") if k in mangled),
+                        mangled)
             stats[name] = {}
         elif name and "spill stores" in line:
             stats[name]["spill"] = (line.split("bytes spill stores")[0]
@@ -117,9 +143,25 @@ def _ptxas_summary(log):
         for k, v in stats.items()) or "library already built"
 
 
+def _posterior(diag, torch, res, wall):
+    """min ESS, max split-R-hat, divergences, mean leapfrogs per transition,
+    final step size and min-ESS/s of one MCMC result (on the device)."""
+    qs = res.unconstrained
+    if not bool(torch.isfinite(qs).all()):
+        raise AssertionError("non-finite samples")
+    min_ess = float(diag.ess(qs).min())
+    return dict(min_ess=min_ess, max_rhat=float(diag.split_rhat(qs).max()),
+                divergences=int(res.extra["diverging"].sum()),
+                leapfrogs=float(res.extra["num_steps"].float().mean()),
+                step_size=float(res.extra["step_size"].mean()), wall_s=wall,
+                ess_per_s=min_ess / wall)
+
+
 def main():
     import numpy as np
     import torch
+
+    t_start = time.perf_counter()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -299,6 +341,193 @@ def main():
     print(f"phase 7 trace ok [{card}]: "
           + "; ".join(f"{k} {v}" for k, v in traces.items()), flush=True)
 
+    # -- 8. the NUTS kernel's potential at the NUTS bench shape -----------
+    from bayesic_tpu_torch.infer.mcmc import (MCMC, IntegratorState,
+                                              StreamKey, nuts_streams)
+    from bayesic_tpu_torch.ops import fused_nuts as fn
+    from bayesic_tpu_torch.utils import diagnostics as diag
+
+    ncfg = dlgm.Config(**NUTS_SVI, num_chains=NUTS_CHAINS,
+                       num_warmup=NUTS_WARMUP, num_samples=NUTS_SAMPLES,
+                       seed=0, device="cuda")
+    dim = NUTS_ROWS * ncfg.latent_dim
+    dec = dlgm.Decoder(ncfg.latent_dim, ncfg.hidden, ncfg.data_dim,
+                       torch.Generator().manual_seed(0)).to(dev)
+    dparams = {k: p.detach() for k, p in dec.named_parameters()}
+    w = fn.decoder_weights(dparams)
+    xb = torch.as_tensor(dlgm.make_data(ncfg)[:NUTS_ROWS], device=dev)
+    sig = 0.3
+    rng = np.random.default_rng(2)
+    q0 = torch.as_tensor(
+        (0.7 * rng.standard_normal((NUTS_CHAINS, dim))).astype(np.float32),
+        device=dev)
+    pe_k, g_k = fn.fused_nuts_potential(q0, *w, xb, sigma=sig)
+    refs = {"plain": fn.dense_potential(*w, xb, sig)(q0),
+            "autograd": MCMC(
+                dlgm.local_posterior_model(ncfg, dec, dparams, sig, xb),
+                num_warmup=0, num_samples=1, num_chains=NUTS_CHAINS,
+                device=dev)._potential_and_grad(q0)}
+    errs = []
+    for name, (pe_r, g_r) in refs.items():
+        pe_rel = float(((pe_k[:, 0] - pe_r).abs() / pe_r.abs()).max())
+        g_rel = float((g_k - g_r).abs().max() / g_r.abs().max())
+        if pe_rel > 1e-5 or g_rel > 1e-4:
+            raise AssertionError(f"phase 8: potential vs {name}: pe rel err "
+                                 f"{pe_rel}, grad err / max|g| {g_rel}")
+        errs.append(f"vs {name} pe max rel err {pe_rel:.2e}, grad max err "
+                    f"/ max|g| {g_rel:.2e}")
+    print(f"phase 8 potential ok: {NUTS_CHAINS} chains x D {dim}: "
+          + "; ".join(errs), flush=True)
+
+    # -- 9. one whole transition with injected streams -------------------
+    # at the fused path's K, and once at the generic path's max_depth
+    ones = torch.ones(dim, device=dev)
+    nuts_err, lines = 0.0, []
+    for kk, eps in ((NUTS_K, EPS_SMALL), (NUTS_K, EPS_DIVERGE),
+                    (GENERIC_DEPTH, EPS_SMALL)):
+        streams = nuts_streams(StreamKey(9, 2, 0), NUTS_CHAINS, dim, kk, dev)
+        args = (q0, pe_k, g_k, *streams, eps, ones, *w, xb)
+        got = fn.fused_nuts_transition(*args, sigma=sig, max_doublings=kk)
+        want = fn.reference_transition(*args, sigma=sig, max_doublings=kk)
+        torch.cuda.synchronize()
+        same = ((got[4] == want[4]) & (got[5] == want[5])
+                & (got[6] == want[6]))[:, 0]
+        n_diff = NUTS_CHAINS - int(same.sum())
+        if n_diff > 0.01 * NUTS_CHAINS:
+            raise AssertionError(f"phase 9: K {kk} eps {eps}: {n_diff} "
+                                 f"chains differ in depth/steps/divergence")
+        rel = {}
+        for i, name in ((0, "q"), (1, "pe"), (7, "h0")):
+            a, b = got[i][same], want[i][same]
+            err = (a - b).abs()
+            if bool((err > 1e-4 * b.abs() + (1e-4 if i == 0 else 0)).any()):
+                raise AssertionError(f"phase 9: K {kk} eps {eps}: {name} "
+                                     f"max abs err {float(err.max())}")
+            rel[name] = float((err / b.abs().clamp(min=1e-3)).max())
+            if i == 0:
+                nuts_err = max(nuts_err, float(err.max()))
+        pe_chk = fn.fused_nuts_potential(got[0], *w, xb, sigma=sig)[0]
+        inv = float(((got[1] - pe_chk).abs() / pe_chk.abs()).max())
+        if inv > 1e-5:
+            raise AssertionError(f"phase 9: pe' != pe(q'), rel err {inv}")
+        n_div = int(got[4].sum())
+        if eps == EPS_DIVERGE and n_div == 0:
+            raise AssertionError(f"phase 9: no chain diverged at eps {eps}")
+        depth = torch.bincount(got[5][:, 0].long(), minlength=kk + 1)
+        lines.append(
+            f"K {kk} eps {eps}: {n_diff} chains differ, {n_div} diverged, "
+            f"depths {depth.tolist()}, max rel err q {rel['q']:.2e} pe "
+            f"{rel['pe']:.2e} h0 {rel['h0']:.2e}, pe'=pe(q') rel err "
+            f"{inv:.2e}")
+    print(f"phase 9 transition ok ({NUTS_CHAINS} chains): "
+          + "; ".join(lines), flush=True)
+
+    # -- 10. NUTS main path through the user's entry points --------------
+    out = dlgm.run_svi(dlgm.Config(**NUTS_SVI, seed=0, device="cuda"))
+    lp = (out["decoder"], out["decoder_params"], out["sigma_x"],
+          out["x"][:NUTS_ROWS])
+    fn.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mcmc_f, res_f = dlgm.local_posterior_mcmc_fused(
+        ncfg, *lp, max_doublings=NUTS_K, run_seed=2)
+    torch.cuda.synchronize()
+    wall_f = time.perf_counter() - t
+    nuts_launches = fn.LAUNCHES
+    if nuts_launches < NUTS_WARMUP + NUTS_SAMPLES:
+        raise AssertionError(f"phase 10: the fused path launched the kernel "
+                             f"{nuts_launches} times")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    # another seed: with the same one both paths would draw the same
+    # streams and, to float rounding, run the same chains
+    mcmc_g, res_g = dlgm.local_posterior_mcmc(ncfg, *lp, 3)
+    torch.cuda.synchronize()
+    wall_g = time.perf_counter() - t
+    paths = {"local_posterior_mcmc_fused": _posterior(diag, torch, res_f,
+                                                      wall_f),
+             "local_posterior_mcmc": _posterior(diag, torch, res_g, wall_g)}
+    for name, st in paths.items():
+        if not st["max_rhat"] < 1.01:
+            raise AssertionError(f"phase 10: {name} max split-R-hat "
+                                 f"{st['max_rhat']}")
+    # the two paths' per-coordinate mean and variance of z agree within
+    # 5 x their combined Monte-Carlo error (the variance's from the MCSE
+    # of the squared deviations); 1e-6 covers float rounding only
+    qf, qg = res_f.unconstrained, res_g.unconstrained
+    mf, mg = qf.mean((0, 1)), qg.mean((0, 1))
+    sqf, sqg = (qf - mf) ** 2, (qg - mg) ** 2
+    ratios = {}
+    for name, gap, bound in (
+            ("mean", mf - mg, diag.mcse(qf) + diag.mcse(qg)),
+            ("var", sqf.mean((0, 1)) - sqg.mean((0, 1)),
+             diag.mcse(sqf) + diag.mcse(sqg))):
+        ratio = gap.abs() / (5 * bound + 1e-6)
+        if bool((ratio > 1).any()):
+            raise AssertionError(f"phase 10: posterior {name}s differ, max "
+                                 f"|gap| / bound {float(ratio.max())}")
+        ratios[name] = float(ratio.max())
+    print(f"phase 10 NUTS main path ok [{card}]: decoder sigma_x "
+          f"{out['sigma_x']:.4f}; {NUTS_CHAINS} chains x {NUTS_ROWS} rows, "
+          f"{NUTS_WARMUP} warmup + {NUTS_SAMPLES} samples; "
+          + "; ".join(
+              f"{k}: min ESS {v['min_ess']:.1f}, max R-hat "
+              f"{v['max_rhat']:.4f}, divergences {v['divergences']}, "
+              f"wall {v['wall_s']:.2f} s, min-ESS/s {v['ess_per_s']:.1f}, "
+              f"{v['leapfrogs']:.2f} leapfrogs/transition, step size "
+              f"{v['step_size']:.4f}" for k, v in paths.items())
+          + f"; max |gap| / 5 MCSE: mean {ratios['mean']:.3f}, variance "
+          f"{ratios['var']:.3f}; kernel launches {nuts_launches}", flush=True)
+
+    # -- 11. NUTS times: one transition, then traces of both paths -------
+    def start(mcmc, res):
+        q = res.unconstrained[:, -1].contiguous()
+        pe, g = mcmc._potential_and_grad(q)
+        return IntegratorState(q, torch.zeros_like(q), pe, g)
+
+    st = start(mcmc_f, res_f)
+    step, inv_mass = res_f.extra["step_size"], res_f.extra["inv_mass"]
+    wf = fn.decoder_weights(lp[1])
+    args = (st.q, st.pe[:, None], st.grad,
+            *nuts_streams(StreamKey(11, 2, 0), NUTS_CHAINS, dim, NUTS_K,
+                          dev), step, inv_mass, *wf, lp[3])
+    kw = dict(sigma=lp[2], max_doublings=NUTS_K)
+    fn.fused_nuts_transition(*args, **kw)
+    fn.reference_transition(*args, **kw)
+    nuts_ms, _ = _cuda_ms(torch, lambda: fn.fused_nuts_transition(*args,
+                                                                  **kw), 20)
+    nuts_plain_ms, _ = _cuda_ms(torch, lambda: fn.reference_transition(
+        *args, **kw), 3)
+
+    def sample_loop(mcmc, res, n):
+        s0 = start(mcmc, res)
+
+        def run():
+            s = s0
+            for i in range(n):
+                s, _ = mcmc._sample_step(99, s, res.extra["step_size"],
+                                         res.extra["inv_mass"], i)
+        return run
+
+    traces = {
+        "fused NUTS sampling": _trace(
+            torch, sample_loop(mcmc_f, res_f, TRACE_NUTS_FUSED),
+            TRACE_NUTS_FUSED, "transition"),
+        "generic NUTS sampling": _trace(
+            torch, sample_loop(mcmc_g, res_g, TRACE_NUTS_GENERIC),
+            TRACE_NUTS_GENERIC, "transition"),
+        # the share of the fused path's launches that draws the streams
+        "nuts_streams alone": _trace(torch, lambda: [
+            nuts_streams(StreamKey(12, 2, i), NUTS_CHAINS, dim, NUTS_K, dev)
+            for i in range(TRACE_NUTS_FUSED)], TRACE_NUTS_FUSED, "call"),
+    }
+    print(f"phase 11 NUTS times ok [{card}]: one transition at the bench "
+          f"state: kernel {nuts_ms:.4f} ms, plain reference_transition "
+          f"{nuts_plain_ms:.4f} ms; "
+          + "; ".join(f"{k} {v}" for k, v in traces.items()), flush=True)
+    print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
     kernels = {"kernels": [{
         "name": "fused_vae_train",
         "route": "cuda",
@@ -308,6 +537,15 @@ def main():
         "max_abs_err": max_abs_err,
         "ms": kernel_step_ms,
         "plain_ms": plain_step_ms,
+    }, {
+        "name": "fused_nuts_transition",
+        "route": "cuda",
+        "source": "bayesic_tpu_torch/csrc/fused_nuts.cu",
+        "replaces": "bayesic_tpu/ops/fused_nuts.py:573",
+        "launches": nuts_launches,
+        "max_abs_err": nuts_err,
+        "ms": nuts_ms,
+        "plain_ms": nuts_plain_ms,
     }]}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -66,10 +66,12 @@ def test_main_smoke_prints_results(capsys):
     tdlgm.main(["--smoke", "true", "--steps", "50"])
     text = capsys.readouterr().out
     assert '"smoke": true' in text
-    for key in ("final ELBO", "sigma_x", "recon RMSE"):
+    for key in ("final ELBO", "sigma_x", "recon RMSE", "NUTS z-posterior"):
         assert key in text
     rmse = float(text.split("recon RMSE = ")[1].split()[0])
     assert np.isfinite(rmse)
+    min_ess = float(text.split("min ESS = ")[1].split(",")[0])
+    assert np.isfinite(min_ess) and min_ess > 0
 
 
 def test_fused_init_matches_jax_recipe():
