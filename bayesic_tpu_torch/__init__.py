@@ -1,15 +1,18 @@
 """bayesic_tpu_torch — the PyTorch/CUDA port of bayesic_tpu.
 
 Mirrors the JAX package's module tree; ``bayesic_tpu`` stays the reference
-each module is tested against.  Ported so far: the DLGM SVI path.
+each module is tested against.  Ported so far: the DLGM's SVI and
+local-posterior NUTS paths and the hierarchical logistic regression's SVI
+and full-batch NUTS paths.
 
 Layering:
   dist/      distributions + transforms
   core/      model DSL + joint log-prob compiler
-  infer/svi  STL ELBO, amortized guide, Adam driver
+  infer/svi  STL ELBO, amortized and mean-field guides, Adam driver
+  infer/mcmc NUTS/HMC, adaptation, the MCMC driver
   ops/       hand-written Hopper kernels (csrc/) + plain PyTorch versions
-  models/    the DLGM
-  interop    JAX parameters (as numpy) -> the port's parameters
+  models/    the DLGM and the hierarchical logistic regression
+  interop    JAX parameters (as numpy) <-> the port's parameters
 """
 
 __version__ = "0.1.0"

@@ -19,7 +19,7 @@ from ..dist.transforms import biject_to
 from . import handlers
 
 __all__ = ["ModelInfo", "inspect_model", "build_logjoint", "init_to_prior",
-           "init_to_uniform"]
+           "init_to_uniform", "default_device"]
 
 
 class ModelInfo(NamedTuple):
@@ -39,6 +39,20 @@ class ModelInfo(NamedTuple):
     @property
     def unconstrained_dim(self):
         return sum(math.prod(s) for s in self.unconstrained_shapes.values())
+
+
+def default_device(device, *candidates):
+    """``device`` if given; else the device of the first tensor among the
+    ``candidates`` (each a tensor, a sequence of values, or None); else
+    ``"cuda"``: an engine runs where its data lies, and on the card when
+    nothing says otherwise."""
+    if device is not None:
+        return torch.device(device)
+    for c in candidates:
+        for v in (c if isinstance(c, (tuple, list)) else (c,)):
+            if isinstance(v, torch.Tensor):
+                return v.device
+    return torch.device("cuda")
 
 
 def _default_generator():

@@ -1,9 +1,11 @@
-"""Distributions library: the subset of ``bayesic_tpu.dist`` that the DLGM
-SVI path needs (Normal, expand/to_event/Independent, real and positive
-constraints, Identity/Exp bijectors)."""
+"""Distributions library: the subset of ``bayesic_tpu.dist`` that the
+ported paths need (Normal, HalfNormal, Bernoulli, expand/to_event/
+Independent, real, positive and boolean constraints, Identity/Exp
+bijectors)."""
 
 from . import constraints
-from .continuous import Normal
+from .continuous import HalfNormal, Normal
+from .discrete import Bernoulli
 from .distribution import Distribution, Independent
 from .transforms import Exp, Identity, Transform, biject_to
 
@@ -12,6 +14,8 @@ __all__ = [
     "Distribution",
     "Independent",
     "Normal",
+    "HalfNormal",
+    "Bernoulli",
     "Transform",
     "Identity",
     "Exp",

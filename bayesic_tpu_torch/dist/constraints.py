@@ -1,4 +1,5 @@
-"""Support constraints for distributions (the subset the DLGM path needs).
+"""Support constraints for distributions (the subset the DLGM and
+hierarchical-logistic paths need).
 
 Counterpart of ``bayesic_tpu/dist/constraints.py``.  A ``Constraint``
 describes the support of a distribution; ``biject_to`` (in
@@ -32,5 +33,13 @@ class _Positive(Constraint):
         return x > 0
 
 
+class _Boolean(Constraint):
+    is_discrete = True
+
+    def __call__(self, x):
+        return (x == 0) | (x == 1)
+
+
 real = _Real()
 positive = _Positive()
+boolean = _Boolean()

@@ -15,7 +15,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ...core.logjoint import build_logjoint, init_to_uniform
+from ...core.logjoint import build_logjoint, default_device, init_to_uniform
 from ...utils import diagnostics as diag
 from ..svi.guides import unraveler
 from .adapt import (
@@ -57,7 +57,9 @@ class MCMC:
 
     ``potential_and_grad`` (when no ``model`` is given) is batched:
     ``q (C, D) -> (pe (C,), grad (C, D))``.  ``device`` is where the chains
-    live.  ``batched_transition``, when given, replaces the kernel:
+    live; ``None`` means the device of the first tensor among
+    ``model_args``, ``init_params`` and ``example_q``, or ``"cuda"`` if
+    there is none.  ``batched_transition``, when given, replaces the kernel:
     ``(key, states, step_size, inv_mass) -> (states, NUTSInfo)`` on all
     chains, where ``key`` is the transition's ``streams.StreamKey`` from
     which it draws its own per-chain streams.
@@ -70,7 +72,7 @@ class MCMC:
                  dense_mass=False, init_step_size=0.1, thin=1,
                  hmc_num_steps=32, model_args=(), model_kwargs=None,
                  shared_adapt=False, init_params=None,
-                 batched_transition=None, device="cpu"):
+                 batched_transition=None, device=None):
         self.num_warmup = int(num_warmup)
         self.num_samples = int(num_samples)
         self.num_chains = int(num_chains)
@@ -78,7 +80,8 @@ class MCMC:
         self.target_accept = float(target_accept)
         self.dense_mass = bool(dense_mass)
         self.init_step_size = float(init_step_size)
-        self.device = torch.device(device)
+        self.device = default_device(device, model_args, init_params,
+                                     example_q)
         # pooled cross-chain adaptation: one step size and one mass matrix
         # fed by every chain's statistics (the regime for 100s of chains)
         self.shared_adapt = bool(shared_adapt)

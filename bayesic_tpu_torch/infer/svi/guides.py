@@ -1,7 +1,8 @@
 """Variational guides over a model's unconstrained latent space.
 
 Counterpart of ``bayesic_tpu/infer/svi/guides.py``; the DLGM path needs the
-interface and the amortized ``NeuralGuide``; ``MCMC`` needs ``unraveler``.
+interface and the amortized ``NeuralGuide``, the hierarchical-logistic path
+the ``MeanFieldGuide``; ``MCMC`` needs ``unraveler``.
 """
 
 from __future__ import annotations
@@ -10,7 +11,9 @@ import math
 
 import torch
 
-__all__ = ["unraveler", "Guide", "NeuralGuide"]
+__all__ = ["unraveler", "Guide", "MeanFieldGuide", "NeuralGuide"]
+
+_LOG_2PI = math.log(2.0 * math.pi)
 
 
 def unraveler(info):
@@ -57,6 +60,56 @@ class Guide:
         can encode the same batch the model sees; ``eps``, when not None,
         is noise injected in place of draws from ``generator``."""
         raise NotImplementedError
+
+
+class MeanFieldGuide(Guide):
+    """Diagonal Gaussian q(u) = N(loc, diag(exp(log_scale))^2) over the flat
+    unconstrained vector (``unraveler`` order)."""
+
+    def __init__(self, info, init_scale=0.1):
+        self.dim, self.unravel, self.ravel = unraveler(info)
+        self.init_scale = float(init_scale)
+
+    def init(self, generator, loc=None):
+        """``loc`` 0 unless given (a flat vector or a dict of sites);
+        ``log_scale`` log(init_scale).  Draws nothing; the params land on
+        the generator's device."""
+        device = generator.device
+        if loc is None:
+            loc = torch.zeros(self.dim, device=device)
+        elif isinstance(loc, dict):
+            loc = self.ravel(loc)
+        return {"loc": torch.as_tensor(loc, dtype=torch.float32,
+                                       device=device),
+                "log_scale": torch.full((self.dim,),
+                                        math.log(self.init_scale),
+                                        device=device)}
+
+    def sample_and_log_prob(self, params, generator, sample_shape=(),
+                            stop_gradient_q=False, ctx=None):
+        shape = tuple(sample_shape) + (self.dim,)
+        eps = (ctx or {}).get("eps")
+        if eps is None:
+            eps = torch.randn(shape, generator=generator,
+                              device=generator.device)
+        else:
+            eps = eps.expand(shape)
+        flat = params["loc"] + torch.exp(params["log_scale"]) * eps
+        loc, ls = params["loc"], params["log_scale"]
+        if stop_gradient_q:
+            loc, ls = loc.detach(), ls.detach()
+        z = (flat - loc) * torch.exp(-ls)
+        logq = torch.sum(-0.5 * z * z - ls - 0.5 * _LOG_2PI, -1)
+        return self.unravel(flat), logq
+
+    def entropy(self, params):
+        return torch.sum(params["log_scale"]) \
+            + 0.5 * self.dim * (1.0 + _LOG_2PI)
+
+    def stats(self, params):
+        """Unconstrained-space posterior mean/std per site."""
+        return (self.unravel(params["loc"]),
+                self.unravel(torch.exp(params["log_scale"])))
 
 
 class NeuralGuide(Guide):

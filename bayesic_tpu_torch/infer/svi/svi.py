@@ -13,16 +13,17 @@ Parameters are nested dicts of tensors.  A model with ``param`` sites gets
 
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple
 
 import torch
 
-from ...core.logjoint import build_logjoint
+from ...core.logjoint import build_logjoint, default_device
 from .elbo import draw_subsample, make_elbo
 from .guides import Guide
 
 __all__ = ["Adam", "AdamState", "SVIState", "SVIResult", "SVI",
-           "tree_map", "tree_leaves"]
+           "cosine_decay_schedule", "tree_map", "tree_leaves"]
 
 
 def tree_map(fn, tree, *rest):
@@ -50,9 +51,23 @@ class AdamState(NamedTuple):
     nu: Any
 
 
+def cosine_decay_schedule(lr0, total):
+    """``optax.cosine_decay_schedule(lr0, total)`` (alpha 0): the rate at
+    the 0-based update count ``t`` is ``lr0 * (1 + cos(pi min(t/T, 1)))/2``."""
+    lr0, total = float(lr0), int(total)
+
+    def schedule(t):
+        frac = min(float(t) / total, 1.0)
+        return lr0 * 0.5 * (1.0 + math.cos(math.pi * frac))
+
+    return schedule
+
+
 class Adam:
     """``optax.adam(lr, b1, b2, eps)`` on nested dicts of tensors: takes
-    gradients of the loss (descent direction) and returns new tensors."""
+    gradients of the loss (descent direction) and returns new tensors.
+    ``lr`` is a number or a schedule, a function of the 0-based update
+    count, read before the count advances, as optax reads it."""
 
     def __init__(self, lr, b1=0.9, b2=0.999, eps=1e-8):
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
@@ -64,13 +79,14 @@ class Adam:
     def update(self, grads, state, params):
         """Returns ``(new_params, new_state)``."""
         b1, b2 = self.b1, self.b2
+        lr = self.lr(state.count) if callable(self.lr) else self.lr
         t = state.count + 1
         mu = tree_map(lambda m, g: b1 * m + (1.0 - b1) * g, state.mu, grads)
         nu = tree_map(lambda v, g: b2 * v + (1.0 - b2) * g * g,
                       state.nu, grads)
         bc1, bc2 = 1.0 - b1 ** t, 1.0 - b2 ** t
         new = tree_map(
-            lambda p, m, v: p - self.lr * (m / bc1)
+            lambda p, m, v: p - lr * (m / bc1)
             / (torch.sqrt(v / bc2) + self.eps), params, mu, nu)
         return new, AdamState(t, mu, nu)
 
@@ -89,17 +105,18 @@ class SVIResult(NamedTuple):
 
 
 class SVI:
-    """``SVI(model, guide, Adam(lr), model_args=(x,), device=...)``.
+    """``SVI(model, guide, Adam(lr), model_args=(x,))``.
 
-    ``device`` is where the model's draws land while it is inspected; pass
-    the device of ``model_args``.  Generators passed to ``init``/``run``
-    must live on that device too."""
+    ``device`` is where the parameters live and the model's draws land
+    while it is inspected.  ``None`` means the device of the first tensor
+    in ``model_args``, or ``"cuda"`` if there is none.  Generators passed
+    to ``init``/``run`` must live on that device too."""
 
     def __init__(self, model, guide, optimizer, model_args=(),
                  model_kwargs=None, num_particles=1, stl=True,
-                 device="cpu"):
+                 device=None):
         self.optimizer = optimizer
-        self.device = torch.device(device)
+        self.device = default_device(device, model_args)
         model_kwargs = model_kwargs or {}
         gen = torch.Generator(device=self.device).manual_seed(0)
         self.info, self.logdensity, self.constrain, self.postprocess = \

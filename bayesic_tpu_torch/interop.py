@@ -1,10 +1,12 @@
-"""JAX parameters, given as numpy arrays, -> the port's parameters.
+"""JAX parameters, given as numpy arrays, <-> the port's parameters.
 
 The JAX package keeps flax ``Dense`` kernels as (in, out); ``nn.Linear``
 keeps its weight as (out, in), so every kernel is transposed here.  The
-fused trainer's leaves keep (in, out) on both sides and map one to one.
-Pass pytrees through ``jax.tree.map(np.asarray, tree)`` first; this module
-imports no JAX.
+fused DLGM trainer's leaves keep (in, out) on both sides and map one to
+one.  The fused hier trainer's state is (1, 128) lane vectors in the JAX
+package (lanes 0 .. P-1 hold the flat parameters, the rest are padding) and
+flat (P,) vectors here.  Pass pytrees through ``jax.tree.map(np.asarray,
+tree)`` first; this module imports no JAX.
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ import numpy as np
 import torch
 
 __all__ = ["flax_to_state_dict", "state_dict_to_flax", "svi_params",
-           "fused_leaves", "adam_state"]
+           "fused_leaves", "adam_state", "mean_field_params",
+           "mean_field_to_jax", "hier_lanes_to_flat", "hier_flat_to_lanes"]
 
 
 def _t(a, device):
@@ -68,3 +71,32 @@ def adam_state(count, mu, nu, device="cpu"):
 
     return AdamState(int(count), svi_params(mu, device),
                      svi_params(nu, device))
+
+
+def mean_field_params(params, device="cpu"):
+    """JAX ``MeanFieldGuide`` params ``{"loc", "log_scale"}`` -> the
+    port's (the same flat vectors, as tensors)."""
+    return {k: _t(params[k], device) for k in ("loc", "log_scale")}
+
+
+def mean_field_to_jax(params):
+    """Inverse of ``mean_field_params``, as numpy arrays."""
+    return {k: params[k].detach().cpu().numpy()
+            for k in ("loc", "log_scale")}
+
+
+def hier_lanes_to_flat(lanes, dim, device="cpu"):
+    """JAX fused hier trainer state, a sequence of (1, 128) lane vectors
+    (loc, ls, m1, m2, v1, v2), -> the port's flat (dim,) tensors."""
+    return tuple(_t(np.asarray(v)[0, :dim], device) for v in lanes)
+
+
+def hier_flat_to_lanes(flats):
+    """The port's flat (P,) tensors -> (1, 128) numpy lane vectors with
+    zero padding (the JAX trainer keeps its pad lanes at zero)."""
+    out = []
+    for v in flats:
+        a = np.zeros((1, 128), np.float32)
+        a[0, :v.numel()] = v.detach().cpu().numpy()
+        out.append(a)
+    return tuple(out)

@@ -64,7 +64,7 @@ class Config:
     num_samples: int = 300
     smoke: bool = False
     bench: bool = False
-    device: str = "cpu"
+    device: str = "cuda"
 
 
 def _lecun_init(layer: nn.Linear, generator):

@@ -68,6 +68,19 @@ def _declare(lib):
     lib.fused_nuts_transition.restype = i32
     lib.fused_nuts_potential.argtypes = [vp] * 8 + [i32] * 5 + [f32, vp]
     lib.fused_nuts_potential.restype = i32
+    lib.fused_hier_smem_bytes.argtypes = [i32] * 2
+    lib.fused_hier_smem_bytes.restype = ctypes.c_size_t
+    lib.fused_hier_train.argtypes = (
+        [vp] * 12 + [i32] * 5 + [ctypes.c_longlong, i32, f32, i32, f32,
+                                 ctypes.c_ulonglong, vp])
+    lib.fused_hier_train.restype = i32
+    lib.fused_hier_nuts_smem_bytes.argtypes = [i32] * 3
+    lib.fused_hier_nuts_smem_bytes.restype = ctypes.c_size_t
+    lib.fused_hier_nuts_transition.argtypes = [vp] * 20 + [i32] * 4 + [f32,
+                                                                       vp]
+    lib.fused_hier_nuts_transition.restype = i32
+    lib.fused_hier_nuts_potential.argtypes = [vp] * 6 + [i32] * 3 + [vp]
+    lib.fused_hier_nuts_potential.restype = i32
 
 
 def _run_all(cmds):

@@ -7,9 +7,15 @@ al., SC'11), a counter-based generator, so every draw is a pure function of
 uniform/normal/Adam recipes on tensors, so a test can rebuild the kernel's
 streams on any device and compare.
 
-Counter layout used by the fused trainers: ``(step_lo, row, lane,
+Counter layout of the fused DLGM trainer: ``(step_lo, row, lane,
 step_hi)`` with key ``(seed_lo, seed_hi)``.  Lane 0 gives the row's
 mini-batch index, lane ``1 + l`` the latent noise ``eps[row, l]``.
+
+Counter layout of the fused hierarchical-logistic trainer
+(``hier_streams``): one draw block per step, ``(step_lo, 0, lane,
+step_hi)`` with the same key.  Lane 0 gives the step's circular block
+offset ``min(floor(u n), n - 1)``, lane ``1 + p`` the noise ``eps[p]`` of
+flat parameter ``p``: the DLGM layout with a single row.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import math
 import torch
 
 __all__ = ["philox4x32_10", "uniform24", "kernel_uniform_index",
-           "box_muller", "philox_streams", "adam_leaf"]
+           "box_muller", "philox_streams", "hier_streams", "adam_leaf"]
 
 _MASK32 = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -81,6 +87,13 @@ def philox_streams(seed, t0, steps, batch, n, z, device="cpu"):
     idx = kernel_uniform_index(uniform24(w[0][:, :, 0]), n)
     eps = box_muller(uniform24(w[0][:, :, 1:]), uniform24(w[1][:, :, 1:]))
     return idx, eps
+
+
+def hier_streams(seed, t0, steps, n, dim, device="cpu"):
+    """The fused hier trainer's in-kernel streams for steps ``t0 ..
+    t0+steps-1``: ``(off (steps,) int64, eps (steps, dim) float32)``."""
+    off, eps = philox_streams(seed, t0, steps, 1, n, dim, device)
+    return off[:, 0], eps[:, 0]
 
 
 def adam_leaf(p, m, v, g, t, lr, b1=0.9, b2=0.999, eps=1e-8):

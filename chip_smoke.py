@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two DLGM main paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU: the DLGM's
+SVI and local-posterior NUTS, and the hierarchical logistic regression's
+SVI and full-batch NUTS.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
 hand-written kernels from ``bayesic_tpu_torch/csrc/``.
@@ -18,13 +20,26 @@ agreement of the means and variances within Monte-Carlo error), time one
 transition of the kernel and of the plain version, and trace both paths
 and the stream draws.
 
+Phases 12-16, the hierarchical-logistic path at its bench shape
+(``hier_logistic.Config()``: N=10,000 rows, J=50 groups, F=5 features,
+B=1024, 3,000 SVI steps; NUTS on the centered model with 128 chains, 500
+warmup + 300 samples, pooled adaptation): check the fused hier trainer and
+the hier NUTS kernel against their plain versions (and the potential
+against autograd of the DSL model), drive ``run_svi`` and
+``run_svi_fused``, then ``fused_nuts_mcmc`` and ``MCMC`` on the centered
+model, gate their posteriors, time both kernels against their plain
+versions and trace both sampling loops.
+
 Each phase prints one line and raises on failure.  The line before the
-last is a JSON object with one entry per kernel: ``fused_vae_train``'s
-``launches`` counts calls of its C entry (each enqueues three kernels per
-step), ``fused_nuts_transition``'s counts kernel launches (one transition
-of every chain each).  The last line is ``{"ok": true, "device": {...}}``.
-Without a CUDA device, or outside a checkout, it exits non-zero and prints
-no result.
+last is a JSON object with one entry per kernel: its launches on the main
+path (``fused_vae_train`` counts calls of its C entry, each of which
+enqueues three kernels per step; the others count kernel launches), its
+largest error against the plain version, its time and the plain
+version's (per SVI step or per NUTS transition), and the bound: the least
+time the card could take for the same work, the larger of the bytes over
+the memory rate and the operations over the FP32 peak.  The last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
+checkout, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -53,6 +68,17 @@ NUTS_K, GENERIC_DEPTH = 6, 10       # max_doublings (fused), max_depth
 # first; at the second about a quarter of the chains diverge
 EPS_SMALL, EPS_DIVERGE = 0.05, 0.27
 TRACE_NUTS_FUSED, TRACE_NUTS_GENERIC = 20, 3     # transitions per trace
+# the hier-logistic bench (JAX benchmarks/harness.py:362-396): the
+# Config() defaults for the data and the SVI; NUTS on the centered model
+HIER_CHAINS, HIER_WARMUP, HIER_SAMPLES = 128, 500, 300
+HIER_K, HIER_DEPTH = 6, 10          # max_doublings (fused), max_depth
+# phase 14 step sizes near the posterior's bulk: trees of depth 2-5 at the
+# first, most chains diverge at the second; the third runs K = 10
+HIER_EPS_SMALL, HIER_EPS_DIVERGE, HIER_EPS_K10 = 0.02, 0.08, 0.005
+HIER_TRAJ, HIER_PLAIN_STEPS = 50, 100
+# published peaks of one H100 SXM (NVIDIA data sheet): FP32 outside the
+# tensor cores, and HBM3
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 
 
 def _fail(msg):
@@ -121,16 +147,37 @@ def _trace(torch, fn, steps, unit="step"):
             + ", ".join(f"{k} {100 * t / total:.1f}%" for k, t in top) + ")")
 
 
+def _bound(ops, nbytes):
+    """(ms, what bounds it): the least time the card could take for
+    ``ops`` FP32 operations that move ``nbytes`` bytes."""
+    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _record(name, source, replaces, launches, err, ms, plain_ms, bound):
+    """One entry of the kernels line.  No single PyTorch call computes a
+    whole-run trainer or a NUTS transition, so ``library_ms`` is null."""
+    return {"name": name, "route": "cuda",
+            "source": f"bayesic_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None}
+
+
 def _ptxas_summary(log):
     """'kernel N regs, S B spill' for each entry function in nvcc's log."""
     stats, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            name = next((k for k in ("row_kernel", "atg_kernel",
-                                     "adam_kernel", "nuts_kernel",
-                                     "potential_kernel") if k in mangled),
-                        mangled)
+            name = next((k for k in ("hier_train_kernel", "row_kernel",
+                                     "atg_kernel", "adam_kernel",
+                                     "nuts_kernel", "potential_kernel")
+                         if k in mangled), mangled)
+            for pot in ("Dlgm", "Hier"):
+                if f"{pot}Potential" in mangled:
+                    name += f"<{pot}>"
             stats[name] = {}
         elif name and "spill stores" in line:
             stats[name]["spill"] = (line.split("bytes spill stores")[0]
@@ -155,6 +202,338 @@ def _posterior(diag, torch, res, wall):
                 leapfrogs=float(res.extra["num_steps"].float().mean()),
                 step_size=float(res.extra["step_size"].mean()), wall_s=wall,
                 ess_per_s=min_ess / wall)
+
+
+def _hier_phases(torch, np, card, dev):
+    """Phases 12-16, the hierarchical-logistic path; returns the kernels
+    line's entries of its two kernels."""
+    from bayesic_tpu_torch.infer.mcmc import (MCMC, IntegratorState,
+                                              StreamKey, nuts_streams)
+    from bayesic_tpu_torch.models import hier_logistic as hl
+    from bayesic_tpu_torch.ops import _kernel_common as kc
+    from bayesic_tpu_torch.ops import fused_hier as fh
+    from bayesic_tpu_torch.ops import fused_nuts_hier as fnh
+    from bayesic_tpu_torch.utils import diagnostics as diag
+
+    cfg = hl.Config(device="cuda")
+    xn, yn, gn, truth = hl.make_data(cfg)
+    x, y, group = (torch.as_tensor(a, device=dev) for a in (xn, yn, gn))
+    n, j, f, b = x.shape[0], cfg.num_groups, cfg.num_features, \
+        cfg.batch_size
+    p = 2 + j + f
+    steps = cfg.svi_steps
+    rng = np.random.default_rng(12)
+
+    def rnd(*shape, loc=0.0, scale=1.0):
+        return torch.as_tensor(
+            (loc + scale * rng.standard_normal(shape)).astype(np.float32),
+            device=dev)
+
+    # -- 12. the fused hier trainer against its plain version ------------
+    perm = torch.as_tensor(rng.permutation(n), device=dev)
+    xs, ys, gs = x[perm], y[perm], group[perm]
+    loc0, ls0 = rnd(p, scale=0.5), rnd(p, loc=-2.0, scale=0.3)
+    zeros = tuple(torch.zeros(p, device=dev) for _ in range(4))
+    kw = dict(lr0=cfg.lr, lr_total=steps, batch=b)
+
+    def streams(k):
+        return torch.as_tensor(rng.integers(0, n, k), device=dev), rnd(k, p)
+
+    off, eps = streams(1)
+    _, _, (m1, m2, _, _), l1 = fh.fused_train_injected(
+        xs, ys, gs, loc0, ls0, zeros, off_stream=off, eps_stream=eps, **kw)
+    torch.cuda.synchronize()
+    elbo, g_loc, g_ls = fh._step_math(
+        loc0, ls0, *fh._block(xs, ys.float(), gs, int(off[0]), b), eps[0],
+        n / b, j)
+    svi_err, worst = 0.0, 0.0
+    # one Adam step from zero moments: m = -0.1 g
+    for name, got, want in (("loc", -m1 / 0.1, g_loc), ("ls", -m2 / 0.1,
+                                                        g_ls)):
+        err = (got - want).abs()
+        tol = 1e-4 * want.abs() + 1e-5 * float(want.abs().max())
+        if bool((err > tol).any()):
+            raise AssertionError(f"phase 12: grad {name} differs, max abs "
+                                 f"err {float(err.max())}")
+        svi_err = max(svi_err, float(err.max()))
+        worst = max(worst, float((err / tol).max()))
+    loss_err = abs(float(l1[0]) + float(elbo)) / abs(float(elbo))
+    off, eps = streams(HIER_TRAJ)
+    got = fh.fused_train_injected(xs, ys, gs, loc0, ls0, zeros,
+                                  off_stream=off, eps_stream=eps, **kw)
+    want = fh.reference_train(xs, ys, gs, loc0, ls0, zeros, off_stream=off,
+                              eps_stream=eps, **kw)
+    traj_rel = float(((got[3] - want[3]).abs() / want[3].abs()).max())
+    par_rel = max(float((g_ - w_).abs().max() / w_.abs().max())
+                  for g_, w_ in ((got[0], want[0]), (got[1], want[1])))
+    seed = 12345
+    got = fh.fused_train(xs, ys, gs, loc0, ls0, zeros, steps=HIER_TRAJ,
+                         lr0=cfg.lr, lr_total=steps, seed=seed, batch=b)
+    off, eps = kc.hier_streams(seed, 0, HIER_TRAJ, n, p, device=dev)
+    want = fh.reference_train(xs, ys, gs, loc0, ls0, zeros, off_stream=off,
+                              eps_stream=eps, **kw)
+    bits_rel = float(((got[3] - want[3]).abs() / want[3].abs()).max())
+    if max(loss_err, traj_rel, bits_rel) > 1e-5:
+        raise AssertionError(
+            f"phase 12: loss rel errs one step {loss_err}, {HIER_TRAJ}-step "
+            f"trajectory {traj_rel}, Philox twin {bits_rel} (limit 1e-5)")
+    loc_i, ls_i, _ = fh.init_params(j, f, device=dev)
+    lk = fh.fused_train(xs, ys, gs, loc_i, ls_i, steps=steps, lr0=cfg.lr,
+                        seed=seed, batch=b)[3].cpu().numpy()
+    if not (np.isfinite(lk).all() and lk[-100:].mean() < lk[:50].mean()):
+        raise AssertionError(f"phase 12: {steps}-step Philox run: loss did "
+                             f"not fall or is not finite")
+    print(f"phase 12 fused hier trainer ok: one step grads max abs err "
+          f"{svi_err:.3e} (worst err/tol {worst:.3f}), loss rel err "
+          f"{loss_err:.2e}; {HIER_TRAJ}-step trajectory loss max rel err "
+          f"{traj_rel:.2e}, param max err / max {par_rel:.2e}; Philox twin "
+          f"loss rel err {bits_rel:.2e}; {steps} Philox steps: loss "
+          f"{lk[:50].mean():.1f} -> {lk[-100:].mean():.1f}", flush=True)
+
+    # -- 13. the hier SVI path through the user's entry points ------------
+    t = time.perf_counter()
+    out_g = hl.run_svi(cfg)
+    torch.cuda.synchronize()
+    wall_g = time.perf_counter() - t
+    fh.LAUNCHES = 0
+    t = time.perf_counter()
+    out_f = hl.run_svi_fused(cfg)
+    torch.cuda.synchronize()
+    wall_f = time.perf_counter() - t
+    svi_launches = fh.LAUNCHES
+    if svi_launches < 1:
+        raise AssertionError("phase 13: run_svi_fused never launched the "
+                             "kernel")
+    fits = {}
+    for name, out, tail in (("run_svi", out_g, 200), ("run_svi_fused",
+                                                      out_f, 100)):
+        ls_, m = out["losses"], out["mean_u"]
+        mu, beta = float(m["mu"]), m["beta"].cpu().numpy()
+        if not np.isfinite(ls_).all() or not ls_[-tail:].mean() \
+                < ls_[:tail // 4].mean():
+            raise AssertionError(f"phase 13: {name} loss did not fall")
+        if abs(mu - truth["mu"]) > 0.5 or \
+                np.abs(beta - truth["beta"]).max() > 0.15:
+            raise AssertionError(f"phase 13: {name} mu {mu}, beta {beta}; "
+                                 f"truth {truth['mu']}, {truth['beta']}")
+        fits[name] = (mu, beta, float(ls_[-tail:].mean()))
+    (mu_g, beta_g, last_g), (mu_f, beta_f, last_f) = fits.values()
+    gap = abs(last_g - last_f) / abs(last_g)
+    if abs(mu_g - mu_f) > 0.15 or np.abs(beta_g - beta_f).max() > 0.1 \
+            or gap > 0.02:
+        raise AssertionError(f"phase 13: the two fits differ: mu {mu_g} / "
+                             f"{mu_f}, last-200-step loss {last_g} / "
+                             f"{last_f}")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    svi, res = out_g["svi"], out_g["result"]
+    g_ms, _ = _cuda_ms(torch, lambda: svi.run(gen, 300, state=res.state))
+    f_ms, _ = _cuda_ms(torch, lambda: fh.fused_train(
+        *out_f["data"], out_f["loc"], out_f["ls"], out_f["opt_state"],
+        steps=steps, lr0=cfg.lr, lr_total=2 * steps, seed=7, batch=b,
+        t0=steps))
+    hier_step_ms = f_ms / steps
+    print(f"phase 13 hier SVI main path ok [{card}]: run_svi mu "
+          f"{mu_g:.3f} beta err {np.abs(beta_g - truth['beta']).max():.3f} "
+          f"final-200 loss {last_g:.1f}, wall {wall_g:.2f} s, "
+          f"{3e5 / g_ms:.1f} steps/s; run_svi_fused mu {mu_f:.3f} beta err "
+          f"{np.abs(beta_f - truth['beta']).max():.3f} final-200 loss "
+          f"{last_f:.1f} (gap {100 * gap:.3f}%), wall {wall_f:.2f} s, "
+          f"{1e3 / hier_step_ms:.1f} steps/s; truth mu {truth['mu']}; "
+          f"kernel launches {svi_launches}", flush=True)
+
+    # -- 14. the hier NUTS kernel against its plain version ---------------
+    data = fnh.hier_data(x, y, group, j)
+    model = hl.make_model(j, f, None, centered=True)
+    start = np.zeros((HIER_CHAINS, p), np.float32)
+    start[:, 0] = truth["mu"]
+    start[:, 2:2 + j] = truth["theta"]
+    start[:, 2 + j:] = truth["beta"]
+    q0 = torch.as_tensor(start, device=dev) + rnd(HIER_CHAINS, p, scale=0.1)
+    pe_k, g_k = fnh.fused_hier_nuts_potential(q0, data)
+    refs = {"plain": fnh.hier_potential(data)(q0),
+            "autograd": MCMC(model, num_chains=HIER_CHAINS,
+                             model_args=(x, y, group))
+            ._potential_and_grad(q0)}
+    errs = []
+    for name, (pe_r, g_r) in refs.items():
+        pe_rel = float(((pe_k[:, 0] - pe_r).abs() / pe_r.abs()).max())
+        g_rel = float((g_k - g_r).abs().max() / g_r.abs().max())
+        if pe_rel > 1e-5 or g_rel > 1e-5:
+            raise AssertionError(f"phase 14: potential vs {name}: pe rel "
+                                 f"err {pe_rel}, grad err / max|g| {g_rel}")
+        errs.append(f"vs {name} pe max rel err {pe_rel:.2e}, grad max err "
+                    f"/ max|g| {g_rel:.2e}")
+    ones = torch.ones(p, device=dev)
+    hier_nuts_err, lines = 0.0, []
+    for kk, eps in ((HIER_K, HIER_EPS_SMALL), (HIER_K, HIER_EPS_DIVERGE),
+                    (HIER_DEPTH, HIER_EPS_K10)):
+        s = nuts_streams(StreamKey(14, 2, 0), HIER_CHAINS, p, kk, dev)
+        args = (q0, pe_k, g_k, *s, eps, ones, data)
+        got = fnh.fused_hier_nuts_transition(*args, max_doublings=kk)
+        want = fnh.reference_transition(*args, max_doublings=kk)
+        torch.cuda.synchronize()
+        same = ((got[4] == want[4]) & (got[5] == want[5])
+                & (got[6] == want[6]))[:, 0]
+        n_diff = HIER_CHAINS - int(same.sum())
+        if n_diff:
+            raise AssertionError(f"phase 14: K {kk} eps {eps}: {n_diff} "
+                                 f"chains differ in depth/steps/divergence")
+        rel = {}
+        for i, name in ((0, "q"), (1, "pe"), (7, "h0")):
+            err = (got[i] - want[i]).abs()
+            if bool((err > 1e-4 * want[i].abs()
+                     + (1e-4 if i == 0 else 0)).any()):
+                raise AssertionError(f"phase 14: K {kk} eps {eps}: {name} "
+                                     f"max abs err {float(err.max())}")
+            rel[name] = float((err / want[i].abs().clamp(min=1e-3)).max())
+            if i == 0:
+                hier_nuts_err = max(hier_nuts_err, float(err.max()))
+        pe_chk = fnh.fused_hier_nuts_potential(got[0], data)[0]
+        inv = float(((got[1] - pe_chk).abs() / pe_chk.abs()).max())
+        if inv > 1e-5:
+            raise AssertionError(f"phase 14: pe' != pe(q'), rel err {inv}")
+        n_div = int(got[4].sum())
+        if eps == HIER_EPS_DIVERGE and n_div == 0:
+            raise AssertionError(f"phase 14: no chain diverged at eps {eps}")
+        depth = torch.bincount(got[5][:, 0].long(), minlength=kk + 1)
+        lines.append(
+            f"K {kk} eps {eps}: 0 chains differ, {n_div} diverged, depths "
+            f"{depth.tolist()}, max rel err q {rel['q']:.2e} pe "
+            f"{rel['pe']:.2e} h0 {rel['h0']:.2e}, pe'=pe(q') rel err "
+            f"{inv:.2e}")
+    print(f"phase 14 hier NUTS kernel ok ({HIER_CHAINS} chains x D {p}, "
+          f"N {n}): " + "; ".join(errs + lines), flush=True)
+
+    # -- 15. the hier NUTS path through the user's entry points -----------
+    fnh.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mcmc_f = hl.fused_nuts_mcmc(j, f, x, y, group, num_warmup=HIER_WARMUP,
+                                num_samples=HIER_SAMPLES,
+                                num_chains=HIER_CHAINS, target_accept=0.85,
+                                max_doublings=HIER_K)
+    res_f = mcmc_f.run(2)
+    torch.cuda.synchronize()
+    wall_f = time.perf_counter() - t
+    nuts_launches = fnh.LAUNCHES
+    if nuts_launches < HIER_WARMUP + HIER_SAMPLES:
+        raise AssertionError(f"phase 15: the fused path launched the kernel "
+                             f"{nuts_launches} times")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mcmc_g = MCMC(model, num_warmup=HIER_WARMUP, num_samples=HIER_SAMPLES,
+                  num_chains=HIER_CHAINS, shared_adapt=True,
+                  model_args=(x, y, group), target_accept=0.85,
+                  max_depth=HIER_DEPTH)
+    res_g = mcmc_g.run(3)
+    torch.cuda.synchronize()
+    wall_g = time.perf_counter() - t
+    paths = {"fused_nuts_mcmc": _posterior(diag, torch, res_f, wall_f),
+             "MCMC (generic)": _posterior(diag, torch, res_g, wall_g)}
+    for name, st in paths.items():
+        if not st["max_rhat"] < 1.01:
+            raise AssertionError(f"phase 15: {name} max split-R-hat "
+                                 f"{st['max_rhat']}")
+    qf, qg = res_f.unconstrained, res_g.unconstrained
+    mf, mg = qf.mean((0, 1)), qg.mean((0, 1))
+    sqf, sqg = (qf - mf) ** 2, (qg - mg) ** 2
+    ratios = {}
+    for name, gap_, bound in (
+            ("mean", mf - mg, diag.mcse(qf) + diag.mcse(qg)),
+            ("var", sqf.mean((0, 1)) - sqg.mean((0, 1)),
+             diag.mcse(sqf) + diag.mcse(sqg))):
+        ratio = gap_.abs() / (5 * bound + 1e-6)
+        if bool((ratio > 1).any()):
+            raise AssertionError(f"phase 15: posterior {name}s differ, max "
+                                 f"|gap| / bound {float(ratio.max())}")
+        ratios[name] = float(ratio.max())
+    nuts_mu = {k: float(r.samples["mu"].mean())
+               for k, r in (("fused", res_f), ("generic", res_g))}
+    print(f"phase 15 hier NUTS main path ok [{card}]: {HIER_CHAINS} chains, "
+          f"{HIER_WARMUP} warmup + {HIER_SAMPLES} samples; "
+          + "; ".join(
+              f"{k}: min ESS {v['min_ess']:.1f}, max R-hat "
+              f"{v['max_rhat']:.4f}, divergences {v['divergences']}, "
+              f"wall {v['wall_s']:.2f} s, min-ESS/s {v['ess_per_s']:.1f}, "
+              f"{v['leapfrogs']:.2f} leapfrogs/transition, step size "
+              f"{v['step_size']:.4f}" for k, v in paths.items())
+          + f"; max |gap| / 5 MCSE: mean {ratios['mean']:.3f}, variance "
+          f"{ratios['var']:.3f}; SVI-vs-NUTS gap on mu: run_svi_fused vs "
+          f"fused NUTS {abs(mu_f - nuts_mu['fused']):.4f}, run_svi vs "
+          f"generic NUTS {abs(mu_g - nuts_mu['generic']):.4f}; kernel "
+          f"launches {nuts_launches}", flush=True)
+
+    # -- 16. times: kernels against plain versions, traces ----------------
+    q = res_f.unconstrained[:, -1].contiguous()
+    pe, g = fnh.fused_hier_nuts_potential(q, data)
+    args = (q, pe, g, *nuts_streams(StreamKey(16, 2, 0), HIER_CHAINS, p,
+                                    HIER_K, dev),
+            res_f.extra["step_size"], res_f.extra["inv_mass"], data)
+    fnh.fused_hier_nuts_transition(*args, max_doublings=HIER_K)
+    fnh.reference_transition(*args, max_doublings=HIER_K)
+    tr_ms, tr_out = _cuda_ms(torch, lambda: fnh.fused_hier_nuts_transition(
+        *args, max_doublings=HIER_K), 20)
+    tr_plain_ms, _ = _cuda_ms(torch, lambda: fnh.reference_transition(
+        *args, max_doublings=HIER_K), 3)
+    off, eps = streams(HIER_PLAIN_STEPS)
+    fh.reference_train(xs, ys, gs, loc0, ls0, zeros, off_stream=off[:10],
+                       eps_stream=eps[:10], **kw)
+    plain_ms, _ = _cuda_ms(torch, lambda: fh.reference_train(
+        xs, ys, gs, loc0, ls0, zeros, off_stream=off, eps_stream=eps, **kw))
+    plain_step_ms = plain_ms / HIER_PLAIN_STEPS
+
+    def sample_loop(mcmc, res, k):
+        q_ = res.unconstrained[:, -1].contiguous()
+        pe_, g_ = mcmc._potential_and_grad(q_)
+        s0 = IntegratorState(q_, torch.zeros_like(q_), pe_, g_)
+
+        def run():
+            s_ = s0
+            for i in range(k):
+                s_, _ = mcmc._sample_step(99, s_, res.extra["step_size"],
+                                          res.extra["inv_mass"], i)
+        return run
+
+    traces = {
+        "fused NUTS sampling": _trace(
+            torch, sample_loop(mcmc_f, res_f, TRACE_NUTS_FUSED),
+            TRACE_NUTS_FUSED, "transition"),
+        "generic NUTS sampling": _trace(
+            torch, sample_loop(mcmc_g, res_g, TRACE_NUTS_GENERIC),
+            TRACE_NUTS_GENERIC, "transition"),
+    }
+    leaves = float(tr_out[6].sum())
+    print(f"phase 16 hier times ok [{card}]: one transition at the adapted "
+          f"state ({leaves / HIER_CHAINS:.2f} leapfrogs per chain): kernel "
+          f"{tr_ms:.4f} ms, plain reference_transition {tr_plain_ms:.4f} "
+          f"ms; fused trainer {hier_step_ms:.5f} ms/step, plain "
+          f"reference_train {plain_step_ms:.4f} ms/step; "
+          + "; ".join(f"{k} {v}" for k, v in traces.items()), flush=True)
+
+    # bounds.  Per row of the likelihood: the logit (F FMAs and the
+    # intercept), softplus and sigmoid (exp, log1p, one division, ~6 more),
+    # d/dlogit and the sums (~6), the beta gradient (F FMAs): 4F + 14
+    # operations.  SVI step: B rows and ~40 operations per parameter
+    # (noise, z, gradient, two Adam updates); bytes: the data set read
+    # once per call, the parameters and both moment pairs read and written
+    # once, the losses written, over the call's steps.  NUTS transition:
+    # N rows per chain-leaf over the leaves this transition took; bytes:
+    # every input read once, every output written once.
+    row_ops = 4 * f + 14
+    svi_bound = _bound(b * row_ops + 40 * p,
+                       4 * (n * (f + 2) + 12 * p + steps) / steps)
+    nuts_bound = _bound(
+        leaves * (n * row_ops + 10 * p),
+        4 * (n * (f + 2) + j + 1 + p
+             + HIER_CHAINS * (5 * p + 2 * HIER_K + (1 << HIER_K) + 7)))
+    return [
+        _record("fused_hier_train", "fused_hier.cu",
+                "bayesic_tpu/ops/fused_hier.py:185", svi_launches, svi_err,
+                hier_step_ms, plain_step_ms, svi_bound),
+        _record("fused_hier_nuts_transition", "fused_nuts_hier.cu",
+                "bayesic_tpu/ops/fused_nuts_hier.py:175", nuts_launches,
+                hier_nuts_err, tr_ms, tr_plain_ms, nuts_bound),
+    ]
 
 
 def main():
@@ -494,8 +873,8 @@ def main():
     kw = dict(sigma=lp[2], max_doublings=NUTS_K)
     fn.fused_nuts_transition(*args, **kw)
     fn.reference_transition(*args, **kw)
-    nuts_ms, _ = _cuda_ms(torch, lambda: fn.fused_nuts_transition(*args,
-                                                                  **kw), 20)
+    nuts_ms, nuts_out = _cuda_ms(
+        torch, lambda: fn.fused_nuts_transition(*args, **kw), 20)
     nuts_plain_ms, _ = _cuda_ms(torch, lambda: fn.reference_transition(
         *args, **kw), 3)
 
@@ -525,29 +904,38 @@ def main():
           f"state: kernel {nuts_ms:.4f} ms, plain reference_transition "
           f"{nuts_plain_ms:.4f} ms; "
           + "; ".join(f"{k} {v}" for k, v in traces.items()), flush=True)
+
+    # bounds.  SVI step: encoder, reparameterisation and decoder forward
+    # and a backward of about twice that (benchmarks/roofline.py
+    # dlgm_svi); bytes: the data set read once per call and the
+    # parameters, both Adam moments and the losses read and written once,
+    # over the call's steps.  NUTS transition: three decoder forwards per
+    # chain-leaf, over the leaves this transition took; bytes: every input
+    # read once, every output written once.
+    n_, b_ = cfg.num_data, cfg.batch_size
+    d_, h_, z_ = cfg.data_dim, cfg.hidden, cfg.latent_dim
+    svi_ops = 3 * 2 * b_ * (d_ * h_ + 2 * h_ * z_ + z_ * h_ + h_ * d_)
+    n_par = sum(int(np.prod(s)) for s in fv.leaf_shapes(fv.FusedVAEDims(
+        n_, d_, h_, z_, b_)).values())
+    svi_bytes = 4 * (n_ * d_ + 6 * n_par + f_steps) / f_steps
+    lat, hid, dat = ncfg.latent_dim, ncfg.hidden, ncfg.data_dim
+    leaves = float(nuts_out[6].sum())
+    nuts_ops = leaves * 3 * 2 * NUTS_ROWS * (lat * hid + hid * dat)
+    nuts_bytes = 4 * (NUTS_CHAINS * (5 * dim + 2 * NUTS_K + (1 << NUTS_K)
+                                     + 7) + dim + sum(t.numel() for t in wf)
+                      + NUTS_ROWS * dat)
+    records = [
+        _record("fused_vae_train", "fused_vae.cu",
+                "bayesic_tpu/ops/fused_vae.py:199", launches, max_abs_err,
+                kernel_step_ms, plain_step_ms, _bound(svi_ops, svi_bytes)),
+        _record("fused_nuts_transition", "fused_nuts.cu",
+                "bayesic_tpu/ops/fused_nuts.py:573", nuts_launches, nuts_err,
+                nuts_ms, nuts_plain_ms, _bound(nuts_ops, nuts_bytes)),
+    ]
+    records += _hier_phases(torch, np, card, dev)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s",
           flush=True)
-
-    kernels = {"kernels": [{
-        "name": "fused_vae_train",
-        "route": "cuda",
-        "source": "bayesic_tpu_torch/csrc/fused_vae.cu",
-        "replaces": "bayesic_tpu/ops/fused_vae.py:199",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": kernel_step_ms,
-        "plain_ms": plain_step_ms,
-    }, {
-        "name": "fused_nuts_transition",
-        "route": "cuda",
-        "source": "bayesic_tpu_torch/csrc/fused_nuts.cu",
-        "replaces": "bayesic_tpu/ops/fused_nuts.py:573",
-        "launches": nuts_launches,
-        "max_abs_err": nuts_err,
-        "ms": nuts_ms,
-        "plain_ms": nuts_plain_ms,
-    }]}
-    print(json.dumps(kernels))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -21,7 +21,7 @@ torch.set_num_threads(2)
 
 # the smoke config of dlgm.run (models/dlgm.py, both packages)
 SMOKE = tdlgm.Config(num_data=512, data_dim=8, latent_dim=3, hidden=16,
-                     batch_size=64, steps=300)
+                     batch_size=64, steps=300, device="cpu")
 
 
 def _learns(losses):
@@ -63,7 +63,7 @@ def test_run_svi_fused_smoke_learns():
 
 
 def test_main_smoke_prints_results(capsys):
-    tdlgm.main(["--smoke", "true", "--steps", "50"])
+    tdlgm.main(["--smoke", "true", "--steps", "50", "--device", "cpu"])
     text = capsys.readouterr().out
     assert '"smoke": true' in text
     for key in ("final ELBO", "sigma_x", "recon RMSE", "NUTS z-posterior"):

@@ -85,7 +85,7 @@ def _model_potential(weights):
     cfg = tdlgm.Config(latent_dim=LATENT, hidden=HIDDEN, data_dim=DATA,
                        num_chains=C)
     mcmc = MCMC(tdlgm.local_posterior_model(cfg, dec, params, SIGMA, x),
-                num_warmup=0, num_samples=1, num_chains=C)
+                num_warmup=0, num_samples=1, num_chains=C, device="cpu")
     return mcmc._potential_and_grad
 
 
@@ -263,7 +263,7 @@ def test_fused_sampler_matches_generic_posterior():
 def test_dlgm_run_smoke_reports_nuts():
     """``dlgm.run`` at the smoke config (8 chains, per-chain adaptation)
     adds the NUTS half's numbers, as the JAX ``run`` does."""
-    out = tdlgm.run(tdlgm.Config(smoke=True))
+    out = tdlgm.run(tdlgm.Config(smoke=True, device="cpu"))
     assert np.isfinite(out["nuts_min_ess"]) and out["nuts_min_ess"] > 0
     assert isinstance(out["nuts_divergences"], int)
     assert 0 <= out["nuts_divergences"] <= 8 * 100

@@ -302,7 +302,8 @@ def test_logical_chain_streams_do_not_depend_on_chain_count():
     the first 8 chains of a 16-chain run equal an 8-chain run."""
     model = _normal_model(np.random.default_rng(10).normal(size=(5, 2)))
     runs = [tm.MCMC(model, num_warmup=20, num_samples=10, num_chains=n,
-                    max_depth=5, shared_adapt=False).run(4) for n in (16, 8)]
+                    max_depth=5, shared_adapt=False, device="cpu").run(4)
+            for n in (16, 8)]
     np.testing.assert_array_equal(runs[0].unconstrained[:8].numpy(),
                                   runs[1].unconstrained.numpy())
     np.testing.assert_array_equal(runs[0].extra["step_size"][:8].numpy(),
@@ -327,7 +328,8 @@ def test_conjugate_normal_posterior_mean(shared_adapt):
     y = np.random.default_rng(11).normal(1.5, 1.0, (20, 2)).astype(
         np.float32)
     mcmc = tm.MCMC(_normal_model(y), num_warmup=150, num_samples=150,
-                   num_chains=4, max_depth=5, shared_adapt=shared_adapt)
+                   num_chains=4, max_depth=5, shared_adapt=shared_adapt,
+                   device="cpu")
     res = mcmc.run(0)
     mu = res.samples["mu"]
     assert mu.shape == (4, 150, 2)
@@ -346,14 +348,14 @@ def test_run_segmented_equals_run_and_hmc_runs():
     model = _normal_model(np.random.default_rng(12).normal(size=(4, 2)))
     mk = lambda: tm.MCMC(model, num_warmup=40, num_samples=12,  # noqa: E731
                          num_chains=3, max_depth=4, thin=2,
-                         shared_adapt=True)
+                         shared_adapt=True, device="cpu")
     a, b = mk().run(5), mk().run_segmented(5, warmup_chunk=15,
                                            sample_chunk=5)
     np.testing.assert_array_equal(a.unconstrained.numpy(),
                                   b.unconstrained.numpy())
     assert a.unconstrained.shape == (3, 12, 2)
     h = tm.MCMC(model, kernel="hmc", hmc_num_steps=5, num_warmup=30,
-                num_samples=20, num_chains=2).run(1)
+                num_samples=20, num_chains=2, device="cpu").run(1)
     assert torch.isfinite(h.samples["mu"]).all()
     assert int(h.extra["tree_depth"].abs().sum()) == 0
 
@@ -402,7 +404,7 @@ def test_unraveler_and_inits():
 def test_ess_of_mcmc_output_is_positive():
     model = _normal_model(np.zeros((3, 2), np.float32))
     res = tm.MCMC(model, num_warmup=50, num_samples=40, num_chains=2,
-                  max_depth=5).run(3)
+                  max_depth=5, device="cpu").run(3)
     e = tdiag.ess(res.samples["mu"])
     assert e.shape == (2,) and bool((e > 0).all())
     assert math.isfinite(float(tdiag.split_rhat(res.samples["mu"]).max()))
