@@ -2,16 +2,18 @@
 
 Mirrors the JAX package's module tree; ``bayesic_tpu`` stays the reference
 each module is tested against.  Ported so far: the DLGM's SVI and
-local-posterior NUTS paths and the hierarchical logistic regression's SVI
-and full-batch NUTS paths.
+local-posterior NUTS paths, the hierarchical logistic regression's SVI
+and full-batch NUTS paths, and the Gaussian mixture's tempered SMC.
 
 Layering:
   dist/      distributions + transforms
   core/      model DSL + joint log-prob compiler
   infer/svi  STL ELBO, amortized and mean-field guides, Adam driver
   infer/mcmc NUTS/HMC, adaptation, the MCMC driver
+  infer/smc  adaptive tempered SMC with HMC mutation
+  parallel/  systematic resampling (one device)
   ops/       hand-written Hopper kernels (csrc/) + plain PyTorch versions
-  models/    the DLGM and the hierarchical logistic regression
+  models/    the DLGM, the hierarchical logistic regression, the GMM
   interop    JAX parameters (as numpy) <-> the port's parameters
 """
 

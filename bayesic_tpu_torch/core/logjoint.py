@@ -19,7 +19,7 @@ from ..dist.transforms import biject_to
 from . import handlers
 
 __all__ = ["ModelInfo", "inspect_model", "build_logjoint", "init_to_prior",
-           "init_to_uniform", "default_device"]
+           "init_population", "init_to_uniform", "default_device"]
 
 
 class ModelInfo(NamedTuple):
@@ -120,6 +120,20 @@ def init_to_prior(model, info, *args, rng_key=None, **kwargs):
             for n in info.latent_names}
 
 
+def init_population(model, info, num, *args, rng_key=None, **kwargs):
+    """``num`` unconstrained prior draws in one trace: a dict of (num,
+    *shape) tensors.  Each latent site's distribution is taken from one
+    trace of ``model`` and sampled with sample shape (num,), then mapped
+    through the site's inverse transform; so a site's prior may not depend
+    on another latent's value (the draws would all share the traced one).
+    The JAX package folds one key per particle into ``init_to_prior``
+    instead, a loop that costs one model trace per particle here."""
+    gen = rng_key if rng_key is not None else _default_generator()
+    tr = _model_trace(model, args, kwargs, gen)
+    return {n: info.transforms[n].inverse(tr[n]["dist"].sample(gen, (num,)))
+            for n in info.latent_names}
+
+
 def init_to_uniform(info, rng_key=None, radius=2.0, uniforms=None):
     """Stan-style init: u ~ Uniform(-radius, radius) per coordinate.
 
@@ -153,6 +167,9 @@ def build_logjoint(model, *args, rng_key=None, **kwargs):
       models with subsampled plates when ``subsample`` does not force the
       ``"{plate}__idx"`` index arrays.  ``params`` gives unconstrained
       values of the model's ``param`` sites.
+      ``logdensity.parts`` takes the same arguments and returns ``(log
+      prior + Jacobians, log likelihood)``, the split tempered SMC needs;
+      ``logdensity.prior`` the first of the two alone.
     * ``constrain(uparams) -> dict``: latent values in the support.
     * ``postprocess(uparams, rng_key=None, params=None) -> dict``:
       constrained latents (full replay).
@@ -215,6 +232,41 @@ def build_logjoint(model, *args, rng_key=None, **kwargs):
                         model_kwargs, params)
         return _accumulate(tr, uparams)
 
+    def _parts(uparams, rng_key, subsample, model_args, model_kwargs,
+               params, lik):
+        tr, _ = _replay(uparams, rng_key, subsample, model_args,
+                        model_kwargs, params)
+        log_prior, log_lik = 0.0, 0.0
+        for name, site in tr.items():
+            if site["type"] != "sample" or (site["is_observed"]
+                                            and not lik):
+                continue
+            lp = site["scale"] * torch.sum(
+                _apply_mask(site, site["dist"].log_prob(site["value"])))
+            if site["is_observed"]:
+                log_lik = log_lik + lp
+            else:
+                ldj = _apply_mask(site, info.transforms[name]
+                                  .log_det_jacobian(uparams[name]))
+                log_prior = log_prior + lp + site["scale"] * torch.sum(ldj)
+        return log_prior, log_lik
+
+    def logdensity_parts(uparams, rng_key=None, subsample=None,
+                         model_args=None, model_kwargs=None, params=None):
+        """(log prior + Jacobians, log likelihood): observed sites make the
+        likelihood, latent sites and their Jacobians the prior."""
+        return _parts(uparams, rng_key, subsample, model_args, model_kwargs,
+                      params, True)
+
+    def logdensity_prior(uparams, rng_key=None, subsample=None,
+                         model_args=None, model_kwargs=None, params=None):
+        """The first of ``parts`` alone.  PyTorch runs eagerly and would
+        evaluate a likelihood that is then dropped (XLA drops it when
+        compiling the JAX package's ``parts(...)[0]``), so it is not
+        evaluated at all."""
+        return _parts(uparams, rng_key, subsample, model_args, model_kwargs,
+                      params, False)[0]
+
     def constrain(uparams):
         return {
             n: info.transforms[n].forward(uparams[n])
@@ -227,4 +279,6 @@ def build_logjoint(model, *args, rng_key=None, **kwargs):
         _, values = _replay(uparams, rng_key, None, params=params)
         return values
 
+    logdensity.parts = logdensity_parts
+    logdensity.prior = logdensity_prior
     return info, logdensity, constrain, postprocess

@@ -1,13 +1,15 @@
 """Distributions library: the subset of ``bayesic_tpu.dist`` that the
-ported paths need (Normal, HalfNormal, Bernoulli, expand/to_event/
-Independent, real, positive and boolean constraints, Identity/Exp
-bijectors)."""
+ported paths need (Normal, HalfNormal, Bernoulli, Categorical, Dirichlet,
+MixtureSameFamily, expand/to_event/Independent, real, positive, simplex
+and discrete constraints, Identity/Exp/StickBreaking bijectors)."""
 
 from . import constraints
 from .continuous import HalfNormal, Normal
-from .discrete import Bernoulli
+from .discrete import Bernoulli, Categorical
 from .distribution import Distribution, Independent
-from .transforms import Exp, Identity, Transform, biject_to
+from .mixture import MixtureSameFamily
+from .multivariate import Dirichlet
+from .transforms import Exp, Identity, StickBreaking, Transform, biject_to
 
 __all__ = [
     "constraints",
@@ -16,8 +18,12 @@ __all__ = [
     "Normal",
     "HalfNormal",
     "Bernoulli",
+    "Categorical",
+    "Dirichlet",
+    "MixtureSameFamily",
     "Transform",
     "Identity",
     "Exp",
+    "StickBreaking",
     "biject_to",
 ]

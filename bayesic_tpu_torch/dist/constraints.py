@@ -1,5 +1,5 @@
-"""Support constraints for distributions (the subset the DLGM and
-hierarchical-logistic paths need).
+"""Support constraints for distributions (the subset the DLGM,
+hierarchical-logistic and GMM paths need).
 
 Counterpart of ``bayesic_tpu/dist/constraints.py``.  A ``Constraint``
 describes the support of a distribution; ``biject_to`` (in
@@ -33,6 +33,26 @@ class _Positive(Constraint):
         return x > 0
 
 
+class _Simplex(Constraint):
+    event_dim = 1
+
+    def __call__(self, x):
+        return torch.all(x >= 0, dim=-1) & (torch.abs(x.sum(-1) - 1.0) < 1e-6)
+
+
+class _IntegerInterval(Constraint):
+    is_discrete = True
+
+    def __init__(self, low, high):
+        self.low, self.high = low, high
+
+    def __call__(self, x):
+        return (x >= self.low) & (x <= self.high) & (x == torch.floor(x))
+
+    def __repr__(self):
+        return f"IntegerInterval({self.low}, {self.high})"
+
+
 class _Boolean(Constraint):
     is_discrete = True
 
@@ -42,4 +62,6 @@ class _Boolean(Constraint):
 
 real = _Real()
 positive = _Positive()
+simplex = _Simplex()
 boolean = _Boolean()
+integer_interval = _IntegerInterval

@@ -1,4 +1,5 @@
-"""Discrete distribution families (Bernoulli, for observed sites).
+"""Discrete distribution families (Bernoulli and Categorical, for observed
+sites and as a mixture's weights).
 
 Counterpart of ``bayesic_tpu/dist/discrete.py``.  Discrete sites have no
 bijector, so they can only be observed: ``core/logjoint`` refuses a latent
@@ -13,7 +14,7 @@ import torch.nn.functional as F
 from . import constraints
 from .distribution import Distribution, _shape
 
-__all__ = ["Bernoulli"]
+__all__ = ["Bernoulli", "Categorical"]
 
 
 class Bernoulli(Distribution):
@@ -44,3 +45,50 @@ class Bernoulli(Distribution):
         # x*l - softplus(l), valid for x in {0, 1}
         logits = torch.as_tensor(self.logits)
         return x * logits - F.softplus(logits)
+
+
+class Categorical(Distribution):
+    """``Categorical(probs=p)`` or ``Categorical(logits=l)`` over the last
+    axis; held as logits (``log p`` for probs, as in the JAX package)."""
+
+    def __init__(self, probs=None, logits=None):
+        if (probs is None) == (logits is None):
+            raise ValueError("pass exactly one of probs/logits")
+        self.logits = torch.as_tensor(logits) if logits is not None \
+            else torch.log(torch.as_tensor(probs))
+        super().__init__(tuple(self.logits.shape[:-1]))
+
+    @property
+    def support(self):
+        return constraints.integer_interval(0, self.num_categories - 1)
+
+    @property
+    def num_categories(self):
+        return self.logits.shape[-1]
+
+    @property
+    def probs(self):
+        return torch.softmax(self.logits, -1)
+
+    def log_probs_normalized(self):
+        return self.logits - torch.logsumexp(self.logits, -1, keepdim=True)
+
+    def expand(self, batch_shape):
+        batch_shape = tuple(torch.broadcast_shapes(self.batch_shape,
+                                                   tuple(batch_shape)))
+        return Categorical(logits=self.logits.expand(
+            batch_shape + (self.num_categories,)))
+
+    def sample(self, generator, sample_shape=()):
+        shape = self.shape(sample_shape)
+        p = self.probs.to(generator.device).expand(
+            shape + (self.num_categories,)).reshape(-1, self.num_categories)
+        idx = torch.multinomial(p, 1, generator=generator)
+        return idx.reshape(shape).to(torch.int32)
+
+    def log_prob(self, x):
+        logp = self.log_probs_normalized()
+        x = torch.as_tensor(x, device=logp.device).long()
+        shape = torch.broadcast_shapes(x.shape, self.batch_shape)
+        logp = logp.expand(tuple(shape) + (self.num_categories,))
+        return torch.gather(logp, -1, x.expand(shape)[..., None])[..., 0]

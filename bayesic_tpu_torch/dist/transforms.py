@@ -1,20 +1,21 @@
 """Bijective transforms between unconstrained space and distribution
-supports, with log-abs-det-Jacobians (the subset the DLGM path needs).
+supports, with log-abs-det-Jacobians (the subset the ported paths need).
 
 Counterpart of ``bayesic_tpu/dist/transforms.py``.  Conventions:
 
 * ``forward(u)`` maps unconstrained -> constrained; ``inverse(x)`` the reverse.
-* ``log_det_jacobian(u)`` returns ``log |det dF/du|`` elementwise (both
-  transforms here are scalar).
+* ``log_det_jacobian(u)`` returns ``log |det dF/du|``: elementwise for the
+  scalar transforms, one value per event for ``StickBreaking``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import constraints
 
-__all__ = ["Transform", "Identity", "Exp", "biject_to"]
+__all__ = ["Transform", "Identity", "Exp", "StickBreaking", "biject_to"]
 
 
 class Transform:
@@ -28,6 +29,9 @@ class Transform:
 
     def log_det_jacobian(self, u):
         raise NotImplementedError
+
+    def forward_shape(self, shape):
+        return tuple(shape)
 
     def inverse_shape(self, shape):
         return tuple(shape)
@@ -61,13 +65,57 @@ class Exp(Transform):
         return u
 
 
+class StickBreaking(Transform):
+    """R^{K-1} -> K-simplex by stick breaking:
+    z_k = sigmoid(u_k - log(K-1-k)), x_k = z_k prod_{j<k} (1 - z_j), and
+    x_{K-1} the remainder.  The offsets put u = 0 on the uniform simplex."""
+
+    def forward_shape(self, shape):
+        return tuple(shape[:-1]) + (shape[-1] + 1,)
+
+    def inverse_shape(self, shape):
+        return tuple(shape[:-1]) + (shape[-1] - 1,)
+
+    @staticmethod
+    def _offsets(u):
+        # log(K-1-k) for k = 0..K-2, K-1 = u.shape[-1]
+        k = u.shape[-1]
+        return torch.log(torch.arange(k, 0, -1, dtype=u.dtype,
+                                      device=u.device))
+
+    def forward(self, u):
+        t = u - self._offsets(u)
+        z = torch.sigmoid(t)
+        # exclusive remainders prod_{j<k} (1 - z_j), in log space
+        log_rem = torch.cat([torch.zeros_like(t[..., :1]),
+                             torch.cumsum(F.logsigmoid(-t), -1)], -1)
+        return torch.cat([z * torch.exp(log_rem[..., :-1]),
+                          torch.exp(log_rem[..., -1:])], -1)
+
+    def inverse(self, x):
+        x = torch.as_tensor(x, dtype=torch.float32)
+        rem = 1.0 - torch.cat([torch.zeros_like(x[..., :1]),
+                               torch.cumsum(x[..., :-1], -1)], -1)[..., :-1]
+        z = torch.clamp(x[..., :-1] / rem, 1e-30, 1.0 - 1e-7)
+        return torch.log(z) - torch.log1p(-z) + self._offsets(z)
+
+    def log_det_jacobian(self, u):
+        t = u - self._offsets(u)
+        log1mz = F.logsigmoid(-t)
+        log_rem_excl = torch.cat([torch.zeros_like(t[..., :1]),
+                                  torch.cumsum(log1mz[..., :-1], -1)], -1)
+        return torch.sum(F.logsigmoid(t) + log1mz + log_rem_excl, -1)
+
+
 def biject_to(constraint):
     """Map a Constraint to a Transform from unconstrained space onto it."""
     if isinstance(constraint, constraints._Real):
         return Identity()
     if isinstance(constraint, constraints._Positive):
         return Exp()
+    if isinstance(constraint, constraints._Simplex):
+        return StickBreaking()
     raise ValueError(
         f"No bijector for constraint {constraint!r} "
-        f"(only real and positive are ported)."
+        f"(only real, positive and simplex are ported)."
     )

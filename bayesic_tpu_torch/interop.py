@@ -5,7 +5,10 @@ keeps its weight as (out, in), so every kernel is transposed here.  The
 fused DLGM trainer's leaves keep (in, out) on both sides and map one to
 one.  The fused hier trainer's state is (1, 128) lane vectors in the JAX
 package (lanes 0 .. P-1 hold the flat parameters, the rest are padding) and
-flat (P,) vectors here.  Pass pytrees through ``jax.tree.map(np.asarray,
+flat (P,) vectors here.  The GMM's SMC particles are (P, dim) rows in
+unraveler order (K-1 stick-breaking weights, K*D means, K log-scales) on
+both sides; the JAX fused mutation kernel pads them to (P, 128) lanes.
+Pass pytrees through ``jax.tree.map(np.asarray,
 tree)`` first; this module imports no JAX.
 """
 
@@ -16,7 +19,8 @@ import torch
 
 __all__ = ["flax_to_state_dict", "state_dict_to_flax", "svi_params",
            "fused_leaves", "adam_state", "mean_field_params",
-           "mean_field_to_jax", "hier_lanes_to_flat", "hier_flat_to_lanes"]
+           "mean_field_to_jax", "hier_lanes_to_flat", "hier_flat_to_lanes",
+           "smc_particles"]
 
 
 def _t(a, device):
@@ -100,3 +104,9 @@ def hier_flat_to_lanes(flats):
         a[0, :v.numel()] = v.detach().cpu().numpy()
         out.append(a)
     return tuple(out)
+
+
+def smc_particles(q, dim, device="cpu"):
+    """JAX SMC particles, flat (P, dim) or the fused kernel's lane-padded
+    (P, 128), -> the port's (P, dim) tensor (the same unraveler order)."""
+    return _t(np.asarray(q)[:, :dim], device)

@@ -81,6 +81,16 @@ def _declare(lib):
     lib.fused_hier_nuts_transition.restype = i32
     lib.fused_hier_nuts_potential.argtypes = [vp] * 6 + [i32] * 3 + [vp]
     lib.fused_hier_nuts_potential.restype = i32
+    lib.gmm_loglik_fwd.argtypes = [vp] * 5 + [i32] * 4 + [vp]
+    lib.gmm_loglik_fwd.restype = i32
+    lib.gmm_loglik_bwd.argtypes = [vp] * 8 + [i32] * 4 + [vp]
+    lib.gmm_loglik_bwd.restype = i32
+    lib.gmm_loglik_vg.argtypes = [vp] * 8 + [i32] * 4 + [vp]
+    lib.gmm_loglik_vg.restype = i32
+    lib.smc_gmm_mutate_smem_bytes.argtypes = [i32] * 3
+    lib.smc_gmm_mutate_smem_bytes.restype = ctypes.c_size_t
+    lib.smc_gmm_mutate.argtypes = [vp] * 11 + [i32] * 6 + [f32, f32, vp]
+    lib.smc_gmm_mutate.restype = i32
 
 
 def _run_all(cmds):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: the DLGM's
-SVI and local-posterior NUTS, and the hierarchical logistic regression's
-SVI and full-batch NUTS.
+SVI and local-posterior NUTS, the hierarchical logistic regression's SVI
+and full-batch NUTS, and the Gaussian mixture's tempered SMC.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
 hand-written kernels from ``bayesic_tpu_torch/csrc/``.
@@ -30,22 +30,35 @@ against autograd of the DSL model), drive ``run_svi`` and
 model, gate their posteriors, time both kernels against their plain
 versions and trace both sampling loops.
 
+Phases 17-20, the GMM tempered-SMC path at its bench shape
+(``gmm.Config(num_particles=8192, num_data=2000)``: K=3, D=2, 5 mutation
+steps of 5 leapfrogs): check the three likelihood kernels (forward,
+backward, value+grad) against their plain versions at the bench shape and
+an odd one, and the fused mutation kernel against ``mutation_core`` on the
+same draws at three temperatures; run ``SMC`` in its four modes (generic,
+kernels, fused on five paired seeds, split on one) and gate the posterior
+predictive and the paired log-evidence; time every kernel against its
+plain version and trace one stage of each mode.
+
 Each phase prints one line and raises on failure.  The line before the
 last is a JSON object with one entry per kernel: its launches on the main
 path (``fused_vae_train`` counts calls of its C entry, each of which
 enqueues three kernels per step; the others count kernel launches), its
 largest error against the plain version, its time and the plain
-version's (per SVI step or per NUTS transition), and the bound: the least
-time the card could take for the same work, the larger of the bytes over
-the memory rate and the operations over the FP32 peak.  The last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
-checkout, it exits non-zero and prints no result.
+version's (per SVI step, NUTS transition, SMC stage or likelihood call),
+and the bound: the least time the card could take for the same work, the
+larger of the bytes over the memory rate and the operations over the FP32
+peak (phase 20 also prints the GMM kernels' exp/log/rcp count at the SFU
+rate).  The last line is ``{"ok": true, "device": {...}}``.  Without a
+CUDA device, or outside a checkout, it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -76,9 +89,29 @@ HIER_K, HIER_DEPTH = 6, 10          # max_doublings (fused), max_depth
 # first, most chains diverge at the second; the third runs K = 10
 HIER_EPS_SMALL, HIER_EPS_DIVERGE, HIER_EPS_K10 = 0.02, 0.08, 0.005
 HIER_TRAJ, HIER_PLAIN_STEPS = 50, 100
+# the GMM tempered-SMC bench (JAX benchmarks/harness.py:522-594):
+# gmm.Config(num_particles=8192, num_data=2000), K 3, D 2, 5 mutation steps
+# of 5 leapfrogs; generic, kernels and fused run on GMM_SEEDS (paired: one
+# seed gives every mode the same draws), split on the first
+GMM = dict(num_particles=8192, num_data=2000)
+GMM_SEEDS = (100, 101, 102, 103, 104)
+# phase 18's temperatures and step sizes from a near-truth start: about
+# the posterior's width, so that 58-64% of one-transition proposals are
+# accepted (the posterior narrows as beta grows, so the step shrinks)
+GMM_BETA_EPS = ((0.05, 0.1), (0.5, 0.04), (1.0, 0.03))
+GMM_ODD = dict(p=1001, n=1999)      # phase 17's odd shape
+# phase 18 at K = 5: limits on the adaptation's outcome against the plain
+# core (per-block and pooled step rel err, mean accept abs err, share of
+# particles whose q' parts by more than 1e-3, ll' rel err of the others),
+# 2-5x the largest seen over the three temperatures on an H100 (0.051,
+# 3.0e-4, 3.5e-5, 8.2%, 3.6e-5)
+GMM_K5_TOL = {"step": 0.1, "next step": 1e-3, "accept": 2e-4,
+              "parted": 0.25, "ll kept": 1e-4}
 # published peaks of one H100 SXM (NVIDIA data sheet): FP32 outside the
-# tensor cores, and HBM3
+# tensor cores, and HBM3; the SFU issues 16 exp/log/rcp per SM per clock,
+# at the 1.98 GHz boost clock on 132 SMs
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+PEAK_SFU = 16 * 132 * 1.98e9
 
 
 def _fail(msg):
@@ -155,6 +188,11 @@ def _bound(ops, nbytes):
         "operations" if t_ops >= t_bytes else "bytes"
 
 
+def _sfu_ms(count):
+    """ms of ``count`` exp/log/rcp at the SFU rate."""
+    return 1e3 * count / PEAK_SFU
+
+
 def _record(name, source, replaces, launches, err, ms, plain_ms, bound):
     """One entry of the kernels line.  No single PyTorch call computes a
     whole-run trainer or a NUTS transition, so ``library_ms`` is null."""
@@ -173,11 +211,17 @@ def _ptxas_summary(log):
             mangled = line.split("'")[1]
             name = next((k for k in ("hier_train_kernel", "row_kernel",
                                      "atg_kernel", "adam_kernel",
-                                     "nuts_kernel", "potential_kernel")
+                                     "nuts_kernel", "potential_kernel",
+                                     "gmm_lik_kernel",
+                                     "smc_gmm_mutate_kernel")
                          if k in mangled), mangled)
             for pot in ("Dlgm", "Hier"):
                 if f"{pot}Potential" in mangled:
                     name += f"<{pot}>"
+            if "gmm" in name:
+                # template arguments: K, D, exact [, mode]
+                name += "<" + ",".join(re.findall(
+                    r"L[ib](\d+)E", mangled.split("kernelI")[1])) + ">"
             stats[name] = {}
         elif name and "spill stores" in line:
             stats[name]["spill"] = (line.split("bytes spill stores")[0]
@@ -533,6 +577,315 @@ def _hier_phases(torch, np, card, dev):
         _record("fused_hier_nuts_transition", "fused_nuts_hier.cu",
                 "bayesic_tpu/ops/fused_nuts_hier.py:175", nuts_launches,
                 hier_nuts_err, tr_ms, tr_plain_ms, nuts_bound),
+    ]
+
+
+def _gmm_phases(torch, np, card, dev):
+    """Phases 17-20, the GMM tempered-SMC path; returns the kernels line's
+    entries of its four kernels."""
+    from bayesic_tpu_torch.dist import StickBreaking
+    from bayesic_tpu_torch.infer.smc import stage_draws
+    from bayesic_tpu_torch.models import gmm
+    from bayesic_tpu_torch.ops import fused_smc_gmm as fsg
+    from bayesic_tpu_torch.ops import gmm_logprob as glp
+
+    cfg = gmm.Config(**GMM, device="cuda")
+    xn, truth = gmm.make_data(cfg)
+    x = torch.as_tensor(xn, device=dev)
+    k, d = cfg.num_components, cfg.data_dim
+    kmut, lsteps = cfg.mutation_steps, cfg.leapfrog_steps
+    p_b, n_b = cfg.num_particles, cfg.num_data
+    dim = (k - 1) + k * d + k
+    rng = np.random.default_rng(17)
+
+    def t32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    def lik_inputs(p, n):
+        xx = x if n == n_b else t32(gmm.make_data(
+            gmm.Config(num_data=n, seed=1))[0])
+        lw = np.log(rng.dirichlet(np.full(k, 2.0), p))
+        mus = truth["centers"][None] + rng.normal(0.0, 1.0, (p, k, d))
+        sig = np.exp(rng.normal(np.log(0.7), 0.3, (p, k)))
+        return xx, t32(lw), t32(mus), t32(sig), t32(rng.normal(size=p))
+
+    # -- 17. the likelihood kernels against their plain versions ----------
+    lik_err, lines = {"fwd": 0.0, "bwd": 0.0, "vg": 0.0}, []
+    for p, n in ((p_b, n_b), (GMM_ODD["p"], GMM_ODD["n"])):
+        xx, lw, mus, sig, ct = lik_inputs(p, n)
+        ll = glp.gmm_loglik(xx, lw, mus, sig)
+        params = [t.clone().requires_grad_() for t in (lw, mus, sig)]
+        g_bwd = torch.autograd.grad(glp.gmm_loglik(xx, *params), params, ct)
+        vg = glp.gmm_loglik_grad(xx, lw, mus, sig)
+        torch.cuda.synchronize()
+        want = glp.gmm_loglik_grad_reference(xx, lw, mus, sig)
+        want_ct = glp.gmm_loglik_grad_reference(xx, lw, mus, sig, ct)
+        ll_ref = glp.gmm_loglik_reference(xx, lw, mus, sig)
+        errs = {}
+        for name, got_, ref in (("fwd", ll, ll_ref), ("vg", vg[0], want[0])):
+            err = (got_ - ref).abs()
+            errs[f"{name} ll"] = float((err / ref.abs()).max())
+            lik_err[name] = max(lik_err[name], float(err.max()))
+        for name, gots, refs in (("bwd", g_bwd, want_ct[1:]),
+                                 ("vg", vg[1:], want[1:])):
+            for gname, got_, ref in zip(("dlogw", "dmus", "dsig"), gots,
+                                        refs):
+                err = (got_ - ref).abs()
+                errs[f"{name} {gname}"] = float(err.max()
+                                                / ref.abs().max())
+                lik_err[name] = max(lik_err[name], float(err.max()))
+        bad = {kk: v for kk, v in errs.items()
+               if v > (1e-5 if kk.endswith(" ll") else 1e-4)}
+        if bad:
+            raise AssertionError(f"phase 17: P {p} N {n}: {bad} (limits: ll "
+                                 f"1e-5 relative, gradients 1e-4 of max|g|)")
+        lines.append(f"P {p} N {n}: " + ", ".join(
+            f"{kk} {v:.2e}" for kk, v in errs.items()))
+    print("phase 17 GMM likelihood kernels ok (worst ll rel err; worst "
+          "gradient err / max|g|): " + "; ".join(lines), flush=True)
+
+    # -- 18. the mutation kernel against mutation_core --------------------
+    pg = fsg.make_gmm_potential_flat(x, k, d)
+    base = torch.cat([
+        StickBreaking().inverse(torch.as_tensor(truth["weights"])),
+        torch.as_tensor(truth["centers"]).reshape(-1),
+        torch.log(torch.as_tensor(truth["scales"]))]).to(dev)
+    q0 = base + t32(rng.normal(0.0, 0.03, (p_b, dim)))
+    m_inv = torch.ones(dim, device=dev)
+    mut_err, lines = 0.0, []
+    for beta, eps in GMM_BETA_EPS:
+        for kk in (1, kmut):
+            mom = t32(rng.normal(size=(kk, p_b, dim)))
+            log_u = t32(np.log(rng.uniform(size=(p_b, kk))))
+            got = fsg.fused_gmm_mutate(q0, mom, log_u, beta, eps, m_inv, x,
+                                       k=k, d=d, kmut=kk, lsteps=lsteps)
+            want = fsg.mutation_core(q0, mom, log_u, beta, eps, m_inv, pg,
+                                     kk, lsteps, 0.65)
+            torch.cuda.synchronize()
+            tag = f"beta {beta} eps {eps} K {kk}"
+            if kk == 1:
+                # a = exp(H0 - H1): float32 sums of |pe| ~ 1e3-1e4 round
+                # each energy by ~2.4e-7 |pe| (phase 17), so log a may
+                # differ by 2e-6 |pe| between two correct versions
+                a_err = (got[2] - want[2]).abs()
+                a_tol = want[2] * (2e-6 * pg(q0, beta)[0].abs() + 1e-5) \
+                    + 1e-6
+                if bool((a_err > a_tol).any()):
+                    raise AssertionError(f"phase 18: {tag}: accept max err "
+                                         f"/ tolerance "
+                                         f"{float((a_err / a_tol).max())}")
+                differ = (got[0] != q0).any(1) != (want[0] != q0).any(1)
+                margin = (log_u[:, 0] - torch.log(want[2])).abs()[differ]
+                if bool((margin >= 1e-2).any()):
+                    raise AssertionError(f"phase 18: {tag}: a decision "
+                                         f"differs {float(margin.max())} "
+                                         f"from its threshold")
+                agree = ~differ
+                m_max = float(margin.max()) if margin.numel() else 0.0
+                extra = (f"accept max abs err {float(a_err.max()):.2e} "
+                         f"(err/tol {float((a_err / a_tol).max()):.3f}), "
+                         f"{int(differ.sum())} decisions differ (max "
+                         f"|log u - log a| {m_max:.1e})")
+                q_err = (got[0] - want[0]).abs()[agree]
+                ll_rel = ((got[1] - want[1]).abs() / want[1].abs())[agree]
+                if bool((q_err > 1e-4 + 1e-4 * want[0].abs()[agree]).any()) \
+                        or float(ll_rel.max()) > 1e-5:
+                    raise AssertionError(f"phase 18: {tag}: q' max err "
+                                         f"{float(q_err.max())}, ll' rel "
+                                         f"err {float(ll_rel.max())}")
+                mut_err = max(mut_err, float(q_err.max()))
+                extra += (f", q' max err {float(q_err.max()):.2e}, ll' rel "
+                          f"err {float(ll_rel.max()):.2e}")
+            else:
+                # With K > 1 a block's adaptation feeds its mean accept back
+                # into its step size, which amplifies the float32 rounding
+                # of energies of |pe| ~ 1e3-1e4 (K = 1 shows the accept
+                # differences it leaves); a differing decision moves its
+                # block's step too.  So the adaptation's outcome is
+                # compared: per-block steps, the pooled next-stage step,
+                # the mean accept and the share of particles whose q' part
+                e_rel = (got[3] - want[3]).abs() / want[3]
+                g_k, g_p = (torch.exp(torch.log(e).mean())
+                            for e in (got[3], want[3]))
+                kept = (got[0] - want[0]).abs().amax(1) <= 1e-3
+                ll_rel = ((got[1] - want[1]).abs() / want[1].abs())[kept]
+                stats = {"step": float(e_rel.max()),
+                         "next step": float((g_k - g_p).abs() / g_p),
+                         "accept": float((got[2].mean()
+                                          - want[2].mean()).abs()),
+                         "parted": 1.0 - float(kept.float().mean()),
+                         "ll kept": float(ll_rel.max())}
+                bad = {kk: v for kk, v in stats.items()
+                       if v > GMM_K5_TOL[kk]}
+                if bad:
+                    raise AssertionError(f"phase 18: {tag}: {bad} (limits "
+                                         f"{GMM_K5_TOL})")
+                extra = (f"per-block step max rel err {stats['step']:.2e} "
+                         f"(median {float(e_rel.median()):.2e}), next step "
+                         f"rel err {stats['next step']:.2e}, mean accept "
+                         f"err {stats['accept']:.2e}, parted "
+                         f"{100 * stats['parted']:.2f}%, ll' rel err of "
+                         f"the rest {stats['ll kept']:.2e}")
+            ll_chk = pg(got[0], beta)[2]
+            inv = float(((got[1] - ll_chk).abs() / ll_chk.abs()).max())
+            if inv > 1e-5:
+                raise AssertionError(f"phase 18: {tag}: ll' != ll(q'), rel "
+                                     f"err {inv}")
+            lines.append(f"{tag}: mean accept {float(got[2].mean()):.3f}, "
+                         f"{extra}, ll'=ll(q') rel err {inv:.2e}")
+    print(f"phase 18 mutation kernel ok ({p_b} particles, "
+          f"{p_b // fsg.PB} blocks): " + "; ".join(lines), flush=True)
+
+    # -- 19. SMC end to end through the four modes ------------------------
+    true_ll = gmm._true_loglik(xn, truth)
+    runs, launches, smcs, last = {}, {}, {}, {}
+    for mode in ("generic", "kernels", "fused", "split"):
+        smc = gmm.make_smc(cfg, x, mode)
+        smcs[mode] = smc
+        smc.max_stages = 2                  # warm-up, untimed
+        smc.run(0)
+        smc.max_stages = 100
+        glp.LAUNCHES.update(fwd=0, bwd=0, vg=0)
+        fsg.LAUNCHES = 0
+        runs[mode] = []
+        for seed in (GMM_SEEDS if mode != "split" else GMM_SEEDS[:1]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = smc.run(seed)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            gap = true_ll - gmm.predictive_loglik(res, x, cfg)
+            acc = float(res.accept_rate)
+            if not (abs(gap) < 0.3 and 0.0 < acc <= 1.0
+                    and bool(torch.isfinite(res.log_evidence))):
+                raise AssertionError(f"phase 19: {mode} seed {seed}: gap "
+                                     f"{gap}, accept {acc}, log Z "
+                                     f"{float(res.log_evidence)}")
+            runs[mode].append(dict(wall=wall, stages=res.num_stages,
+                                   logz=float(res.log_evidence), gap=gap,
+                                   accept=acc))
+            last[mode] = res
+        launches[mode] = dict(glp.LAUNCHES, mutate=fsg.LAUNCHES)
+    want_kernel = {"kernels": ("fwd", "vg"), "fused": ("mutate",),
+                   "split": ("fwd", "bwd")}
+    for mode, names in want_kernel.items():
+        for name in names:
+            if launches[mode][name] < 1:
+                raise AssertionError(f"phase 19: {mode} never launched the "
+                                     f"{name} kernel")
+    lz = {m: [r["logz"] for r in rs] for m, rs in runs.items()}
+    lz_gen = float(np.mean(lz["generic"]))
+    for mode in ("kernels", "fused"):
+        if abs(float(np.mean(lz[mode])) - lz_gen) > 3.0:
+            raise AssertionError(f"phase 19: {mode} seed-mean log Z "
+                                 f"{np.mean(lz[mode])} vs generic {lz_gen}")
+    if not min(lz["generic"]) - 3 <= lz["split"][0] <= max(lz["generic"]) + 3:
+        raise AssertionError(f"phase 19: split log Z {lz['split'][0]} "
+                             f"outside generic's {lz['generic']} +- 3")
+    rates, lines = {}, []
+    for mode, rs in runs.items():
+        walls = [r["wall"] for r in rs]
+        med = float(np.median(walls))
+        i_med = int(np.argmin([abs(w - med) for w in walls]))
+        stages = rs[i_med]["stages"]
+        rates[mode] = p_b * stages / med
+        lines.append(
+            f"{mode}: log Z {', '.join(f'{v:.2f}' for v in lz[mode])} "
+            f"(mean {np.mean(lz[mode]):.2f}), stages "
+            f"{[r['stages'] for r in rs]}, max |gap| "
+            f"{max(abs(r['gap']) for r in rs):.3f}, accept "
+            f"{', '.join(f'{r['accept']:.3f}' for r in rs)}, wall "
+            f"{', '.join(f'{w:.2f}' for w in walls)} s, median "
+            f"{med:.3f} s at {stages} stages: {rates[mode]:.1f} "
+            f"particle-stages/s; launches {launches[mode]}")
+    print(f"phase 19 GMM SMC main path ok [{card}]: P {p_b}, N {n_b}, "
+          f"{kmut} x {lsteps}, seeds {list(GMM_SEEDS)}; " + "; ".join(lines),
+          flush=True)
+
+    # -- 20. times and traces ---------------------------------------------
+    xx, lw, mus, sig, ct = lik_inputs(p_b, n_b)
+    timed = {
+        "fwd": (lambda: glp._fwd(xx, lw, mus, sig),
+                lambda: glp.gmm_loglik_reference(xx, lw, mus, sig)),
+        "bwd": (lambda: glp._bwd(xx, lw, mus, sig, ct),
+                lambda: glp.gmm_loglik_grad_reference(xx, lw, mus, sig, ct)),
+        "vg": (lambda: glp.gmm_loglik_grad(xx, lw, mus, sig),
+               lambda: glp.gmm_loglik_grad_reference(xx, lw, mus, sig)),
+    }
+    ms = {}
+    for name, (kern, plain) in timed.items():
+        kern()
+        plain()
+        ms[name] = (_cuda_ms(torch, kern, 20)[0], _cuda_ms(torch, plain, 3)[0])
+    mom = t32(rng.normal(size=(kmut, p_b, dim)))
+    log_u = t32(np.log(rng.uniform(size=(p_b, kmut))))
+    margs = (q0, mom, log_u, 1.0, 0.03, m_inv, x)
+    mkw = dict(k=k, d=d, kmut=kmut, lsteps=lsteps)
+    fsg.fused_gmm_mutate(*margs, **mkw)
+    ms["mutate"] = (
+        _cuda_ms(torch, lambda: fsg.fused_gmm_mutate(*margs, **mkw), 5)[0],
+        _cuda_ms(torch, lambda: fsg.mutation_core(
+            q0, mom, log_u, 1.0, 0.03, m_inv, pg, kmut, lsteps, 0.65))[0])
+    # one stage of each mode from the end of a run, tempered back to 0.9
+    res = last["kernels"]
+    gen = torch.Generator(device=dev).manual_seed(20)
+    draws = stage_draws(gen, p_b, dim, kmut)
+    traces = {}
+    for mode, smc in smcs.items():
+        q = res.unconstrained
+        ll = smc._loglik(q) if mode == "fused" else None
+        args = (q, torch.zeros(p_b, device=dev),
+                torch.tensor(0.9, device=dev), ll,
+                torch.tensor(0.004, device=dev), draws)
+        smc.stage(*args)
+        traces[mode] = _trace(torch, lambda: smc.stage(*args), 1, "stage")
+
+    # bounds.  Per (particle, point): K (3D + 5) operations for the
+    # component densities and the max-shifted exps, 3 for the log and the
+    # sums (value), K (3 + 2D) + 1 for the responsibilities and the
+    # gradient sums; exp/log/rcp counted apart for the SFU.  Bytes: every
+    # input read once, every output written once.  The mutation: K L + 1
+    # value+grad evaluations of its padded population per stage.
+    pts = p_b * n_b
+    per_val, per_grad = k * (3 * d + 5) + 3, k * (3 + 2 * d) + 1
+    par = p_b * (2 * k + k * d)
+    cost = {
+        "fwd": (pts * per_val, 4 * (n_b * d + par + p_b), pts * (k + 1)),
+        "bwd": (pts * (k * (3 * d + 5) + per_grad),
+                4 * (n_b * d + 2 * par + p_b), pts * (k + 1)),
+        "vg": (pts * (per_val + per_grad), 4 * (n_b * d + 2 * par + p_b),
+               pts * (k + 2)),
+    }
+    evals = kmut * lsteps + 1
+    p_pad = -(-p_b // fsg.PB) * fsg.PB
+    cost["mutate"] = (
+        evals * p_pad * n_b * (per_val + per_grad),
+        4 * (n_b * d + (2 + kmut) * p_b * dim + p_b * kmut + dim + 2 * p_b
+             + p_pad // fsg.PB),
+        evals * p_pad * n_b * (k + 2))
+    bounds = {kk: _bound(o, b) for kk, (o, b, _) in cost.items()}
+    print(f"phase 20 GMM times ok [{card}]: " + "; ".join(
+        f"{kk} kernel {ms[kk][0]:.4f} ms, plain {ms[kk][1]:.4f} ms, bound "
+        f"{bounds[kk][0]:.4f} ms ({bounds[kk][1]}), SFU "
+        f"{_sfu_ms(cost[kk][2]):.4f} ms" for kk in ms)
+        + " (mutate per stage, the others per call); one stage: "
+        + "; ".join(f"{kk} {v}" for kk, v in traces.items()), flush=True)
+
+    n_launch = {kk: sum(lc[kk] for lc in launches.values())
+                for kk in ("fwd", "bwd", "vg", "mutate")}
+    return [
+        _record("fused_gmm_mutate", "fused_smc_gmm.cu",
+                "bayesic_tpu/ops/fused_smc_gmm.py:319", n_launch["mutate"],
+                mut_err, ms["mutate"][0], ms["mutate"][1], bounds["mutate"]),
+        _record("gmm_loglik_fwd", "gmm_logprob.cu",
+                "bayesic_tpu/ops/gmm_logprob.py:141", n_launch["fwd"],
+                lik_err["fwd"], ms["fwd"][0], ms["fwd"][1], bounds["fwd"]),
+        _record("gmm_loglik_bwd", "gmm_logprob.cu",
+                "bayesic_tpu/ops/gmm_logprob.py:158", n_launch["bwd"],
+                lik_err["bwd"], ms["bwd"][0], ms["bwd"][1], bounds["bwd"]),
+        _record("gmm_loglik_grad", "gmm_logprob.cu",
+                "bayesic_tpu/ops/gmm_logprob.py:375", n_launch["vg"],
+                lik_err["vg"], ms["vg"][0], ms["vg"][1], bounds["vg"]),
     ]
 
 
@@ -933,6 +1286,7 @@ def main():
                 nuts_ms, nuts_plain_ms, _bound(nuts_ops, nuts_bytes)),
     ]
     records += _hier_phases(torch, np, card, dev)
+    records += _gmm_phases(torch, np, card, dev)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": records}))
