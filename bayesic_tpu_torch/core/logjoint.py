@@ -19,7 +19,8 @@ from ..dist.transforms import biject_to
 from . import handlers
 
 __all__ = ["ModelInfo", "inspect_model", "build_logjoint", "init_to_prior",
-           "init_population", "init_to_uniform", "default_device"]
+           "init_population", "priors_fixed", "init_to_uniform",
+           "default_device"]
 
 
 class ModelInfo(NamedTuple):
@@ -120,15 +121,41 @@ def init_to_prior(model, info, *args, rng_key=None, **kwargs):
             for n in info.latent_names}
 
 
+def priors_fixed(model, info, *args, device="cpu", **kwargs):
+    """Whether no latent site's prior depends on another latent's draw.
+
+    Two traces from generators seeded apart draw different latents; a
+    site whose distribution is fixed gives the first trace's value the
+    same log density under both.  Neither trace touches the caller's
+    generator."""
+    traces = [_model_trace(model, args, kwargs,
+                           torch.Generator(device=device).manual_seed(s))
+              for s in (0, 1)]
+    for n in info.latent_names:
+        d0, d1 = traces[0][n]["dist"], traces[1][n]["dist"]
+        value = traces[0][n]["value"]
+        if d0.batch_shape != d1.batch_shape \
+                or not torch.equal(d0.log_prob(value), d1.log_prob(value)):
+            return False
+    return True
+
+
 def init_population(model, info, num, *args, rng_key=None, **kwargs):
-    """``num`` unconstrained prior draws in one trace: a dict of (num,
-    *shape) tensors.  Each latent site's distribution is taken from one
-    trace of ``model`` and sampled with sample shape (num,), then mapped
-    through the site's inverse transform; so a site's prior may not depend
-    on another latent's value (the draws would all share the traced one).
-    The JAX package folds one key per particle into ``init_to_prior``
-    instead, a loop that costs one model trace per particle here."""
+    """``num`` unconstrained prior draws: a dict of (num, *shape) tensors.
+
+    When every latent's prior is fixed (``priors_fixed``, the GMM's case)
+    one trace gives each site's distribution, sampled with sample shape
+    (num,) and mapped through the site's inverse transform.  Otherwise
+    each draw gets its own trace, in order from ``rng_key``, so a site
+    such as ``b ~ N(a, 0.1)`` is drawn around its own particle's ``a``:
+    the JAX package's semantics (one key per particle folded into
+    ``init_to_prior``), at one model trace per particle."""
     gen = rng_key if rng_key is not None else _default_generator()
+    if not priors_fixed(model, info, *args, device=gen.device, **kwargs):
+        draws = [init_to_prior(model, info, *args, rng_key=gen, **kwargs)
+                 for _ in range(int(num))]
+        return {n: torch.stack([d[n] for d in draws])
+                for n in info.latent_names}
     tr = _model_trace(model, args, kwargs, gen)
     return {n: info.transforms[n].inverse(tr[n]["dist"].sample(gen, (num,)))
             for n in info.latent_names}

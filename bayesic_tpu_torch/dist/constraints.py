@@ -1,5 +1,5 @@
 """Support constraints for distributions (the subset the DLGM,
-hierarchical-logistic and GMM paths need).
+hierarchical-logistic, GMM and linear-regression paths need).
 
 Counterpart of ``bayesic_tpu/dist/constraints.py``.  A ``Constraint``
 describes the support of a distribution; ``biject_to`` (in
@@ -40,6 +40,15 @@ class _Simplex(Constraint):
         return torch.all(x >= 0, dim=-1) & (torch.abs(x.sum(-1) - 1.0) < 1e-6)
 
 
+class _LowerCholesky(Constraint):
+    event_dim = 2
+
+    def __call__(self, x):
+        tril = torch.all(torch.triu(x, 1) == 0, dim=-1).all(-1)
+        pos_diag = torch.all(torch.diagonal(x, dim1=-2, dim2=-1) > 0, dim=-1)
+        return tril & pos_diag
+
+
 class _IntegerInterval(Constraint):
     is_discrete = True
 
@@ -63,5 +72,6 @@ class _Boolean(Constraint):
 real = _Real()
 positive = _Positive()
 simplex = _Simplex()
+lower_cholesky = _LowerCholesky()
 boolean = _Boolean()
 integer_interval = _IntegerInterval

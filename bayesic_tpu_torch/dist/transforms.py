@@ -5,17 +5,21 @@ Counterpart of ``bayesic_tpu/dist/transforms.py``.  Conventions:
 
 * ``forward(u)`` maps unconstrained -> constrained; ``inverse(x)`` the reverse.
 * ``log_det_jacobian(u)`` returns ``log |det dF/du|``: elementwise for the
-  scalar transforms, one value per event for ``StickBreaking``.
+  scalar transforms, one value per event for ``StickBreaking`` and
+  ``LowerCholeskyTransform``.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from . import constraints
 
-__all__ = ["Transform", "Identity", "Exp", "StickBreaking", "biject_to"]
+__all__ = ["Transform", "Identity", "Exp", "StickBreaking",
+           "LowerCholeskyTransform", "biject_to"]
 
 
 class Transform:
@@ -107,6 +111,47 @@ class StickBreaking(Transform):
         return torch.sum(F.logsigmoid(t) + log1mz + log_rem_excl, -1)
 
 
+class LowerCholeskyTransform(Transform):
+    """R^{m(m+1)/2} -> lower-triangular (m, m) with a positive (exp'd)
+    diagonal.  The packed vector holds the lower triangle row by row
+    (``torch.tril_indices`` order, the JAX package's ``jnp.tril_indices``),
+    so entry (k, k) sits at k(k+1)/2 + k."""
+
+    @staticmethod
+    def _side(n):
+        m = int((-1.0 + math.sqrt(1.0 + 8.0 * n)) / 2.0)
+        if m * (m + 1) // 2 != n:
+            raise ValueError(f"{n} is not a triangular number")
+        return m
+
+    def forward_shape(self, shape):
+        m = self._side(shape[-1])
+        return tuple(shape[:-1]) + (m, m)
+
+    def inverse_shape(self, shape):
+        m = shape[-1]
+        return tuple(shape[:-2]) + (m * (m + 1) // 2,)
+
+    def forward(self, u):
+        m = self._side(u.shape[-1])
+        row, col = torch.tril_indices(m, m, device=u.device)
+        mat = u.new_zeros(u.shape[:-1] + (m, m))
+        mat[..., row, col] = torch.where(row == col, torch.exp(u), u)
+        return mat
+
+    def inverse(self, x):
+        m = x.shape[-1]
+        row, col = torch.tril_indices(m, m, device=x.device)
+        vec = x[..., row, col]
+        return torch.where(row == col, torch.log(vec), vec)
+
+    def log_det_jacobian(self, u):
+        m = self._side(u.shape[-1])
+        pos = torch.tensor([k * (k + 1) // 2 + k for k in range(m)],
+                           device=u.device)
+        return torch.sum(u[..., pos], -1)
+
+
 def biject_to(constraint):
     """Map a Constraint to a Transform from unconstrained space onto it."""
     if isinstance(constraint, constraints._Real):
@@ -115,7 +160,9 @@ def biject_to(constraint):
         return Exp()
     if isinstance(constraint, constraints._Simplex):
         return StickBreaking()
+    if isinstance(constraint, constraints._LowerCholesky):
+        return LowerCholeskyTransform()
     raise ValueError(
         f"No bijector for constraint {constraint!r} "
-        f"(only real, positive and simplex are ported)."
+        f"(only real, positive, simplex and lower_cholesky are ported)."
     )

@@ -2,7 +2,8 @@
 
 Counterpart of ``bayesic_tpu/infer/svi/guides.py``; the DLGM path needs the
 interface and the amortized ``NeuralGuide``, the hierarchical-logistic path
-the ``MeanFieldGuide``; ``MCMC`` needs ``unraveler``.
+the ``MeanFieldGuide``, the linear regression also the ``FullRankGuide``;
+``MCMC`` needs ``unraveler``.
 """
 
 from __future__ import annotations
@@ -11,7 +12,10 @@ import math
 
 import torch
 
-__all__ = ["unraveler", "Guide", "MeanFieldGuide", "NeuralGuide"]
+from ...dist.transforms import LowerCholeskyTransform
+
+__all__ = ["unraveler", "Guide", "MeanFieldGuide", "FullRankGuide",
+           "NeuralGuide"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -110,6 +114,74 @@ class MeanFieldGuide(Guide):
         """Unconstrained-space posterior mean/std per site."""
         return (self.unravel(params["loc"]),
                 self.unravel(torch.exp(params["log_scale"])))
+
+
+class FullRankGuide(Guide):
+    """Full-covariance Gaussian q(u) = N(loc, L L^T) over the flat
+    unconstrained vector, L from a packed lower-Cholesky vector with a
+    log diagonal (``LowerCholeskyTransform``)."""
+
+    def __init__(self, info, init_scale=0.1):
+        self.dim, self.unravel, self.ravel = unraveler(info)
+        self.init_scale = float(init_scale)
+        self._tril = LowerCholeskyTransform()
+        self._nvec = self.dim * (self.dim + 1) // 2
+
+    def init(self, generator, loc=None):
+        """``loc`` 0 unless given (a flat vector or a dict of sites); the
+        packed L has diagonal log(init_scale) and zeros elsewhere.  Draws
+        nothing; the params land on the generator's device."""
+        device = generator.device
+        if loc is None:
+            loc = torch.zeros(self.dim, device=device)
+        elif isinstance(loc, dict):
+            loc = self.ravel(loc)
+        vec = torch.zeros(self._nvec, device=device)
+        pos = [k * (k + 1) // 2 + k for k in range(self.dim)]
+        vec[pos] = math.log(self.init_scale)
+        return {"loc": torch.as_tensor(loc, dtype=torch.float32,
+                                       device=device),
+                "scale_tril_vec": vec}
+
+    def _chol(self, params):
+        return self._tril.forward(params["scale_tril_vec"])
+
+    def sample_and_log_prob(self, params, generator, sample_shape=(),
+                            stop_gradient_q=False, ctx=None):
+        shape = tuple(sample_shape) + (self.dim,)
+        eps = (ctx or {}).get("eps")
+        if eps is None:
+            eps = torch.randn(shape, generator=generator,
+                              device=generator.device)
+        else:
+            eps = eps.expand(shape)
+        flat = params["loc"] + eps @ self._chol(params).T
+        loc, vec = params["loc"], params["scale_tril_vec"]
+        if stop_gradient_q:
+            loc, vec = loc.detach(), vec.detach()
+        q_chol = self._tril.forward(vec)
+        diff = flat - loc
+        z = torch.linalg.solve_triangular(
+            q_chol.expand(diff.shape[:-1] + q_chol.shape), diff[..., None],
+            upper=False)[..., 0]
+        half_logdet = torch.sum(torch.log(torch.diagonal(q_chol)))
+        logq = (-0.5 * torch.sum(z * z, -1) - half_logdet
+                - 0.5 * self.dim * _LOG_2PI)
+        return self.unravel(flat), logq
+
+    def entropy(self, params):
+        return torch.sum(torch.log(torch.diagonal(self._chol(params)))) \
+            + 0.5 * self.dim * (1.0 + _LOG_2PI)
+
+    def stats(self, params):
+        """Unconstrained-space posterior mean/std per site."""
+        chol = self._chol(params)
+        std = torch.sqrt(torch.sum(chol * chol, -1))
+        return self.unravel(params["loc"]), self.unravel(std)
+
+    def covariance(self, params):
+        chol = self._chol(params)
+        return chol @ chol.T
 
 
 class NeuralGuide(Guide):

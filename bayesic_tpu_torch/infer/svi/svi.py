@@ -27,16 +27,22 @@ __all__ = ["Adam", "AdamState", "SVIState", "SVIResult", "SVI",
 
 
 def tree_map(fn, tree, *rest):
-    """Map ``fn`` over the tensor leaves of nested dicts of equal keys."""
+    """Map ``fn`` over the tensor leaves of nested dicts (of equal keys)
+    and tuples (of equal lengths)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}
+    if type(tree) is tuple:
+        return tuple(tree_map(fn, t, *(r[i] for r in rest))
+                     for i, t in enumerate(tree))
     return fn(tree, *rest)
 
 
 def tree_leaves(tree):
     if isinstance(tree, dict):
         return [x for k in tree for x in tree_leaves(tree[k])]
+    if type(tree) is tuple:
+        return [x for t in tree for x in tree_leaves(t)]
     return [tree]
 
 

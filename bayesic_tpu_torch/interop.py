@@ -3,9 +3,11 @@
 The JAX package keeps flax ``Dense`` kernels as (in, out); ``nn.Linear``
 keeps its weight as (out, in), so every kernel is transposed here.  The
 fused DLGM trainer's leaves keep (in, out) on both sides and map one to
-one.  The fused hier trainer's state is (1, 128) lane vectors in the JAX
-package (lanes 0 .. P-1 hold the flat parameters, the rest are padding) and
-flat (P,) vectors here.  The GMM's SMC particles are (P, dim) rows in
+one.  The fused hier and linreg trainers' state is (1, 128) lane vectors in
+the JAX package (lanes 0 .. P-1 hold the flat parameters, the rest are
+padding) and flat (P,) vectors here (P = D + 1 for the linreg, lanes w[0 ..
+D-1], b).  The dense MF params are ``{site: (loc, log_scale)}`` on both
+sides.  The GMM's SMC particles are (P, dim) rows in
 unraveler order (K-1 stick-breaking weights, K*D means, K log-scales) on
 both sides; the JAX fused mutation kernel pads them to (P, 128) lanes.
 Pass pytrees through ``jax.tree.map(np.asarray,
@@ -19,8 +21,8 @@ import torch
 
 __all__ = ["flax_to_state_dict", "state_dict_to_flax", "svi_params",
            "fused_leaves", "adam_state", "mean_field_params",
-           "mean_field_to_jax", "hier_lanes_to_flat", "hier_flat_to_lanes",
-           "smc_particles"]
+           "mean_field_to_jax", "lanes_to_flat", "flat_to_lanes",
+           "smc_particles", "mf_dense_params", "mf_dense_to_jax"]
 
 
 def _t(a, device):
@@ -89,13 +91,14 @@ def mean_field_to_jax(params):
             for k in ("loc", "log_scale")}
 
 
-def hier_lanes_to_flat(lanes, dim, device="cpu"):
-    """JAX fused hier trainer state, a sequence of (1, 128) lane vectors
-    (loc, ls, m1, m2, v1, v2), -> the port's flat (dim,) tensors."""
+def lanes_to_flat(lanes, dim, device="cpu"):
+    """JAX fused hier or linreg trainer state, a sequence of (1, 128) lane
+    vectors (loc, ls, m1, m2, v1, v2), -> the port's flat (dim,)
+    tensors."""
     return tuple(_t(np.asarray(v)[0, :dim], device) for v in lanes)
 
 
-def hier_flat_to_lanes(flats):
+def flat_to_lanes(flats):
     """The port's flat (P,) tensors -> (1, 128) numpy lane vectors with
     zero padding (the JAX trainer keeps its pad lanes at zero)."""
     out = []
@@ -110,3 +113,16 @@ def smc_particles(q, dim, device="cpu"):
     """JAX SMC particles, flat (P, dim) or the fused kernel's lane-padded
     (P, 128), -> the port's (P, dim) tensor (the same unraveler order)."""
     return _t(np.asarray(q)[:, :dim], device)
+
+
+def mf_dense_params(params, device="cpu"):
+    """JAX dense MF params (or Adam moments of them) ``{site: (loc,
+    log_scale)}`` -> the port's, tensors of the same shapes."""
+    return {site: tuple(_t(v, device) for v in pair)
+            for site, pair in params.items()}
+
+
+def mf_dense_to_jax(params):
+    """Inverse of ``mf_dense_params``, as numpy arrays."""
+    return {site: tuple(v.detach().cpu().numpy() for v in pair)
+            for site, pair in params.items()}

@@ -91,6 +91,14 @@ def _declare(lib):
     lib.smc_gmm_mutate_smem_bytes.restype = ctypes.c_size_t
     lib.smc_gmm_mutate.argtypes = [vp] * 11 + [i32] * 6 + [f32, f32, vp]
     lib.smc_gmm_mutate.restype = i32
+    lib.fused_linreg_train.argtypes = (
+        [vp] * 9 + [i32] * 2 + [ctypes.c_longlong, i32, f32, i32, f32, f32,
+                                ctypes.c_ulonglong, vp])
+    lib.fused_linreg_train.restype = i32
+    lib.mf_dense_scratch_floats.argtypes = [i32] * 3
+    lib.mf_dense_scratch_floats.restype = ctypes.c_size_t
+    lib.mf_dense_cell_grads.argtypes = [vp] * 8 + [i32] * 4 + [vp]
+    lib.mf_dense_cell_grads.restype = i32
 
 
 def _run_all(cmds):

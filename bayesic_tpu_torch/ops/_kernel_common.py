@@ -15,7 +15,10 @@ Counter layout of the fused hierarchical-logistic trainer
 (``hier_streams``): one draw block per step, ``(step_lo, 0, lane,
 step_hi)`` with the same key.  Lane 0 gives the step's circular block
 offset ``min(floor(u n), n - 1)``, lane ``1 + p`` the noise ``eps[p]`` of
-flat parameter ``p``: the DLGM layout with a single row.
+flat parameter ``p``: the DLGM layout with a single row.  The fused
+linear-regression trainer reads the same streams (its lane 0 goes unused).
+
+The whole-run trainers keep at most 2048 losses (``loss_thin``).
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ import math
 import torch
 
 __all__ = ["philox4x32_10", "uniform24", "kernel_uniform_index",
-           "box_muller", "philox_streams", "hier_streams", "adam_leaf"]
+           "box_muller", "philox_streams", "hier_streams", "adam_leaf",
+           "loss_thin", "thin_losses"]
 
 _MASK32 = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -107,3 +111,18 @@ def adam_leaf(p, m, v, g, t, lr, b1=0.9, b2=0.999, eps=1e-8):
     v = b2 * v + (1.0 - b2) * g * g
     upd = (m / bc1) / (torch.sqrt(v / bc2) + eps)
     return p - lr * upd, m, v
+
+
+def loss_thin(steps):
+    """Loss-trace thinning of the JAX whole-run kernels: at most 2048
+    entries; entry k holds the loss of the last step i with i // thin ==
+    k."""
+    return -(-steps // min(steps, 2048))
+
+
+def thin_losses(losses, steps):
+    """The per-step ``losses`` (steps,) thinned as the kernels write them."""
+    thin = loss_thin(steps)
+    keep = torch.clamp(torch.arange(-(-steps // thin)) * thin + thin - 1,
+                       max=steps - 1)
+    return losses[keep.to(losses.device)]

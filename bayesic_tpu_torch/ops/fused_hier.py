@@ -41,7 +41,8 @@ import torch
 
 from ..infer.svi.svi import cosine_decay_schedule
 from . import _build
-from ._kernel_common import adam_leaf, hier_streams
+from ._kernel_common import adam_leaf, hier_streams, thin_losses
+from ._kernel_common import loss_thin as _thin
 
 __all__ = ["fused_train", "fused_train_injected", "reference_train",
            "init_params", "MAX_FEATURES"]
@@ -135,12 +136,6 @@ def reference_train(x, y, group, loc, ls, opt_state, *, off_stream,
 # the kernel's wrapper
 # ---------------------------------------------------------------------------
 
-def _thin(steps):
-    """Loss-trace thinning of the JAX kernel: at most 2048 entries; entry
-    k holds the loss of the last step i with i // thin == k."""
-    return -(-steps // min(steps, 2048))
-
-
 def _check(x, y, group, loc, ls, opt_state, batch):
     if x.dim() != 2 or x.dtype != torch.float32:
         raise ValueError("x must be a float32 (N, F) tensor")
@@ -227,9 +222,7 @@ def fused_train(x, y, group, loc, ls, opt_state=None, *, steps, lr0,
     loc, ls, opt, losses = reference_train(
         x, y, group, loc, ls, opt_state, off_stream=off, eps_stream=eps,
         lr0=lr0, lr_total=lr_total, batch=batch, t0=t0, n_total=n_total)
-    keep = torch.clamp(torch.arange(-(-steps // thin)) * thin + thin - 1,
-                       max=steps - 1)
-    return loc, ls, opt, losses[keep]
+    return loc, ls, opt, thin_losses(losses, steps)
 
 
 def fused_train_injected(x, y, group, loc, ls, opt_state, *, off_stream,

@@ -36,7 +36,8 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from ._kernel_common import adam_leaf
+from ._kernel_common import adam_leaf, thin_losses
+from ._kernel_common import loss_thin as _thin
 
 _C = 0.5 * math.log(2.0 * math.pi)
 
@@ -136,13 +137,6 @@ def _adam(params, m, v, grads, t, lr):
 def _flatten(tree, device=None):
     return [torch.as_tensor(tree[k], dtype=torch.float32, device=device)
             for k in LEAVES]
-
-
-def _thin(steps):
-    """Loss-trace thinning of the JAX kernel: at most 2048 entries; entry
-    k holds the loss of the last step i with i // thin == k."""
-    loss_len = min(steps, 2048)
-    return -(-steps // loss_len)
 
 
 def reference_train(x, params, m, v, *, idx_stream, eps_stream, lr, t0=0):
@@ -263,9 +257,7 @@ def fused_train(x, params, m, v, *, steps, lr, seed, batch=256, t0=0):
     eps = torch.randn((steps, int(batch), z), generator=gen)
     p, mm, vv, losses = reference_train(x, params, m, v, idx_stream=idx,
                                         eps_stream=eps, lr=lr, t0=t0)
-    keep = torch.clamp(torch.arange(-(-steps // thin)) * thin + thin - 1,
-                       max=steps - 1)
-    return p, mm, vv, losses[keep]
+    return p, mm, vv, thin_losses(losses, steps)
 
 
 def fused_train_injected(x, params, m, v, *, idx_stream, eps_stream, lr):

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: the DLGM's
 SVI and local-posterior NUTS, the hierarchical logistic regression's SVI
-and full-batch NUTS, and the Gaussian mixture's tempered SMC.
+and full-batch NUTS, the Gaussian mixture's tempered SMC, the linear
+regression's SVI and the matrix factorization's mini-batch and dense
+SVI.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
 hand-written kernels from ``bayesic_tpu_torch/csrc/``.
@@ -40,6 +42,22 @@ kernels, fused on five paired seeds, split on one) and gate the posterior
 predictive and the paired log-evidence; time every kernel against its
 plain version and trace one stage of each mode.
 
+Phases 21-22, the linear-regression path at its bench shape
+(``linreg.Config(n=16384, dim=64)``): check the fused linreg trainer's
+step against autograd of the DSL model and against a float64 plain step,
+a 200-step injected trajectory and the Philox twin against the plain
+version; drive ``run`` (mean-field and full-rank, 2,000 steps) and
+``run_svi_fused`` (200,000 steps) and gate them on the analytic
+posterior; time the kernel, the plain version and the generic engine.
+
+Phases 23-25, the matrix-factorization path at its bench shape
+(``matrix_fact.Config()``: 3,000 users x 1,500 items, K 16, 1M ratings):
+check the dense MF cell pass against its plain version at the bench shape
+and a ragged one in float32 and bfloat16; drive ``run`` (mini-batch),
+``run_dense`` (eager) and ``mf_dense.fused_train`` in both modes and gate
+their RMSE and final losses; time the kernel, its plain version and the
+eager autograd path, and trace ``fused_train``.
+
 Each phase prints one line and raises on failure.  The line before the
 last is a JSON object with one entry per kernel: its launches on the main
 path (``fused_vae_train`` counts calls of its C entry, each of which
@@ -56,6 +74,7 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -107,6 +126,28 @@ GMM_ODD = dict(p=1001, n=1999)      # phase 17's odd shape
 # 3.0e-4, 3.5e-5, 8.2%, 3.6e-5)
 GMM_K5_TOL = {"step": 0.1, "next step": 1e-3, "accept": 2e-4,
               "parted": 0.25, "ll kept": 1e-4}
+# the linreg bench (JAX benchmarks/harness.py:300-335): Config(n=16384,
+# dim=64); phase 21's trajectories and limits (one step: elbo rel err,
+# gradient err within grad x (|g| + 0.1 max|g|); trajectories: loss rel
+# err and param err / max), phase 22's entry points: the generic engine
+# with 2,000 steps per guide (the full-rank one at lr 0.01: at the
+# default 0.05 its 2,145-parameter guide diverges on both packages at this
+# width), the fused trainer with 200,000
+LINREG = dict(n=16384, dim=64)
+LINREG_TOL = {"elbo": 2e-5, "grad": 1e-4, "trajectory": 1e-4}
+LINREG_TRAJ, LINREG_PLAIN_STEPS = 200, 100
+LINREG_STEPS, LINREG_FULLRANK_LR = 2000, 0.01
+LINREG_FUSED_STEPS, LINREG_TRACE_STEPS, LINREG_GENERIC_TIMED = \
+    200_000, 2_000, 200
+# the dense MF bench (JAX benchmarks/harness.py:430-510): Config(), 3,000
+# users x 1,500 items, K 16, 1M ratings; phase 23's ragged shape and
+# limits (loss rel err, gradient err / max|g|; bf16: a G entry at a
+# rounding boundary may round the other way after float32 sums in
+# another order); phase 24's fused_train rate (the JAX selftest's).  MF
+# holds overrides of matrix_fact.Config(): none, the bench is its defaults
+MF, MF_ODD = {}, (997, 1501)
+MF_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 1e-3)}
+MF_FUSED_LR, MF_TRACE_STEPS = 5e-3, 20
 # published peaks of one H100 SXM (NVIDIA data sheet): FP32 outside the
 # tensor cores, and HBM3; the SFU issues 16 exp/log/rcp per SM per clock,
 # at the 1.98 GHz boost clock on 132 SMs
@@ -195,7 +236,8 @@ def _sfu_ms(count):
 
 def _record(name, source, replaces, launches, err, ms, plain_ms, bound):
     """One entry of the kernels line.  No single PyTorch call computes a
-    whole-run trainer or a NUTS transition, so ``library_ms`` is null."""
+    whole-run trainer, a NUTS transition, an SMC mutation, the GMM
+    likelihood or the dense MF cell pass, so ``library_ms`` is null."""
     return {"name": name, "route": "cuda",
             "source": f"bayesic_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -213,8 +255,12 @@ def _ptxas_summary(log):
                                      "atg_kernel", "adam_kernel",
                                      "nuts_kernel", "potential_kernel",
                                      "gmm_lik_kernel",
-                                     "smc_gmm_mutate_kernel")
+                                     "smc_gmm_mutate_kernel",
+                                     "linreg_train_kernel", "mf_cell_kernel",
+                                     "mf_reduce_kernel")
                          if k in mangled), mangled)
+            if name == "mf_cell_kernel":
+                name += "<bf16>" if "ILb1E" in mangled else "<f32>"
             for pot in ("Dlgm", "Hier"):
                 if f"{pot}Potential" in mangled:
                     name += f"<{pot}>"
@@ -889,6 +935,319 @@ def _gmm_phases(torch, np, card, dev):
     ]
 
 
+def _linreg_phases(torch, np, card, dev):
+    """Phases 21-22, the linear-regression path; returns the kernels line's
+    entry of its trainer."""
+    from bayesic_tpu_torch.infer.svi import SVI, Adam, MeanFieldGuide
+    from bayesic_tpu_torch.models import linreg as lr
+    from bayesic_tpu_torch.ops import _kernel_common as kc
+    from bayesic_tpu_torch.ops import fused_linreg as fl
+
+    cfg = lr.Config(**LINREG, device=str(dev))
+    xn, yn, _, _ = lr.make_data(cfg)
+    x, y = torch.as_tensor(xn, device=dev), torch.as_tensor(yn, device=dev)
+    n, d, noise = cfg.n, cfg.dim, cfg.noise
+    p = d + 1
+    g = fl.gram(x, y)
+    rng = np.random.default_rng(21)
+
+    def rnd(*shape, loc=0.0, scale=1.0):
+        return torch.as_tensor(
+            (loc + scale * rng.standard_normal(shape)).astype(np.float32),
+            device=dev)
+
+    # -- 21. the fused linreg trainer against its plain version ----------
+    loc0, ls0, eps1 = rnd(p, scale=0.5), rnd(p, loc=-2.0, scale=0.3), rnd(p)
+    zeros = tuple(torch.zeros(p, device=dev) for _ in range(4))
+    svi = SVI(lr.model, MeanFieldGuide, Adam(0.01),
+              model_args=(x, y, noise))
+    params = {"loc": loc0.clone().requires_grad_(True),
+              "log_scale": ls0.clone().requires_grad_(True)}
+    elbo_dsl = svi.elbo(params, None, eps=eps1[None])
+    g_dsl = torch.autograd.grad(elbo_dsl, [params["loc"],
+                                           params["log_scale"]])
+    plain = fl._step_math(loc0, ls0, g, n, eps1, noise)
+    plain64 = fl._step_math(loc0.double(), ls0.double(), g.double(), n,
+                            eps1.double(), noise)
+    _, _, (m1, m2, _, _), l1 = fl.fused_train_injected(
+        g, n, noise, loc0, ls0, zeros, eps_stream=eps1[None], lr0=cfg.lr,
+        lr_total=10)
+    torch.cuda.synchronize()
+    kern = (-l1[0], -m1 / 0.1, -m2 / 0.1)   # one Adam step from zero moments
+    errs, lin_err = {}, 0.0
+    for name, got, want in (("step vs DSL autograd", plain,
+                             (elbo_dsl.detach(),) + g_dsl),
+                            ("kernel vs float64 step", kern, plain64)):
+        e_rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+        worst = 0.0
+        for gg, ww in zip(got[1:], want[1:]):
+            ww = ww.to(gg.dtype)
+            err = (gg.detach() - ww).abs()
+            worst = max(worst, float((err / (LINREG_TOL["grad"] * ww.abs()
+                                             + LINREG_TOL["grad"] * 0.1
+                                             * float(ww.abs().max()))).max()))
+            if name.startswith("kernel"):
+                lin_err = max(lin_err, float(err.max()))
+        if e_rel > LINREG_TOL["elbo"] or worst > 1.0:
+            raise AssertionError(f"phase 21: {name}: elbo rel err {e_rel}, "
+                                 f"gradient err/tol {worst} (limits "
+                                 f"{LINREG_TOL})")
+        errs[name] = (e_rel, worst)
+    eps = rnd(LINREG_TRAJ, p)
+    kw = dict(eps_stream=eps, lr0=cfg.lr, lr_total=LINREG_TRAJ)
+    got = fl.fused_train_injected(g, n, noise, loc0, ls0, zeros, **kw)
+    want = fl.reference_train(g, n, noise, loc0, ls0, zeros, **kw)
+    traj_rel = float(((got[3] - want[3]).abs() / want[3].abs()).max())
+    par_rel = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in ((got[0], want[0]), (got[1], want[1])))
+    seed = 2121
+    got = fl.fused_train(g, n, noise, loc0, ls0, zeros, steps=LINREG_TRAJ,
+                         lr0=cfg.lr, seed=seed)
+    eps = kc.hier_streams(seed, 0, LINREG_TRAJ, 1, p, device=dev)[1]
+    want = fl.reference_train(g, n, noise, loc0, ls0, zeros, eps_stream=eps,
+                              lr0=cfg.lr, lr_total=LINREG_TRAJ)
+    bits_rel = float(((got[3] - want[3]).abs() / want[3].abs()).max())
+    if max(traj_rel, par_rel, bits_rel) > LINREG_TOL["trajectory"]:
+        raise AssertionError(
+            f"phase 21: {LINREG_TRAJ}-step trajectory loss rel err "
+            f"{traj_rel}, param err / max {par_rel}; Philox twin {bits_rel} "
+            f"(limit {LINREG_TOL['trajectory']})")
+    print(f"phase 21 fused linreg trainer ok (N {n}, D {d}): one step: "
+          + "; ".join(f"{k} elbo rel err {v[0]:.2e}, gradient err/tol "
+                      f"{v[1]:.3f}" for k, v in errs.items())
+          + f"; {LINREG_TRAJ}-step trajectory loss max rel err "
+          f"{traj_rel:.2e}, param max err / max {par_rel:.2e}; Philox twin "
+          f"loss rel err {bits_rel:.2e} (limits {LINREG_TOL})", flush=True)
+
+    # -- 22. the linreg path through the user's entry points --------------
+    fits, walls = {}, {}
+    for name, c in (
+            ("run meanfield", dataclasses.replace(cfg, steps=LINREG_STEPS)),
+            ("run fullrank", dataclasses.replace(
+                cfg, steps=LINREG_STEPS, guide="fullrank",
+                lr=LINREG_FULLRANK_LR))):
+        t = time.perf_counter()
+        fits[name] = lr.run(c)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t
+    fl.LAUNCHES = 0
+    t = time.perf_counter()
+    fits["run_svi_fused"] = lr.run_svi_fused(dataclasses.replace(
+        cfg, steps=LINREG_FUSED_STEPS))
+    torch.cuda.synchronize()
+    walls["run_svi_fused"] = time.perf_counter() - t
+    lin_launches = fl.LAUNCHES
+    if lin_launches < 1:
+        raise AssertionError("phase 22: run_svi_fused never launched the "
+                             "kernel")
+    lines = []
+    for name, out in fits.items():
+        sd_ref = np.sqrt(np.diag(out["analytic_cov"]))
+        sd_rel = float(np.abs(out["posterior_sd"] / sd_ref - 1.0).max())
+        losses = out["losses"]
+        if not (np.isfinite(losses).all() and out["max_abs_err"] < 0.02):
+            raise AssertionError(f"phase 22: {name}: max |mean - analytic| "
+                                 f"{out['max_abs_err']} (limit 0.02)")
+        if name == "run_svi_fused" and sd_rel >= 0.3:
+            raise AssertionError(f"phase 22: {name}: sd rel err {sd_rel} "
+                                 f"(limit 0.3)")
+        lines.append(f"{name}: max |mean - analytic| "
+                     f"{out['max_abs_err']:.2e}, sd max rel err "
+                     f"{sd_rel:.3f}, wall {walls[name]:.2f} s")
+    out_f = fits["run_svi_fused"]
+    state = (out_f["loc"], out_f["ls"], out_f["opt_state"])
+    f_ms, _ = _cuda_ms(torch, lambda: fl.fused_train(
+        g, n, noise, *state, steps=LINREG_FUSED_STEPS, lr0=cfg.lr,
+        lr_total=2 * LINREG_FUSED_STEPS, seed=7, t0=LINREG_FUSED_STEPS))
+    lin_step_ms = f_ms / LINREG_FUSED_STEPS
+    eps = rnd(LINREG_PLAIN_STEPS, p)
+    fl.reference_train(g, n, noise, loc0, ls0, zeros, eps_stream=eps[:10],
+                       lr0=cfg.lr, lr_total=LINREG_PLAIN_STEPS)
+    plain_ms, _ = _cuda_ms(torch, lambda: fl.reference_train(
+        g, n, noise, loc0, ls0, zeros, eps_stream=eps, lr0=cfg.lr,
+        lr_total=LINREG_PLAIN_STEPS))
+    lin_plain_ms = plain_ms / LINREG_PLAIN_STEPS
+    svi_g, res_g = fits["run meanfield"]["svi"], fits["run meanfield"][
+        "result"]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    g_ms, _ = _cuda_ms(torch, lambda: svi_g.run(gen, LINREG_GENERIC_TIMED,
+                                                state=res_g.state))
+    trace = _trace(torch, lambda: fl.fused_train(
+        g, n, noise, *state, steps=LINREG_TRACE_STEPS, lr0=cfg.lr, seed=8),
+        LINREG_TRACE_STEPS)
+    print(f"phase 22 linreg main path ok [{card}]: " + "; ".join(lines)
+          + f" (gates: mean 0.02, fused sd 0.3); fused trainer "
+          f"{1e3 * lin_step_ms:.4f} us/step, plain reference_train "
+          f"{lin_plain_ms:.4f} ms/step, generic run (mean-field) "
+          f"{1e3 * LINREG_GENERIC_TIMED / g_ms:.1f} steps/s; fused_train "
+          f"{trace}; kernel launches {lin_launches}", flush=True)
+
+    # bound per step: the (D+2)^2 FMAs of G u and ~60 operations per
+    # parameter (Philox, Box-Muller, z, gradient, two Adam updates); bytes:
+    # G read once, the parameters and both moment pairs read and written
+    # once, the losses written, over the call's steps
+    steps = LINREG_FUSED_STEPS
+    bound = _bound(2 * (d + 2) ** 2 + 60 * p,
+                   4 * ((d + 2) ** 2 + 12 * p + 2048) / steps)
+    return [_record("fused_linreg_train", "fused_linreg.cu",
+                    "bayesic_tpu/ops/fused_linreg.py:102", lin_launches,
+                    lin_err, lin_step_ms, lin_plain_ms, bound)]
+
+
+def _mf_phases(torch, np, card, dev):
+    """Phases 23-25, the matrix-factorization path; returns the kernels
+    line's entry of its cell pass."""
+    from bayesic_tpu_torch.infer.svi.svi import tree_leaves, tree_map
+    from bayesic_tpu_torch.models import matrix_fact as mf
+    from bayesic_tpu_torch.ops import mf_dense as md
+
+    cfg = mf.Config(**MF, device=str(dev))
+    data = mf.make_data(cfg)
+    cnt, rsum, sqsum, n_r = mf.dense_stats(*data[:3], cfg.num_users,
+                                           cfg.num_items, dev)
+    gen = torch.Generator().manual_seed(23)
+
+    def off_symmetric(c):
+        p = mf.dense_init(c, gen, init_scale=0.3)
+        return tree_map(lambda t: t + 0.2 * torch.randn(
+            t.shape, generator=gen).to(dev), p)
+
+    # -- 23. the cell pass against its plain version ----------------------
+    mf_err, lines = 0.0, []
+    for nu, ni in ((cfg.num_users, cfg.num_items), MF_ODD):
+        c = dataclasses.replace(cfg, num_users=nu, num_items=ni,
+                                num_ratings=cfg.num_ratings * nu * ni
+                                // (cfg.num_users * cfg.num_items))
+        cn, rs = (cnt, rsum) if nu == cfg.num_users else \
+            mf.dense_stats(*mf.make_data(c)[:3], nu, ni, dev)[:2]
+        cp, rp = md.pack_stats(cn, rs)
+        fu, fv = md.pack_aug(off_symmetric(c))
+        a = c.num_factors + 2
+        for mm in ("float32", "bfloat16"):
+            got = md.cell_grads(cp, rp, fu, fv, mm_dtype=mm)
+            torch.cuda.synchronize()
+            want = md.cell_grads_reference(cp, rp, fu, fv, mm)
+            errs = {"loss": abs(float(got[0]) - float(want[0]))
+                    / abs(float(want[0]))}
+            for side, gg, ww in (("u", got[1], want[1]),
+                                 ("v", got[2], want[2])):
+                for name, sl in (("a", slice(0, a)), ("w", slice(a, None))):
+                    err = (gg[:, sl] - ww[:, sl]).abs()
+                    errs[f"d{name.upper()}{side}"] = float(
+                        err.max() / ww[:, sl].abs().max())
+                    if mm == "float32":
+                        mf_err = max(mf_err, float(err.max()))
+            lim = MF_TOL[mm]
+            bad = {k: v for k, v in errs.items()
+                   if v > (lim[0] if k == "loss" else lim[1])}
+            if bad:
+                raise AssertionError(f"phase 23: {nu} x {ni} {mm}: {bad} "
+                                     f"(limits: loss rel {lim[0]}, "
+                                     f"gradients {lim[1]} of max|g|)")
+            lines.append(f"{nu} x {ni} {mm}: " + ", ".join(
+                f"{k} {v:.2e}" for k, v in errs.items()))
+    print(f"phase 23 dense MF cell pass ok (K {cfg.num_factors}; loss rel "
+          f"err, gradient err / max|g|; limits {MF_TOL}): "
+          + "; ".join(lines), flush=True)
+
+    # -- 24. the MF path through the user's entry points -------------------
+    runs, walls = {}, {}
+    t = time.perf_counter()
+    runs["run (mini-batch)"] = mf.run(cfg)
+    torch.cuda.synchronize()
+    walls["run (mini-batch)"] = time.perf_counter() - t
+    t = time.perf_counter()
+    dense = mf.run_dense(cfg, data=data)
+    torch.cuda.synchronize()
+    walls["run_dense"] = time.perf_counter() - t
+    runs["run_dense"] = dense
+    idx = [torch.as_tensor(v, device=dev) for v in data[:3]]
+    md.LAUNCHES = 0
+    for mm in ("float32", "bfloat16"):
+        t = time.perf_counter()
+        p, _, losses = md.fused_train(
+            mf.dense_init(cfg), cnt, rsum, sqsum, n_r, cfg.noise,
+            steps=cfg.steps, lr=MF_FUSED_LR, mm_dtype=mm)
+        torch.cuda.synchronize()
+        walls[f"fused_train {mm}"] = time.perf_counter() - t
+        runs[f"fused_train {mm}"] = {
+            "rmse": mf._rmse({k: v[0] for k, v in p.items()}, *idx),
+            "final_elbo": -float(losses[-1]), "params": p}
+    mf_launches = md.LAUNCHES
+    if mf_launches < 2 * cfg.steps:
+        raise AssertionError(f"phase 24: fused_train launched the kernel "
+                             f"{mf_launches} times")
+    lines = []
+    for name, out in runs.items():
+        gap = (dense["final_elbo"] - out["final_elbo"]) \
+            / abs(dense["final_elbo"])
+        if not (out["rmse"] < 1.2 * cfg.noise and np.isfinite(
+                out["final_elbo"])):
+            raise AssertionError(f"phase 24: {name}: rmse {out['rmse']} "
+                                 f"(limit {1.2 * cfg.noise})")
+        if name.startswith("fused") and gap >= 0.01:
+            raise AssertionError(f"phase 24: {name}: final loss {gap:.4f} "
+                                 f"above run_dense's (limit 0.01)")
+        lines.append(f"{name}: rmse {out['rmse']:.4f}, final ELBO "
+                     f"{out['final_elbo']:.1f}"
+                     + (f" (loss gap {100 * gap:.4f}%)"
+                        if name.startswith("fused") else "")
+                     + f", wall {walls[name]:.2f} s")
+    print(f"phase 24 MF main path ok [{card}]: {cfg.num_users} x "
+          f"{cfg.num_items}, K {cfg.num_factors}, {n_r} ratings, "
+          f"{cfg.steps} steps; " + "; ".join(lines)
+          + f" (gates: rmse {1.2 * cfg.noise:.2f}, loss gap 1%); kernel "
+          f"launches {mf_launches}", flush=True)
+
+    # -- 25. times and traces ---------------------------------------------
+    params = runs["fused_train float32"]["params"]
+    cp, rp = md.pack_stats(cnt, rsum)
+    fu, fv = md.pack_aug(params)
+    ms = {}
+    for mm in ("float32", "bfloat16"):
+        md.cell_grads(cp, rp, fu, fv, mm_dtype=mm)
+        md.cell_grads_reference(cp, rp, fu, fv, mm)
+        ms[mm] = (_cuda_ms(torch, lambda: md.cell_grads(
+            cp, rp, fu, fv, mm_dtype=mm), 20)[0], _cuda_ms(
+            torch, lambda: md.cell_grads_reference(cp, rp, fu, fv, mm),
+            5)[0])
+
+    def eager():
+        pp = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss = mf.dense_neg_elbo(pp, cnt, rsum, sqsum, n_r, cfg.noise)
+        return torch.autograd.grad(loss, tree_leaves(pp))
+
+    def fused_vg():
+        return md.dense_value_and_grad(params, cp, rp, sqsum, n_r,
+                                       cfg.noise)
+
+    eager()
+    eager_ms = _cuda_ms(torch, eager, 10)[0]
+    vg_ms = _cuda_ms(torch, fused_vg, 10)[0]
+    traces = {
+        "fused_train float32": _trace(torch, lambda: md.fused_train(
+            params, cnt, rsum, sqsum, n_r, cfg.noise, steps=MF_TRACE_STEPS,
+            lr=MF_FUSED_LR), MF_TRACE_STEPS),
+        "eager value+grad": _trace(torch, lambda: [
+            eager() for _ in range(MF_TRACE_STEPS)], MF_TRACE_STEPS),
+    }
+    # bound: cnt (2 B) and rsum (4 B) per cell read once, both factor
+    # matrices read and both gradients written once; 9A FMAs per cell
+    nu, ni, a = cfg.num_users, cfg.num_items, cfg.num_factors + 2
+    bound = _bound(2 * nu * ni * 9 * a,
+                   6 * nu * ni + 4 * (2 * (nu + ni) * 3 * a + 1))
+    print(f"phase 25 MF times ok [{card}]: cell pass kernel "
+          + ", ".join(f"{mm} {v[0]:.4f} ms (plain {v[1]:.4f} ms)"
+                      for mm, v in ms.items())
+          + f", bound {bound[0]:.4f} ms ({bound[1]}); one value+grad: "
+          f"through the kernel {vg_ms:.4f} ms, eager autograd of "
+          f"dense_neg_elbo {eager_ms:.4f} ms; "
+          + "; ".join(f"{k} {v}" for k, v in traces.items()), flush=True)
+    return [_record("mf_dense_cell_grads", "mf_dense.cu",
+                    "bayesic_tpu/ops/mf_dense.py:99", mf_launches, mf_err,
+                    ms["float32"][0], ms["float32"][1], bound)]
+
+
 def main():
     import numpy as np
     import torch
@@ -1287,6 +1646,8 @@ def main():
     ]
     records += _hier_phases(torch, np, card, dev)
     records += _gmm_phases(torch, np, card, dev)
+    records += _linreg_phases(torch, np, card, dev)
+    records += _mf_phases(torch, np, card, dev)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": records}))

@@ -62,7 +62,7 @@ def test_step_math_matches_jax_lanes():
     off = 1937            # wraps around the end of the data
     packed = jfh.pack_data(x, y, group)
     xb = jnp.concatenate([packed, packed[:B]], 0)[off:off + B]
-    jl, jls, jeps = interop.hier_flat_to_lanes(_t(loc, ls, eps))
+    jl, jls, jeps = interop.flat_to_lanes(_t(loc, ls, eps))
     jelbo, jg_loc, jg_ls = jfh._step_math(jnp.asarray(jl), jnp.asarray(jls),
                                           xb, jnp.asarray(jeps), n / B)
     tx, ty, tg = _t(x, y, group)
@@ -71,7 +71,7 @@ def test_step_math_matches_jax_lanes():
                                        torch.as_tensor(eps), n / B, J)
     np.testing.assert_allclose(float(elbo), float(jelbo), rtol=2e-5)
     for got, want in ((g_loc, jg_loc), (g_ls, jg_ls)):
-        want = interop.hier_lanes_to_flat([np.asarray(want)], P)[0]
+        want = interop.lanes_to_flat([np.asarray(want)], P)[0]
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4,
                                    atol=2e-4)
 
@@ -120,7 +120,7 @@ def test_reference_train_matches_jax_50_steps():
     m1, m2 = (0.01 * rng.normal(size=(2, P))).astype(np.float32)
     v1, v2 = (1e-4 * rng.random((2, P))).astype(np.float32)
     flat = _t(loc, ls, m1, m2, v1, v2)
-    lanes = [jnp.asarray(a) for a in interop.hier_flat_to_lanes(flat)]
+    lanes = [jnp.asarray(a) for a in interop.flat_to_lanes(flat)]
     eps_lanes = np.zeros((steps, 1, 128), np.float32)
     eps_lanes[:, 0, :P] = eps
     want = jfh.reference_train(
@@ -133,7 +133,7 @@ def test_reference_train_matches_jax_50_steps():
         lr0=0.03, lr_total=total, batch=B, t0=t0)
     np.testing.assert_allclose(got[3].numpy(), np.asarray(want[3]),
                                rtol=1e-4)
-    want_flat = interop.hier_lanes_to_flat(
+    want_flat = interop.lanes_to_flat(
         [np.asarray(want[0]), np.asarray(want[1]),
          *map(np.asarray, want[2])], P)
     for g, w in zip((got[0], got[1], *got[2]), want_flat):
