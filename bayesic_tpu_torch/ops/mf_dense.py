@@ -8,8 +8,9 @@ memory several times per step.  The information per step is the two
 sufficient-statistic arrays (cnt, rsum) read once; everything else is
 O(users K + items K).  The kernel of ``csrc/mf_dense.cu`` does the whole
 cell-space computation (two forward and four backward products and the
-elementwise terms) in one pass over (cnt, rsum) tiles plus a fixed-order
-reduction of the per-tile partials.
+elementwise terms) in one launch over (cnt, rsum) tiles, after a launch
+that packs the factors and before a fixed-order reduction of the
+partials.
 
 Biases fold into augmented factor columns, so the objective is products
 (A = K + 2 augmented width, K factors):
@@ -56,7 +57,7 @@ PRIORS = {"u": (0.0, 1.0), "v": (0.0, 1.0), "bu": (0.0, 0.5),
 MAX_FACTORS = 30        # A = K + 2 <= 32, MAXA of the kernel
 _MAX_COUNT = 256        # bf16 holds every integer up to 256 exactly
 
-# launches of the cell pass (each is the tile kernel and its reduction)
+# launches of the cell pass (each is the packing, cell and reduction kernels)
 LAUNCHES = 0
 
 
@@ -100,8 +101,8 @@ def pack_aug(params):
     m_loc, m_ls = params["m"]
     ones_u = torch.ones_like(bu_loc)[:, None]
     ones_i = torch.ones_like(bi_loc)[:, None]
-    zeros_u = torch.zeros_like(u_loc[:, :2])
-    zeros_i = torch.zeros_like(v_loc[:, :2])
+    zeros_u = u_loc.new_zeros((u_loc.shape[0], 2))
+    zeros_i = v_loc.new_zeros((v_loc.shape[0], 2))
     u2, v2 = u_loc * u_loc, v_loc * v_loc
     fu = torch.cat([u_loc, bu_loc[:, None], ones_u,
                     u2 + torch.exp(2.0 * u_ls), torch.exp(2.0 * bu_ls)[:, None],

@@ -53,10 +53,12 @@ posterior; time the kernel, the plain version and the generic engine.
 Phases 23-25, the matrix-factorization path at its bench shape
 (``matrix_fact.Config()``: 3,000 users x 1,500 items, K 16, 1M ratings):
 check the dense MF cell pass against its plain version at the bench shape
-and a ragged one in float32 and bfloat16; drive ``run`` (mini-batch),
+and a ragged one (there also at the widest K, 30) in float32 and bfloat16,
+and that two calls agree bit for bit; drive ``run`` (mini-batch),
 ``run_dense`` (eager) and ``mf_dense.fused_train`` in both modes and gate
-their RMSE and final losses; time the kernel, its plain version and the
-eager autograd path, and trace ``fused_train``.
+their RMSE and final losses; time the kernel (its device time, queued
+behind a spin kernel, and a call's time with the host's cost), its plain
+version and the eager autograd path, and trace ``fused_train``.
 
 Each phase prints one line and raises on failure.  The line before the
 last is a JSON object with one entry per kernel: its launches on the main
@@ -67,9 +69,10 @@ version's (per SVI step, NUTS transition, SMC stage or likelihood call),
 and the bound: the least time the card could take for the same work, the
 larger of the bytes over the memory rate and the operations over the FP32
 peak (phase 20 also prints the GMM kernels' exp/log/rcp count at the SFU
-rate).  The last line is ``{"ok": true, "device": {...}}``.  Without a
-CUDA device, or outside a checkout, it exits non-zero and prints no
-result.
+rate; phase 25 the MF cell pass's bf16-mode bound at the bf16 tensor-core
+rate and its scratch bytes).  The last line is ``{"ok": true, "device":
+{...}}``.  Without a CUDA device, or outside a checkout, it exits non-zero
+and prints no result.
 """
 
 from __future__ import annotations
@@ -140,18 +143,19 @@ LINREG_STEPS, LINREG_FULLRANK_LR = 2000, 0.01
 LINREG_FUSED_STEPS, LINREG_TRACE_STEPS, LINREG_GENERIC_TIMED = \
     200_000, 2_000, 200
 # the dense MF bench (JAX benchmarks/harness.py:430-510): Config(), 3,000
-# users x 1,500 items, K 16, 1M ratings; phase 23's ragged shape and
-# limits (loss rel err, gradient err / max|g|; bf16: a G entry at a
-# rounding boundary may round the other way after float32 sums in
-# another order); phase 24's fused_train rate (the JAX selftest's).  MF
-# holds overrides of matrix_fact.Config(): none, the bench is its defaults
+# users x 1,500 items, K 16, 1M ratings; phase 23's ragged shape (also
+# run at the widest K the kernel takes, MAX_FACTORS = 30) and limits (loss
+# rel err, gradient err / max|g|; bf16: a G entry at a rounding boundary
+# may round the other way after float32 sums in another order); phase
+# 24's fused_train rate (the JAX selftest's).  MF holds overrides of
+# matrix_fact.Config(): none, the bench is its defaults
 MF, MF_ODD = {}, (997, 1501)
 MF_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 1e-3)}
 MF_FUSED_LR, MF_TRACE_STEPS = 5e-3, 20
 # published peaks of one H100 SXM (NVIDIA data sheet): FP32 outside the
-# tensor cores, and HBM3; the SFU issues 16 exp/log/rcp per SM per clock,
-# at the 1.98 GHz boost clock on 132 SMs
-PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+# tensor cores, dense bf16 on them, and HBM3; the SFU does 16
+# exp/log/rcp per SM per clock, at the 1.98 GHz boost clock on 132 SMs
+PEAK_FP32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
 PEAK_SFU = 16 * 132 * 1.98e9
 
 
@@ -178,6 +182,28 @@ def _cuda_ms(torch, fn, reps=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def _device_ms(torch, fn, reps):
+    """Milliseconds of device time per call of ``fn`` (caller warms up):
+    the calls queue behind a spin kernel that outlasts their host cost
+    (~2 ms a call at the card's clock), so they run back to back on the
+    card and the events see no host gap."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(4e6 * reps))
+    start.record()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - t)
+    end.record()
+    torch.cuda.synchronize()
+    if host_ms > 2.0 * reps:
+        raise AssertionError(f"_device_ms: the host took {host_ms:.1f} ms "
+                             f"to queue {reps} calls, past the spin")
+    return start.elapsed_time(end) / reps
 
 
 def _trace(torch, fn, steps, unit="step"):
@@ -221,10 +247,11 @@ def _trace(torch, fn, steps, unit="step"):
             + ", ".join(f"{k} {100 * t / total:.1f}%" for k, t in top) + ")")
 
 
-def _bound(ops, nbytes):
+def _bound(ops, nbytes, peak=PEAK_FP32):
     """(ms, what bounds it): the least time the card could take for
-    ``ops`` FP32 operations that move ``nbytes`` bytes."""
-    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
+    ``ops`` operations at ``peak`` per second (FP32 unless given) that move
+    ``nbytes`` bytes."""
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), \
         "operations" if t_ops >= t_bytes else "bytes"
 
@@ -257,10 +284,13 @@ def _ptxas_summary(log):
                                      "gmm_lik_kernel",
                                      "smc_gmm_mutate_kernel",
                                      "linreg_train_kernel", "mf_cell_kernel",
-                                     "mf_reduce_kernel")
+                                     "mf_pack_kernel", "mf_reduce_kernel")
                          if k in mangled), mangled)
-            if name == "mf_cell_kernel":
-                name += "<bf16>" if "ILb1E" in mangled else "<f32>"
+            if name in ("mf_cell_kernel", "mf_pack_kernel"):
+                # template arguments: bf16 [, A padded to a multiple of 8]
+                name += "<" + ",".join(
+                    ["bf16" if "ILb1E" in mangled else "f32"]
+                    + re.findall(r"ELi(\d+)E", mangled)) + ">"
             for pot in ("Dlgm", "Hier"):
                 if f"{pot}Potential" in mangled:
                     name += f"<{pot}>"
@@ -1099,6 +1129,7 @@ def _mf_phases(torch, np, card, dev):
     line's entry of its cell pass."""
     from bayesic_tpu_torch.infer.svi.svi import tree_leaves, tree_map
     from bayesic_tpu_torch.models import matrix_fact as mf
+    from bayesic_tpu_torch.ops import _build
     from bayesic_tpu_torch.ops import mf_dense as md
 
     cfg = mf.Config(**MF, device=str(dev))
@@ -1114,18 +1145,24 @@ def _mf_phases(torch, np, card, dev):
 
     # -- 23. the cell pass against its plain version ----------------------
     mf_err, lines = 0.0, []
-    for nu, ni in ((cfg.num_users, cfg.num_items), MF_ODD):
+    for nu, ni, k in ((cfg.num_users, cfg.num_items, cfg.num_factors),
+                      (*MF_ODD, cfg.num_factors), (*MF_ODD, md.MAX_FACTORS)):
         c = dataclasses.replace(cfg, num_users=nu, num_items=ni,
+                                num_factors=k,
                                 num_ratings=cfg.num_ratings * nu * ni
                                 // (cfg.num_users * cfg.num_items))
         cn, rs = (cnt, rsum) if nu == cfg.num_users else \
             mf.dense_stats(*mf.make_data(c)[:3], nu, ni, dev)[:2]
         cp, rp = md.pack_stats(cn, rs)
         fu, fv = md.pack_aug(off_symmetric(c))
-        a = c.num_factors + 2
+        a = k + 2
         for mm in ("float32", "bfloat16"):
             got = md.cell_grads(cp, rp, fu, fv, mm_dtype=mm)
+            again = md.cell_grads(cp, rp, fu, fv, mm_dtype=mm)
             torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"phase 23: {nu} x {ni}, K {k}, {mm}: "
+                                     f"two calls differ")
             want = md.cell_grads_reference(cp, rp, fu, fv, mm)
             errs = {"loss": abs(float(got[0]) - float(want[0]))
                     / abs(float(want[0]))}
@@ -1141,13 +1178,14 @@ def _mf_phases(torch, np, card, dev):
             bad = {k: v for k, v in errs.items()
                    if v > (lim[0] if k == "loss" else lim[1])}
             if bad:
-                raise AssertionError(f"phase 23: {nu} x {ni} {mm}: {bad} "
+                raise AssertionError(f"phase 23: {nu} x {ni}, K {k}, {mm}: "
+                                     f"{bad} "
                                      f"(limits: loss rel {lim[0]}, "
                                      f"gradients {lim[1]} of max|g|)")
-            lines.append(f"{nu} x {ni} {mm}: " + ", ".join(
+            lines.append(f"{nu} x {ni} K {k} {mm}: " + ", ".join(
                 f"{k} {v:.2e}" for k, v in errs.items()))
-    print(f"phase 23 dense MF cell pass ok (K {cfg.num_factors}; loss rel "
-          f"err, gradient err / max|g|; limits {MF_TOL}): "
+    print(f"phase 23 dense MF cell pass ok (two calls bit-identical; loss "
+          f"rel err, gradient err / max|g|; limits {MF_TOL}): "
           + "; ".join(lines), flush=True)
 
     # -- 24. the MF path through the user's entry points -------------------
@@ -1203,12 +1241,16 @@ def _mf_phases(torch, np, card, dev):
     params = runs["fused_train float32"]["params"]
     cp, rp = md.pack_stats(cnt, rsum)
     fu, fv = md.pack_aug(params)
+    # per call: the kernels' device time, the wrapper's time with its host
+    # cost (the larger of the two), the plain version's time
     ms = {}
     for mm in ("float32", "bfloat16"):
         md.cell_grads(cp, rp, fu, fv, mm_dtype=mm)
         md.cell_grads_reference(cp, rp, fu, fv, mm)
-        ms[mm] = (_cuda_ms(torch, lambda: md.cell_grads(
-            cp, rp, fu, fv, mm_dtype=mm), 20)[0], _cuda_ms(
+        ms[mm] = (_device_ms(torch, lambda: md.cell_grads(
+            cp, rp, fu, fv, mm_dtype=mm), 20), _cuda_ms(
+            torch, lambda: md.cell_grads(cp, rp, fu, fv, mm_dtype=mm),
+            20)[0], _cuda_ms(
             torch, lambda: md.cell_grads_reference(cp, rp, fu, fv, mm),
             5)[0])
 
@@ -1232,20 +1274,26 @@ def _mf_phases(torch, np, card, dev):
             eager() for _ in range(MF_TRACE_STEPS)], MF_TRACE_STEPS),
     }
     # bound: cnt (2 B) and rsum (4 B) per cell read once, both factor
-    # matrices read and both gradients written once; 9A FMAs per cell
+    # matrices read and both gradients written once; 9A FMAs per cell, at
+    # the FP32 rate (float32) or the bf16 tensor-core rate (bfloat16)
     nu, ni, a = cfg.num_users, cfg.num_items, cfg.num_factors + 2
-    bound = _bound(2 * nu * ni * 9 * a,
-                   6 * nu * ni + 4 * (2 * (nu + ni) * 3 * a + 1))
+    ops, nbytes = 2 * nu * ni * 9 * a, \
+        6 * nu * ni + 4 * (2 * (nu + ni) * 3 * a + 1)
+    bound = _bound(ops, nbytes)
+    bounds = {"float32": bound, "bfloat16": _bound(ops, nbytes, PEAK_BF16)}
+    scratch_mb = 4 * _build.load().mf_dense_scratch_floats(nu, ni, a) / 1e6
     print(f"phase 25 MF times ok [{card}]: cell pass kernel "
-          + ", ".join(f"{mm} {v[0]:.4f} ms (plain {v[1]:.4f} ms)"
+          + ", ".join(f"{mm} {v[0]:.4f} ms on the card ({v[1]:.4f} ms a "
+                      f"call with the host's cost; plain {v[2]:.4f} ms, "
+                      f"bound {bounds[mm][0]:.4f} ms, {bounds[mm][1]})"
                       for mm, v in ms.items())
-          + f", bound {bound[0]:.4f} ms ({bound[1]}); one value+grad: "
+          + f", scratch {scratch_mb:.2f} MB per call; one value+grad: "
           f"through the kernel {vg_ms:.4f} ms, eager autograd of "
           f"dense_neg_elbo {eager_ms:.4f} ms; "
           + "; ".join(f"{k} {v}" for k, v in traces.items()), flush=True)
     return [_record("mf_dense_cell_grads", "mf_dense.cu",
                     "bayesic_tpu/ops/mf_dense.py:99", mf_launches, mf_err,
-                    ms["float32"][0], ms["float32"][1], bound)]
+                    ms["float32"][0], ms["float32"][2], bound)]
 
 
 def main():

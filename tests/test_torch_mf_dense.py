@@ -89,12 +89,15 @@ def test_value_and_grad_matches_jax_kernel(mm_dtype):
              atol_frac=3e-2)
 
 
-def test_pack_aug_matches_jax():
+@pytest.mark.parametrize("k", [3, 1])
+def test_pack_aug_matches_jax(k):
+    """The augmented factors against the JAX packing, also at K = 1 (the
+    zero columns of U2a and V2a stay two wide)."""
     import jax.numpy as jnp
 
-    _, params, cnt, _, _, _ = setup(37, 45, 3, 900)
+    _, params, cnt, _, _, _ = setup(37, 45, k, 900)
     fu, fv = tmd.pack_aug(interop.mf_dense_params(params))
-    a = 3 + 2
+    a = k + 2
     assert fu.shape == (37, 3 * a) and fv.shape == (45, 3 * a)
     jp = {s: tuple(jnp.asarray(v) for v in pair)
           for s, pair in params.items()}
@@ -130,24 +133,98 @@ def test_pack_stats_and_cell_grads_checks():
         tmd.cell_grads(cp.to("meta"), rp, fu, fv)
 
 
+def _tf32(x):
+    """x rounded to TF32 (10 stored mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds: add half of the 13
+    dropped bits' unit to the magnitude's bits, then mask them off."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_mm(x, y, variant):
+    """``x @ y`` as the kernel forms it in one mode: "split" (float32 mode,
+    3xTF32: lo hi + hi lo + hi hi, float32 sums), "tf32" (one TF32 pass) or
+    "bf16" (operands rounded to bf16)."""
+    if variant == "bf16":
+        return tmd._bf16(x) @ tmd._bf16(y)
+    xh, yh = _tf32(x), _tf32(y)
+    if variant == "tf32":
+        return xh @ yh
+    xl, yl = _tf32(x - xh), _tf32(y - yh)
+    return xl @ yh + xh @ yl + xh @ yh
+
+
+def _emulated_cell_grads(cnt, rsum, fu, fv, variant):
+    """The kernel's arithmetic on the CPU: every product with split or
+    rounded operands, G from that mean, and the loss without var:
+    sum cnt var = sum_u <Wu_u, (cnt Wv)_u>."""
+    a = fu.shape[1] // 3
+    cnt = cnt.to(torch.float32)
+    ua, wu, va, wv = fu[:, :a], fu[:, a:], fv[:, :a], fv[:, a:]
+    mean = _split_mm(ua, va.T, variant)
+    g = 2.0 * (cnt * mean - rsum)
+    dfu = torch.cat([_split_mm(g, va, variant),
+                     _split_mm(cnt, wv, variant)], 1)
+    dfv = torch.cat([_split_mm(g.T, ua, variant),
+                     _split_mm(cnt.T, wu, variant)], 1)
+    wu_r = tmd._bf16(wu) if variant == "bf16" else wu
+    cells = torch.sum((cnt * mean - 2.0 * rsum) * mean) \
+        + torch.sum(wu_r * dfu[:, a:])
+    return cells, dfu, dfv
+
+
+@pytest.mark.parametrize("variant,within", [("split", True),
+                                            ("tf32", False),
+                                            ("bf16", True)])
+def test_operand_split_precision(variant, within):
+    """The kernel's operand handling emulated at 300 x 201 cells, K = 16,
+    against the plain version in its mode: the float32 mode's 3xTF32 split
+    holds phase 23's 1e-5 of max|g| (and 1e-5 loss rel) where one TF32
+    pass does not; the bf16 mode holds its 1e-3 (and 1e-5 loss rel)."""
+    _, params, cnt, rsum, _, _ = setup(300, 201, 16, 30_000)
+    cp, rp = tmd.pack_stats(cnt, rsum)
+    fu, fv = tmd.pack_aug(interop.mf_dense_params(params))
+    mm = "bfloat16" if variant == "bf16" else "float32"
+    want = tmd.cell_grads_reference(cp, rp, fu, fv, mm)
+    got = _emulated_cell_grads(cp, rp, fu, fv, variant)
+    lim = 1e-3 if variant == "bf16" else 1e-5
+    errs = [float((g - w).abs().max() / w.abs().max())
+            for g, w in zip(got[1:], want[1:])]
+    if within:
+        assert float(got[0]) == pytest.approx(float(want[0]), rel=1e-5)
+        assert max(errs) <= lim, errs
+    else:
+        assert max(errs) > lim, errs
+
+
+# (NU, NI, K): ragged edges on both sides, the narrowest and widest A
+KERNEL_SHAPES = [(300, 201, 16), (997, 1501, 16), (130, 67, 1),
+                 (257, 129, 30)]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", KERNEL_SHAPES)
 @pytest.mark.parametrize("mm_dtype", ["float32", "bfloat16"])
-def test_kernel_matches_plain(mm_dtype):
-    """On a CUDA card: the cell pass at a shape of several tiles with
-    ragged edges (300 x 201 cells, K = 16) against the plain version on
-    the card: cells rel 1e-5, every gradient within 1e-5 (float32) or 1e-3
-    (bf16: a G entry at a rounding boundary may round the other way) of
-    its largest entry."""
+def test_kernel_matches_plain(mm_dtype, shape):
+    """On a CUDA card: the cell pass at shapes of several tiles with ragged
+    edges against the plain version on the card: cells rel 1e-5, every
+    gradient within 1e-5 (float32) or 1e-3 (bf16: a G entry at a rounding
+    boundary may round the other way) of its largest entry; a second call
+    repeats the first bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dev = torch.device("cuda")
-    _, params, cnt, rsum, _, _ = setup(300, 201, 16, 30_000)
+    nu, ni, k = shape
+    _, params, cnt, rsum, _, _ = setup(nu, ni, k, nu * ni // 2)
     cp, rp = (t.to(dev) for t in tmd.pack_stats(cnt, rsum))
     fu, fv = tmd.pack_aug(interop.mf_dense_params(params, dev))
     before = tmd.LAUNCHES
     got = tmd.cell_grads(cp, rp, fu, fv, mm_dtype=mm_dtype)
+    again = tmd.cell_grads(cp, rp, fu, fv, mm_dtype=mm_dtype)
     torch.cuda.synchronize()
-    assert tmd.LAUNCHES == before + 1
+    assert tmd.LAUNCHES == before + 2
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
     want = tmd.cell_grads_reference(cp, rp, fu, fv, mm_dtype)
     assert float(got[0]) == pytest.approx(float(want[0]), rel=1e-5)
     lim = 1e-5 if mm_dtype == "float32" else 1e-3
