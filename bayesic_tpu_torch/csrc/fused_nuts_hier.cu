@@ -5,7 +5,9 @@
 // fused_hier_nuts_transition and make_batched_transition_hier).  The
 // transition tree is nuts_tree.cuh's nuts_kernel (one thread block per
 // chain, one launch per transition of every chain); this file gives it the
-// HierPotential and the C entries.  Its oracle is
+// HierPotential and the C entries: the injected one, which reads the
+// transition's streams from arrays, and the keyed one, which makes the
+// same draws in the kernel (nuts_draws.cuh).  Its oracle is
 // ops/fused_nuts_hier.reference_transition.
 //
 // The posterior: the centered model of models/hier_logistic.py over
@@ -177,6 +179,29 @@ bool bad_shape(int n, int j, int f) {
   return n <= 0 || j < 1 || f < 1 || f > MAXF;
 }
 
+int launch_hier_transition(const float* q, const float* pe, const float* grad,
+                           NutsDraws draws, const float* eps,
+                           const float* inv_mass, const float* x,
+                           const float* y, const int* offsets, float* q_out,
+                           float* pe_out, float* g_out, float* acc_out,
+                           float* div_out, float* depth_out, float* steps_out,
+                           float* h0_out, int n, int j, int f, int k,
+                           float div_threshold, void* stream_ptr) {
+  if (bad_shape(n, j, f) || k < 1 || k > MAXK) return cudaErrorInvalidValue;
+  const HierPotential pot = make_hier(x, y, offsets, j, f);
+  const size_t bytes =
+      4 * transition_smem_floats(pot.dim(), k, pot.smem_floats());
+  cudaError_t err = prepare(nuts_kernel<HierPotential>, bytes);
+  if (err != cudaSuccess) return err;
+  TransitionArgs A{q, pe, grad, eps, inv_mass, draws, q_out, pe_out, g_out,
+                   acc_out, div_out, depth_out, steps_out, h0_out, k,
+                   div_threshold};
+  nuts_kernel<HierPotential><<<n, NT, bytes,
+                               static_cast<cudaStream_t>(stream_ptr)>>>(pot,
+                                                                        A);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -202,19 +227,26 @@ int fused_hier_nuts_transition(
     float* acc_out, float* div_out, float* depth_out, float* steps_out,
     float* h0_out, int n, int j, int f, int k, float div_threshold,
     void* stream_ptr) {
-  if (bad_shape(n, j, f) || k < 1 || k > MAXK) return cudaErrorInvalidValue;
-  const HierPotential pot = make_hier(x, y, offsets, j, f);
-  const size_t bytes =
-      4 * transition_smem_floats(pot.dim(), k, pot.smem_floats());
-  cudaError_t err = prepare(nuts_kernel<HierPotential>, bytes);
-  if (err != cudaSuccess) return err;
-  TransitionArgs A{q, pe, grad, mom, sign_dir, log_u_acc, log_u_leaf, eps,
-                   inv_mass, q_out, pe_out, g_out, acc_out, div_out,
-                   depth_out, steps_out, h0_out, k, div_threshold};
-  nuts_kernel<HierPotential><<<n, NT, bytes,
-                               static_cast<cudaStream_t>(stream_ptr)>>>(pot,
-                                                                        A);
-  return cudaGetLastError();
+  return launch_hier_transition(
+      q, pe, grad, injected_draws(mom, sign_dir, log_u_acc, log_u_leaf, k),
+      eps, inv_mass, x, y, offsets, q_out, pe_out, g_out, acc_out, div_out,
+      depth_out, steps_out, h0_out, n, j, f, k, div_threshold, stream_ptr);
+}
+
+// The same transition with its draws made in the kernel from Philox keyed
+// by (seed, phase, t) and the chain index (nuts_draws.cuh): what
+// make_batched_transition_hier runs.
+int fused_hier_nuts_transition_keyed(
+    const float* q, const float* pe, const float* grad, const float* eps,
+    const float* inv_mass, const float* x, const float* y,
+    const int* offsets, float* q_out, float* pe_out, float* g_out,
+    float* acc_out, float* div_out, float* depth_out, float* steps_out,
+    float* h0_out, int n, int j, int f, int k, float div_threshold,
+    unsigned long long seed, unsigned phase, unsigned t, void* stream_ptr) {
+  return launch_hier_transition(
+      q, pe, grad, keyed_draws(seed, phase, t, k), eps, inv_mass, x,
+      y, offsets, q_out, pe_out, g_out, acc_out, div_out, depth_out,
+      steps_out, h0_out, n, j, f, k, div_threshold, stream_ptr);
 }
 
 // pe (n,) and grad (n, D) at q (n, D) with the transition's potential.

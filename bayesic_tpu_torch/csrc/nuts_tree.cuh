@@ -1,16 +1,24 @@
 // The multinomial-NUTS transition tree for Hopper (sm_90a), fp32 SIMT,
-// shared by every fused NUTS kernel of the port: fused_nuts.cu (the DLGM
-// local posterior) and fused_nuts_hier.cu (the hierarchical-logistic
-// posterior) each define a Potential and their C entries, and instantiate
-// nuts_kernel / potential_kernel over it.
+// of the hierarchical-logistic kernel (fused_nuts_hier.cu), which defines a
+// Potential and its C entries and instantiates nuts_kernel /
+// potential_kernel over it, and the tree's scalar decisions, which the
+// DLGM kernel (fused_nuts.cu) shares: which checkpoint slots a leaf
+// touches (leaf_slots), a leaf's weight, take and U-turn test
+// (subtree_leaf), the biased merge (trajectory_merge) and the end of a
+// doubling (trajectory_close).  The two trees differ only in where a
+// chain's vectors live and which thread owns each element: here the block
+// of one chain, element d = tid + k*NT, in shared memory; in fused_nuts.cu
+// the lanes of the chain's warps, in registers and lane-owned memory.
 //
 // One launch runs one whole NUTS transition for every chain: momentum
 // energy, up to K doublings of the trajectory with checkpoint U-turn slots,
 // the in-subtree progressive multinomial take (first leaf always taken),
-// the biased merge and the full-span U-turn.  All randomness is an input
-// (momentum normals, +-1 doubling signs, strictly negative log-uniforms),
-// so the kernel is a deterministic function of its arguments, and its
-// oracle is the plain PyTorch core (infer/mcmc/nuts.nuts_core).
+// the biased merge and the full-span U-turn.  The randomness comes from
+// nuts_draws.cuh: read from arrays drawn by the caller (momentum normals,
+// +-1 doubling signs, strictly negative log-uniforms) or drawn in the
+// kernel from Philox keyed as infer/mcmc/streams.nuts_streams keys it, so
+// the kernel is a deterministic function of its arguments, and its oracle
+// is the plain PyTorch core (infer/mcmc/nuts.nuts_core) on those streams.
 //
 // Design: one thread block per chain.  Chains are independent, so a chain
 // that stops early simply leaves its loops; that is the same transition as
@@ -35,6 +43,8 @@
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+
+#include "nuts_draws.cuh"
 
 namespace {
 
@@ -84,9 +94,120 @@ __device__ __forceinline__ void block_sum(float (&v)[MAXV], int n,
   __syncthreads();
 }
 
+// The checkpoint slots leaf i of a subtree touches (the JAX kernel's
+// indexing): an even leaf stores its (q, M^-1 p) at slot pc; an odd leaf
+// tests itself against the n_chk slots from idx_min.
+struct LeafSlots {
+  bool even;
+  int pc, n_chk, idx_min;
+};
+
+__device__ __forceinline__ LeafSlots leaf_slots(int i) {
+  LeafSlots s;
+  s.even = (i & 1) == 0;
+  s.pc = __popc(i);
+  s.n_chk = s.even ? 0 : __popc(i ^ (i + 1)) - 1;
+  s.idx_min = s.pc - s.n_chk;
+  return s;
+}
+
+// One subtree's scalars: the log of its summed weight, its proposal's pe,
+// the accept-stat sum, the leaf count, whether it turned or diverged.
+struct Subtree {
+  float logw, pe, acc, cnt;
+  bool turn, div;
+
+  __device__ __forceinline__ bool done() const { return turn || div; }
+};
+
+__device__ __forceinline__ Subtree subtree_start() {
+  return Subtree{-INFINITY, 0.f, 0.f, 0.f, false, false};
+}
+
+// Folds in leaf `leaf` of the tree, at energy pe_new + ke/2 (ke = |p|^2
+// under M^-1), whose U-turn dots against its n_chk checkpoints are
+// v[2 + 2c], v[3 + 2c].  Returns whether the leaf is taken as the
+// subtree's proposal (the caller copies its q and grad): the first leaf
+// always is, a later one with its multinomial probability, its uniform
+// drawn only then.
+__device__ __forceinline__ bool subtree_leaf(
+    Subtree& s, float pe_new, float ke, float h0, const float (&v)[MAXV],
+    int n_chk, const NutsDraws& draws, int chain, int leaf,
+    float div_threshold) {
+  float delta = pe_new + 0.5f * ke - h0;
+  if (isnan(delta)) delta = INFINITY;
+  const float leaf_logw = -delta;
+  const float new_logw = logaddexp(s.logw, leaf_logw);
+  const bool take = s.logw < -1e37f ||
+                    draws.leaf_log_u(chain, leaf) < leaf_logw - new_logw;
+  if (take) s.pe = pe_new;
+  s.acc += fminf(1.f, expf(-delta));
+  s.cnt += 1.f;
+  bool turn = false;
+#pragma unroll
+  for (int c = 0; c < MAXK; ++c)
+    if (c < n_chk) turn = turn || jmin(v[2 + 2 * c], v[3 + 2 * c]) < 0.f;
+  s.logw = new_logw;
+  s.turn = s.turn || turn;
+  s.div = s.div || delta > div_threshold;
+  return take;
+}
+
+// The whole trajectory's scalars.
+struct Trajectory {
+  float h0, prop_pe, log_w, sum_acc, n_leaves, depth;
+  bool turning, diverging;
+
+  __device__ __forceinline__ bool more(int dstep, int k) const {
+    return dstep < k && !turning && !diverging;
+  }
+};
+
+__device__ __forceinline__ Trajectory trajectory_start(float pe0,
+                                                       float h0) {
+  return Trajectory{h0, pe0, 0.f, 0.f, 0.f, 0.f, false, false};
+}
+
+// The biased merge of a subtree that neither turned nor diverged, with
+// the doubling's uniform: returns whether the subtree's proposal replaces
+// the trajectory's.
+__device__ __forceinline__ bool trajectory_merge(Trajectory& T,
+                                                 const Subtree& s,
+                                                 float log_u) {
+  const bool take = log_u < jmin(0.f, s.logw - T.log_w);
+  if (take) T.prop_pe = s.pe;
+  T.log_w = logaddexp(T.log_w, s.logw);
+  return take;
+}
+
+// The end of a doubling; full_turn is the full-span U-turn of a merged
+// subtree (false when the subtree turned or diverged).
+__device__ __forceinline__ void trajectory_close(Trajectory& T,
+                                                 const Subtree& s,
+                                                 bool full_turn) {
+  T.turning = s.turn || (!s.done() && full_turn);
+  T.diverging = s.div;
+  T.sum_acc += s.acc;
+  T.n_leaves += s.cnt;
+  T.depth += 1.f;
+}
+
+// The chain's per-chain outputs (Args: pe_out, acc_out, div_out,
+// depth_out, steps_out, h0_out).
+template <class Args>
+__device__ __forceinline__ void trajectory_write(const Args& A, int chain,
+                                                 const Trajectory& T) {
+  A.pe_out[chain] = T.prop_pe;
+  A.acc_out[chain] = T.sum_acc / fmaxf(T.n_leaves, 1.f);
+  A.div_out[chain] = T.diverging ? 1.f : 0.f;
+  A.depth_out[chain] = T.depth;
+  A.steps_out[chain] = T.n_leaves;
+  A.h0_out[chain] = T.h0;
+}
+
 struct TransitionArgs {
-  const float *q, *pe, *grad, *mom, *sign_dir, *log_u_acc, *log_u_leaf, *eps,
-      *inv_mass;
+  const float *q, *pe, *grad, *eps, *inv_mass;
+  NutsDraws draws;
   float *q_out, *pe_out, *g_out, *acc_out, *div_out, *depth_out, *steps_out,
       *h0_out;
   int k;
@@ -130,7 +251,7 @@ nuts_kernel(Potential pot, TransitionArgs A) {
   v[0] = 0.f;
   for (int d = tid; d < D; d += NT) {
     const float im = A.inv_mass[d], qd = A.q[row + d], gd = A.grad[row + d];
-    const float p0 = A.mom[row + d] * rsqrtf(im);
+    const float p0 = A.draws.momentum(chain, d, D) * rsqrtf(im);
     invm[d] = im;
     Q[0][d] = qd; P[0][d] = p0; G[0][d] = gd;
     PQ[0][d] = qd; PG[0][d] = gd;
@@ -138,14 +259,11 @@ nuts_kernel(Potential pot, TransitionArgs A) {
   }
   block_sum(v, 1, red);     // its barriers also publish the loads above
   const float pe0 = A.pe[chain];
-  const float h0 = pe0 + 0.5f * v[0];
+  Trajectory T = trajectory_start(pe0, pe0 + 0.5f * v[0]);
 
   int iL = 0, iR = 0, iP = 0;   // left/right edge and proposal buffers
-  float prop_pe = pe0, log_w = 0.f, sum_acc = 0.f, n_leaves = 0.f,
-        depth = 0.f;
-  bool turning = false, diverging = false;
-  for (int dstep = 0; dstep < K && !turning && !diverging; ++dstep) {
-    const bool go_right = A.sign_dir[(size_t)chain * K + dstep] > 0.f;
+  for (int dstep = 0; T.more(dstep, K); ++dstep) {
+    const bool go_right = A.draws.go_right(chain, dstep);
     const float sign_w = go_right ? 1.f : -1.f, eps_w = sign_w * eps;
     const int iE = go_right ? iR : iL;
     int iC = 0;
@@ -155,9 +273,8 @@ nuts_kernel(Potential pot, TransitionArgs A) {
       q[d] = Q[iE][d]; p[d] = P[iE][d]; g[d] = G[iE][d];
     }
     const int n_sub = 1 << dstep, leaf_base = n_sub - 1, iS = 1 - iP;
-    float s_logw = -INFINITY, s_pe = 0.f, s_acc = 0.f, s_cnt = 0.f;
-    bool s_turn = false, s_div = false;
-    for (int i = 0; i < n_sub && !s_turn && !s_div; ++i) {
+    Subtree s = subtree_start();
+    for (int i = 0; i < n_sub && !s.done(); ++i) {
       for (int d = tid; d < D; d += NT) {          // half kick, drift
         const float ph = p[d] - (0.5f * eps_w) * g[d];
         p[d] = ph;
@@ -165,11 +282,7 @@ nuts_kernel(Potential pot, TransitionArgs A) {
       }
       __syncthreads();
       float part = pot.eval(q, g);
-      const bool even = (i & 1) == 0;
-      const int pc = __popc(i);
-      const int idx_max = pc - 1;
-      const int n_chk = even ? 0 : __popc(i ^ (i + 1)) - 1;
-      const int idx_min = idx_max - n_chk + 1;
+      const LeafSlots ls = leaf_slots(i);
       float ke = 0.f;
 #pragma unroll
       for (int c = 0; c < 2 * MAXK; ++c) v[2 + c] = 0.f;
@@ -178,14 +291,14 @@ nuts_kernel(Potential pot, TransitionArgs A) {
         const float vn = invm[d] * pn, qd = q[d];
         p[d] = pn;
         ke = fmaf(pn * pn, invm[d], ke);
-        if (even) {
-          ckq[(size_t)pc * D + d] = qd;
-          ckv[(size_t)pc * D + d] = vn;
+        if (ls.even) {
+          ckq[(size_t)ls.pc * D + d] = qd;
+          ckv[(size_t)ls.pc * D + d] = vn;
         } else {
 #pragma unroll
           for (int c = 0; c < MAXK; ++c) {
-            if (c < n_chk) {
-              const size_t o = (size_t)(idx_min + c) * D + d;
+            if (c < ls.n_chk) {
+              const size_t o = (size_t)(ls.idx_min + c) * D + d;
               const float dq = (qd - ckq[o]) * sign_w;
               v[2 + 2 * c] = fmaf(dq, ckv[o], v[2 + 2 * c]);
               v[3 + 2 * c] = fmaf(dq, vn, v[3 + 2 * c]);
@@ -195,39 +308,19 @@ nuts_kernel(Potential pot, TransitionArgs A) {
       }
       v[0] = part;
       v[1] = ke;
-      block_sum(v, 2 + 2 * n_chk, red);
-      const float pe_new = v[0] + pot.cst;
-      float delta = pe_new + 0.5f * v[1] - h0;
-      if (isnan(delta)) delta = INFINITY;
-      const float leaf_logw = -delta;
-      const float new_logw = logaddexp(s_logw, leaf_logw);
-      const bool fresh = s_logw < -1e37f;
-      const float lu = A.log_u_leaf[((size_t)chain << K) + leaf_base + i];
-      if (fresh || lu < leaf_logw - new_logw) {    // progressive take
-        for (int d = tid; d < D; d += NT) {
+      block_sum(v, 2 + 2 * ls.n_chk, red);
+      if (subtree_leaf(s, v[0] + pot.cst, v[1], T.h0, v, ls.n_chk, A.draws,
+                       chain, leaf_base + i, A.div_threshold)) {
+        for (int d = tid; d < D; d += NT) {        // progressive take
           PQ[iS][d] = q[d];
           PG[iS][d] = g[d];
         }
-        s_pe = pe_new;
       }
-      s_acc += fminf(1.f, expf(-delta));
-      s_cnt += 1.f;
-      bool turn = false;
-#pragma unroll
-      for (int c = 0; c < MAXK; ++c)
-        if (c < n_chk) turn = turn || jmin(v[2 + 2 * c], v[3 + 2 * c]) < 0.f;
-      s_logw = new_logw;
-      s_turn = s_turn || turn;
-      s_div = s_div || delta > A.div_threshold;
     }
-    const bool bad = s_turn || s_div;
     bool full_turn = false;
-    if (!bad) {
-      if (A.log_u_acc[(size_t)chain * K + dstep] < jmin(0.f, s_logw - log_w)) {
+    if (!s.done()) {
+      if (trajectory_merge(T, s, A.draws.merge_log_u(chain, dstep)))
         iP = iS;                                   // biased merge
-        prop_pe = s_pe;
-      }
-      log_w = logaddexp(log_w, s_logw);
       if (go_right) iR = iC; else iL = iC;
       v[0] = v[1] = 0.f;
       for (int d = tid; d < D; d += NT) {          // full-span U-turn
@@ -238,24 +331,13 @@ nuts_kernel(Potential pot, TransitionArgs A) {
       block_sum(v, 2, red);
       full_turn = jmin(v[0], v[1]) < 0.f;
     }
-    turning = s_turn || (!bad && full_turn);
-    diverging = s_div;
-    sum_acc += s_acc;
-    n_leaves += s_cnt;
-    depth += 1.f;
+    trajectory_close(T, s, full_turn);
   }
   for (int d = tid; d < D; d += NT) {
     A.q_out[row + d] = PQ[iP][d];
     A.g_out[row + d] = PG[iP][d];
   }
-  if (tid == 0) {
-    A.pe_out[chain] = prop_pe;
-    A.acc_out[chain] = sum_acc / fmaxf(n_leaves, 1.f);
-    A.div_out[chain] = diverging ? 1.f : 0.f;
-    A.depth_out[chain] = depth;
-    A.steps_out[chain] = n_leaves;
-    A.h0_out[chain] = h0;
-  }
+  if (tid == 0) trajectory_write(A, chain, T);
 }
 
 // pe and grad of each chain with the kernel's own device function.

@@ -61,13 +61,21 @@ def _declare(lib):
     lib.bt_error_string.argtypes = [i32]
     lib.bt_error_string.restype = ctypes.c_char_p
     f32 = ctypes.c_float
-    lib.fused_nuts_smem_bytes.argtypes = [i32] * 5
-    lib.fused_nuts_smem_bytes.restype = ctypes.c_size_t
+    sz = ctypes.c_size_t
+    lib.fused_nuts_workspace_bytes.argtypes = [i32] * 7
+    lib.fused_nuts_workspace_bytes.restype = sz
+    key = [ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_uint]
     lib.fused_nuts_transition.argtypes = (
-        [vp] * 22 + [i32] * 6 + [f32, f32, vp])
+        [vp] * 23 + [sz] + [i32] * 6 + [f32, f32, vp])
     lib.fused_nuts_transition.restype = i32
-    lib.fused_nuts_potential.argtypes = [vp] * 8 + [i32] * 5 + [f32, vp]
+    lib.fused_nuts_transition_keyed.argtypes = (
+        [vp] * 19 + [sz] + [i32] * 6 + [f32, f32] + key + [vp])
+    lib.fused_nuts_transition_keyed.restype = i32
+    lib.fused_nuts_potential.argtypes = [vp] * 9 + [sz] + [i32] * 5 + [f32,
+                                                                      vp]
     lib.fused_nuts_potential.restype = i32
+    lib.fused_nuts_draws.argtypes = [vp] * 4 + [i32] * 3 + key + [vp]
+    lib.fused_nuts_draws.restype = i32
     lib.fused_hier_smem_bytes.argtypes = [i32] * 2
     lib.fused_hier_smem_bytes.restype = ctypes.c_size_t
     lib.fused_hier_train.argtypes = (
@@ -79,6 +87,9 @@ def _declare(lib):
     lib.fused_hier_nuts_transition.argtypes = [vp] * 20 + [i32] * 4 + [f32,
                                                                        vp]
     lib.fused_hier_nuts_transition.restype = i32
+    lib.fused_hier_nuts_transition_keyed.argtypes = (
+        [vp] * 16 + [i32] * 4 + [f32] + key + [vp])
+    lib.fused_hier_nuts_transition_keyed.restype = i32
     lib.fused_hier_nuts_potential.argtypes = [vp] * 6 + [i32] * 3 + [vp]
     lib.fused_hier_nuts_potential.restype = i32
     lib.gmm_loglik_fwd.argtypes = [vp] * 5 + [i32] * 4 + [vp]

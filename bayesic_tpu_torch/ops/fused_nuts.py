@@ -8,17 +8,28 @@ posterior over the latents z of ``nb`` data rows under a fixed decoder,
     pe(q) = 0.5|q|^2 + |x - (tanh(z W1 + b1) W2 + b2)|^2 / (2 s^2) + const,
 
 with z = q.view(C, nb, latent) and the constants of the JAX package's
-``make_packed_potential``.  On a CUDA tensor ``fused_nuts_transition`` runs
-the hand-written kernel of ``csrc/fused_nuts.cu``; on a CPU tensor it runs
-the plain version, ``reference_transition``: the port's one NUTS core
+``make_packed_potential``.  On a CUDA tensor the entries run the
+hand-written kernel of ``csrc/fused_nuts.cu``; on a CPU tensor they run the
+plain version, ``reference_transition``: the port's one NUTS core
 (``infer/mcmc/nuts.nuts_core``) over the dense potential below.  Nothing
 falls back: on a CUDA tensor the kernel runs or the call raises.
 
-The kernel and its plain version take the same pre-drawn randomness
-(momentum normals, +-1 doubling signs, strictly negative log-uniforms), so
-they compute the same transition.  The JAX package's lane packing, hi/lo
-bf16 dot splits, (C, 1) layout rules and in-kernel re-evaluation of pe are
-TPU workarounds and are not ported; every product is fp32 (no TF32).
+Two entries share the kernel.  ``fused_nuts_transition`` takes pre-drawn
+randomness (momentum normals, +-1 doubling signs, strictly negative
+log-uniforms), so it and its plain version compute the same transition
+from the same streams: the parity entry.  ``fused_nuts_transition_keyed``
+takes the transition's ``StreamKey`` and the kernel makes the draws itself,
+as ``infer/mcmc/streams.nuts_streams`` makes them (the same Philox words
+and float recipes; ``fused_nuts_draws`` writes them out for a check): what
+``make_batched_transition`` runs, one launch per transition and no stream
+ops on the host.  The JAX package's lane packing, hi/lo bf16 dot splits,
+(C, 1) layout rules and in-kernel re-evaluation of pe are TPU workarounds
+and are not ported.  The kernel computes the potential's products on the
+tensor cores in TF32 with both operands split in three passes (about
+fp32's accuracy); the plain version in fp32.  It takes any decoder widths
+with ``element_groups(nb, latent) <= MAX_GROUPS``; each call allocates the
+device workspace the kernel's plan asks for (its packed weights, its chain
+counter, and the tree's vectors where they do not fit in shared memory).
 """
 
 from __future__ import annotations
@@ -34,14 +45,19 @@ from ..infer.mcmc.streams import NUTSStreams, nuts_streams
 from . import _build
 
 __all__ = ["dense_potential", "reference_transition", "fused_nuts_potential",
-           "fused_nuts_transition", "decoder_weights",
-           "make_batched_transition", "MAX_DOUBLINGS"]
+           "fused_nuts_transition", "fused_nuts_transition_keyed",
+           "fused_nuts_draws", "decoder_weights", "make_batched_transition",
+           "element_groups", "MAX_DOUBLINGS", "MAX_GROUPS"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
-MAX_DOUBLINGS = 12      # MAXK of csrc/fused_nuts.cu
+MAX_DOUBLINGS = 12      # MAXK of csrc/nuts_tree.cuh
+# csrc/fused_nuts.cu: a lane holds at most MAX_GROUPS element groups, each a
+# block of 16 rows (a chain's up to 16 warps take ceil(nb / 256) each) and
+# 8 latents, so ceil(nb / 256) * ceil(latent / 8) <= MAX_GROUPS
+MAX_GROUPS = 16
 
-# launches of the transition kernel; one launch is one NUTS transition of
-# every chain
+# launches of the transition kernel (either entry); one launch is one NUTS
+# transition of every chain
 LAUNCHES = 0
 
 
@@ -132,6 +148,39 @@ def _check_rows(n, **rows):
                              f"got {t.dtype} {tuple(t.shape)}")
 
 
+def _key_words(key):
+    """A ``StreamKey`` as the C entries take it: the 64-bit seed, the phase
+    and the step's low 32 bits (the counter's first word, as in
+    streams.py)."""
+    return (int(key.seed) & 0xFFFFFFFFFFFFFFFF, int(key.phase) & 0xFFFFFF,
+            int(key.t) & 0xFFFFFFFF)
+
+
+def element_groups(nb, latent):
+    """Element groups a lane of the kernel holds at this shape (see
+    ``csrc/fused_nuts.cu``)."""
+    blocks = -(-nb // 16)
+    per_warp = -(-blocks // 16)
+    return per_warp * -(-latent // 8)
+
+
+def _workspace(n, nb, latent, hidden, data, kk, tree, device):
+    """The library and the device workspace a call needs, after checking
+    that the kernel takes the shape."""
+    shape = (f"nb={nb}, latent={latent}, hidden={hidden}, data={data}, "
+             f"K={kk}")
+    if element_groups(nb, latent) > MAX_GROUPS:
+        raise ValueError(f"shape the kernel does not take: {shape} (it "
+                         f"takes ceil(nb / 256) * ceil(latent / 8) <= "
+                         f"{MAX_GROUPS})")
+    lib = _build.load()
+    nbytes = lib.fused_nuts_workspace_bytes(n, nb, latent, hidden, data, kk,
+                                            int(tree))
+    if nbytes == 0:
+        raise ValueError(f"shape the kernel does not take: {shape}")
+    return lib, torch.empty(nbytes, dtype=torch.uint8, device=device)
+
+
 def fused_nuts_potential(q, w1, b1, w2, b2, x_batch, *, sigma):
     """pe (N, 1) and grad (N, D) at q (N, D).  On a CUDA tensor this runs
     the kernel's own device function (the check entry that isolates the
@@ -144,22 +193,87 @@ def fused_nuts_potential(q, w1, b1, w2, b2, x_batch, *, sigma):
                          f"{q.device}")
     nb, latent, hidden, data = _check_weights(q, w1, b1, w2, b2, x_batch)
     _check_rows(q.shape[0], q=(q, nb * latent))
-    lib = _build.load()
+    lib, ws = _workspace(q.shape[0], nb, latent, hidden, data, 1, False,
+                         q.device)
     pe = torch.empty((q.shape[0], 1), dtype=torch.float32, device=q.device)
     grad = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.fused_nuts_potential(
             _ptr(q), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), _ptr(x_batch),
-            _ptr(pe), _ptr(grad), q.shape[0], nb, latent, hidden, data,
-            float(sigma), _stream(q.device))
+            _ptr(pe), _ptr(grad), _ptr(ws), ws.numel(), q.shape[0], nb,
+            latent, hidden, data, float(sigma), _stream(q.device))
     _raise(err, "fused_nuts_potential")
     return pe, grad
+
+
+def _doublings(max_doublings):
+    kk = int(max_doublings)
+    if not 1 <= kk <= MAX_DOUBLINGS:
+        raise ValueError(f"max_doublings must be in 1..{MAX_DOUBLINGS}")
+    return kk
+
+
+def _check_state(q, pe, grad, eps, inv_mass, **rows):
+    """The checks every NUTS transition wrapper makes on the chain state
+    (``rows``: the injected streams and their widths); returns eps as a
+    one-element device tensor."""
+    n, d = q.shape
+    _check_rows(n, q=(q, d), grad=(grad, d), **rows)
+    if pe.numel() != n or inv_mass.numel() != d \
+            or tuple(inv_mass.shape) not in ((d,), (1, d)):
+        raise ValueError(f"pe must hold {n} values and inv_mass be a "
+                         f"diagonal (D,) or (1, D), D = {d}")
+    eps = torch.as_tensor(eps, dtype=torch.float32, device=q.device) \
+        .reshape(1)
+    for k, t in (("pe", pe), ("inv_mass", inv_mass), ("eps", eps)):
+        if t.device != q.device or t.dtype != torch.float32:
+            raise ValueError(f"{k} must be float32 on {q.device}")
+    return eps
+
+
+def _call_transition(entry, q, ins, args, key=()):
+    """Call a NUTS transition C entry: ``ins`` are its input tensors, then
+    the outputs, ``args`` (workspace, shape, K, ...), ``key`` (a keyed
+    entry's words) and the stream.  Returns the outputs as
+    ``fused_nuts_transition`` does."""
+    n = q.shape[0]
+    q2, g2 = torch.empty_like(q), torch.empty_like(q)
+    scal = torch.empty((6, n, 1), dtype=torch.float32, device=q.device)
+    outs = (q2, scal[0], g2, *scal[1:])
+    with torch.cuda.device(q.device):
+        err = entry(*map(_ptr, ins), *map(_ptr, outs), *args, *key,
+                    _stream(q.device))
+    _raise(err, entry.__name__)
+    return outs
+
+
+def _transition(entry, q, pe, grad, eps, inv_mass, weights, kk, sigma,
+                divergence_threshold, streams=(), key=()):
+    """Check, then run one transition through ``entry``: the injected one
+    with ``streams`` (mom, sign_dir, log_u_acc, log_u_leaf) or the keyed
+    one with ``key``'s words."""
+    global LAUNCHES
+    nb, latent, hidden, data = _check_weights(q, *weights)
+    widths = (q.shape[1], kk, kk, 1 << kk)
+    eps = _check_state(q, pe, grad, eps, inv_mass, **dict(zip(
+        ("mom", "sign_dir", "log_u_acc", "log_u_leaf"),
+        zip(streams, widths))))
+    lib, ws = _workspace(q.shape[0], nb, latent, hidden, data, kk, True,
+                         q.device)
+    outs = _call_transition(
+        getattr(lib, entry), q,
+        (q, pe.contiguous(), grad, *streams, eps, inv_mass.contiguous(),
+         *weights),
+        (_ptr(ws), ws.numel(), q.shape[0], nb, latent, hidden, data, kk,
+         float(sigma), float(divergence_threshold)), key)
+    LAUNCHES += 1
+    return outs
 
 
 def fused_nuts_transition(q, pe, grad, mom, sign_dir, log_u_acc, log_u_leaf,
                           eps, inv_mass, w1, b1, w2, b2, x_batch, *, sigma,
                           max_doublings=6, divergence_threshold=1000.0):
-    """One NUTS transition of every chain.
+    """One NUTS transition of every chain, from pre-drawn streams.
 
     q/grad/mom (N, D) with D = nb*latent; pe (N, 1); sign_dir (N, K) of
     +-1; log_u_acc (N, K) and log_u_leaf (N, 2^K) strictly negative
@@ -171,7 +285,6 @@ def fused_nuts_transition(q, pe, grad, mom, sign_dir, log_u_acc, log_u_leaf,
     Returns ``(q', pe', grad', accept_stat, diverging, depth, num_steps,
     h0)``, the per-chain values as (N, 1) float32.
     """
-    global LAUNCHES
     if q.device.type == "cpu":
         return reference_transition(
             q, pe, grad, mom, sign_dir, log_u_acc, log_u_leaf, eps, inv_mass,
@@ -181,42 +294,59 @@ def fused_nuts_transition(q, pe, grad, mom, sign_dir, log_u_acc, log_u_leaf,
     if q.device.type != "cuda":
         raise ValueError(f"fused_nuts_transition: unsupported device "
                          f"{q.device}")
+    return _transition("fused_nuts_transition", q, pe, grad, eps, inv_mass,
+                       (w1, b1, w2, b2, x_batch), _doublings(max_doublings),
+                       sigma, divergence_threshold,
+                       streams=(mom, sign_dir, log_u_acc, log_u_leaf))
+
+
+def fused_nuts_transition_keyed(q, pe, grad, key, eps, inv_mass, w1, b1, w2,
+                                b2, x_batch, *, sigma, max_doublings=6,
+                                divergence_threshold=1000.0):
+    """One NUTS transition of every chain, its draws made from ``key`` (a
+    ``streams.StreamKey``) for logical chains 0..N-1, as
+    ``nuts_streams(key, N, D, K)`` makes them.  On a CUDA tensor the kernel
+    draws them itself; on a CPU tensor this is ``reference_transition`` on
+    ``nuts_streams``.  Other arguments and the outputs as
+    ``fused_nuts_transition``."""
+    if q.device.type == "cpu":
+        n, d = q.shape
+        return reference_transition(
+            q, pe, grad, *nuts_streams(key, n, d, int(max_doublings),
+                                       q.device),
+            eps, inv_mass, w1, b1, w2, b2, x_batch, sigma=sigma,
+            max_doublings=max_doublings,
+            divergence_threshold=divergence_threshold)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_nuts_transition_keyed: unsupported device "
+                         f"{q.device}")
+    return _transition("fused_nuts_transition_keyed", q, pe, grad, eps,
+                       inv_mass, (w1, b1, w2, b2, x_batch),
+                       _doublings(max_doublings), sigma,
+                       divergence_threshold, key=_key_words(key))
+
+
+def fused_nuts_draws(key, n, dim, max_doublings, device):
+    """The keyed entries' draws for logical chains 0..n-1 as a
+    ``NUTSStreams``: on a CUDA device written by the kernels' own draw
+    function (the check entry against ``nuts_streams``), on the CPU
+    ``nuts_streams`` itself."""
+    device = torch.device(device)
     kk = int(max_doublings)
-    if not 1 <= kk <= MAX_DOUBLINGS:
-        raise ValueError(f"max_doublings must be in 1..{MAX_DOUBLINGS}")
-    nb, latent, hidden, data = _check_weights(q, w1, b1, w2, b2, x_batch)
-    n, d = q.shape
-    _check_rows(n, q=(q, d), grad=(grad, d), mom=(mom, d),
-                sign_dir=(sign_dir, kk), log_u_acc=(log_u_acc, kk),
-                log_u_leaf=(log_u_leaf, 1 << kk))
-    if pe.numel() != n or inv_mass.numel() != d \
-            or tuple(inv_mass.shape) not in ((d,), (1, d)):
-        raise ValueError(f"pe must hold {n} values and inv_mass be a "
-                         f"diagonal (D,) or (1, D), D = {d}")
-    eps = torch.as_tensor(eps, dtype=torch.float32, device=q.device) \
-        .reshape(1)
-    for k, t in (("pe", pe), ("inv_mass", inv_mass), ("eps", eps)):
-        if t.device != q.device or t.dtype != torch.float32:
-            raise ValueError(f"{k} must be float32 on {q.device}")
+    if device.type == "cpu":
+        return nuts_streams(key, n, dim, kk, device)
+    if device.type != "cuda":
+        raise ValueError(f"fused_nuts_draws: unsupported device {device}")
+    kk = _doublings(kk)
+    out = NUTSStreams(*(torch.empty((n, w), dtype=torch.float32,
+                                    device=device)
+                        for w in (dim, kk, kk, 1 << kk)))
     lib = _build.load()
-    if lib.fused_nuts_smem_bytes(nb, latent, hidden, data, kk) == 0:
-        raise ValueError(
-            f"shape too large for one block's shared memory: nb={nb}, "
-            f"latent={latent}, hidden={hidden}, data={data}, K={kk}")
-    q2, g2 = torch.empty_like(q), torch.empty_like(q)
-    scal = torch.empty((6, n, 1), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = lib.fused_nuts_transition(
-            _ptr(q), _ptr(pe.contiguous()), _ptr(grad), _ptr(mom),
-            _ptr(sign_dir), _ptr(log_u_acc), _ptr(log_u_leaf), _ptr(eps),
-            _ptr(inv_mass.contiguous()), _ptr(w1), _ptr(b1), _ptr(w2),
-            _ptr(b2), _ptr(x_batch), _ptr(q2), _ptr(scal[0]), _ptr(g2),
-            _ptr(scal[1]), _ptr(scal[2]), _ptr(scal[3]), _ptr(scal[4]),
-            _ptr(scal[5]), n, nb, latent, hidden, data, kk, float(sigma),
-            float(divergence_threshold), _stream(q.device))
-    _raise(err, "fused_nuts_transition")
-    LAUNCHES += 1
-    return (q2, scal[0], g2, scal[1], scal[2], scal[3], scal[4], scal[5])
+    with torch.cuda.device(device):
+        err = lib.fused_nuts_draws(*map(_ptr, out), n, dim, kk,
+                                   *_key_words(key), _stream(device))
+    _raise(err, "fused_nuts_draws")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -235,23 +365,23 @@ def make_batched_transition(dec_params, sigma_x, x_batch, *,
                             max_doublings=6):
     """A ``batched_transition(key, states, step_size, inv_mass)`` for
     ``MCMC`` over the DLGM local posterior (``models/dlgm.py``
-    ``local_posterior_mcmc``'s model), running ``fused_nuts_transition``.
-    It draws each transition's per-chain streams from ``key`` by logical
-    chain index and hands them to the kernel, which draws nothing.
-    Requires ``shared_adapt=True`` (one step size, one diagonal mass).
-    The decoder's widths come from ``dec_params``."""
+    ``local_posterior_mcmc``'s model), running
+    ``fused_nuts_transition_keyed``: the kernel draws each transition's
+    per-chain streams from ``key`` by logical chain index, so the host
+    draws nothing.  Requires ``shared_adapt=True`` (one step size, one
+    diagonal mass).  The decoder's widths come from ``dec_params``."""
     w1, b1, w2, b2 = decoder_weights(dec_params)
     x_batch = x_batch.to(torch.float32).contiguous()
     sigma = float(sigma_x)
     kk = int(max_doublings)
 
     def transition(key, states, step_size, inv_mass):
-        n, d = states.q.shape
-        s = nuts_streams(key, n, d, kk, states.q.device)
-        q2, pe2, g2, acc, div, depth, nsteps, h0 = fused_nuts_transition(
-            states.q, states.pe.reshape(n, 1), states.grad, s.mom,
-            s.sign_dir, s.log_u_acc, s.log_u_leaf, step_size, inv_mass,
-            w1, b1, w2, b2, x_batch, sigma=sigma, max_doublings=kk)
+        n = states.q.shape[0]
+        q2, pe2, g2, acc, div, depth, nsteps, h0 = \
+            fused_nuts_transition_keyed(
+                states.q, states.pe.reshape(n, 1), states.grad, key,
+                step_size, inv_mass, w1, b1, w2, b2, x_batch, sigma=sigma,
+                max_doublings=kk)
         new_states = IntegratorState(q2, torch.zeros_like(q2), pe2[:, 0], g2)
         info = NUTSInfo(
             accept_prob=acc[:, 0], diverging=div[:, 0] > 0.5,

@@ -15,6 +15,11 @@ kernel (``csrc/fused_nuts_hier.cu``, the tree of ``csrc/nuts_tree.cuh``);
 on a CPU tensor the plain version, ``reference_transition``: the port's
 one NUTS core (``infer/mcmc/nuts.nuts_core``) over ``hier_potential``.
 Nothing falls back: on a CUDA tensor the kernel runs or the call raises.
+As in ``ops/fused_nuts.py``, ``fused_hier_nuts_transition`` takes the
+pre-drawn streams (the parity entry) and
+``fused_hier_nuts_transition_keyed`` a ``StreamKey``, from which the
+kernel makes the same draws as ``nuts_streams`` (``csrc/nuts_draws.cuh``):
+what ``make_batched_transition_hier`` runs.
 
 The rows are sorted by group once (``hier_data``), which leaves the
 likelihood unchanged and lets the kernel walk each group's rows as one
@@ -36,17 +41,19 @@ from ..infer.mcmc.integrators import IntegratorState
 from ..infer.mcmc.nuts import NUTSInfo, nuts_core
 from ..infer.mcmc.streams import NUTSStreams, nuts_streams
 from . import _build
-from .fused_nuts import MAX_DOUBLINGS, _check_rows, _ptr, _raise, _stream
+from .fused_nuts import (_call_transition, _check_rows, _check_state,
+                         _doublings, _key_words, _ptr, _raise, _stream)
 
 __all__ = ["HierData", "hier_data", "hier_potential", "reference_transition",
            "fused_hier_nuts_potential", "fused_hier_nuts_transition",
-           "make_batched_transition_hier", "MAX_FEATURES"]
+           "fused_hier_nuts_transition_keyed", "make_batched_transition_hier",
+           "MAX_FEATURES"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 MAX_FEATURES = 8        # MAXF of csrc/fused_nuts_hier.cu
 
-# launches of the transition kernel; one launch is one NUTS transition of
-# every chain
+# launches of the transition kernel (either entry); one launch is one NUTS
+# transition of every chain
 LAUNCHES = 0
 
 
@@ -169,10 +176,34 @@ def fused_hier_nuts_potential(q, data: HierData):
     return pe, grad
 
 
+def _transition(entry, q, pe, grad, eps, inv_mass, data, kk,
+                divergence_threshold, streams=(), key=()):
+    """Check, then run one transition through ``entry``: the injected one
+    with ``streams`` (mom, sign_dir, log_u_acc, log_u_leaf) or the keyed
+    one with ``key``'s words."""
+    global LAUNCHES
+    j, f = _check_data(q, data)
+    widths = (q.shape[1], kk, kk, 1 << kk)
+    eps = _check_state(q, pe, grad, eps, inv_mass, **dict(zip(
+        ("mom", "sign_dir", "log_u_acc", "log_u_leaf"),
+        zip(streams, widths))))
+    lib = _build.load()
+    if lib.fused_hier_nuts_smem_bytes(j, f, kk) == 0:
+        raise ValueError(f"shape too large for one block's shared memory: "
+                         f"J={j}, F={f}, K={kk}")
+    outs = _call_transition(
+        getattr(lib, entry), q,
+        (q, pe.contiguous(), grad, *streams, eps, inv_mass.contiguous(),
+         data.x, data.y, data.offsets),
+        (q.shape[0], j, f, kk, float(divergence_threshold)), key)
+    LAUNCHES += 1
+    return outs
+
+
 def fused_hier_nuts_transition(q, pe, grad, mom, sign_dir, log_u_acc,
                                log_u_leaf, eps, inv_mass, data: HierData, *,
                                max_doublings=6, divergence_threshold=1000.0):
-    """One NUTS transition of every chain.
+    """One NUTS transition of every chain, from pre-drawn streams.
 
     q/grad/mom (N, D) with D = 2 + J + F; pe (N, 1); sign_dir (N, K) of
     +-1; log_u_acc (N, K) and log_u_leaf (N, 2^K) strictly negative
@@ -183,7 +214,6 @@ def fused_hier_nuts_transition(q, pe, grad, mom, sign_dir, log_u_acc,
     Returns ``(q', pe', grad', accept_stat, diverging, depth, num_steps,
     h0)``, the per-chain values as (N, 1) float32.
     """
-    global LAUNCHES
     if q.device.type == "cpu":
         return reference_transition(
             q, pe, grad, mom, sign_dir, log_u_acc, log_u_leaf, eps, inv_mass,
@@ -192,41 +222,34 @@ def fused_hier_nuts_transition(q, pe, grad, mom, sign_dir, log_u_acc,
     if q.device.type != "cuda":
         raise ValueError(f"fused_hier_nuts_transition: unsupported device "
                          f"{q.device}")
-    kk = int(max_doublings)
-    if not 1 <= kk <= MAX_DOUBLINGS:
-        raise ValueError(f"max_doublings must be in 1..{MAX_DOUBLINGS}")
-    j, f = _check_data(q, data)
-    n, d = q.shape
-    _check_rows(n, q=(q, d), grad=(grad, d), mom=(mom, d),
-                sign_dir=(sign_dir, kk), log_u_acc=(log_u_acc, kk),
-                log_u_leaf=(log_u_leaf, 1 << kk))
-    if pe.numel() != n or inv_mass.numel() != d \
-            or tuple(inv_mass.shape) not in ((d,), (1, d)):
-        raise ValueError(f"pe must hold {n} values and inv_mass be a "
-                         f"diagonal (D,) or (1, D), D = {d}")
-    eps = torch.as_tensor(eps, dtype=torch.float32, device=q.device) \
-        .reshape(1)
-    for k, t in (("pe", pe), ("inv_mass", inv_mass), ("eps", eps)):
-        if t.device != q.device or t.dtype != torch.float32:
-            raise ValueError(f"{k} must be float32 on {q.device}")
-    lib = _build.load()
-    if lib.fused_hier_nuts_smem_bytes(j, f, kk) == 0:
-        raise ValueError(f"shape too large for one block's shared memory: "
-                         f"J={j}, F={f}, K={kk}")
-    q2, g2 = torch.empty_like(q), torch.empty_like(q)
-    scal = torch.empty((6, n, 1), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = lib.fused_hier_nuts_transition(
-            _ptr(q), _ptr(pe.contiguous()), _ptr(grad), _ptr(mom),
-            _ptr(sign_dir), _ptr(log_u_acc), _ptr(log_u_leaf), _ptr(eps),
-            _ptr(inv_mass.contiguous()), _ptr(data.x), _ptr(data.y),
-            _ptr(data.offsets), _ptr(q2), _ptr(scal[0]), _ptr(g2),
-            _ptr(scal[1]), _ptr(scal[2]), _ptr(scal[3]), _ptr(scal[4]),
-            _ptr(scal[5]), n, j, f, kk, float(divergence_threshold),
-            _stream(q.device))
-    _raise(err, "fused_hier_nuts_transition")
-    LAUNCHES += 1
-    return (q2, scal[0], g2, scal[1], scal[2], scal[3], scal[4], scal[5])
+    return _transition("fused_hier_nuts_transition", q, pe, grad, eps,
+                       inv_mass, data, _doublings(max_doublings),
+                       divergence_threshold,
+                       streams=(mom, sign_dir, log_u_acc, log_u_leaf))
+
+
+def fused_hier_nuts_transition_keyed(q, pe, grad, key, eps, inv_mass,
+                                     data: HierData, *, max_doublings=6,
+                                     divergence_threshold=1000.0):
+    """One NUTS transition of every chain, its draws made from ``key`` (a
+    ``streams.StreamKey``) for logical chains 0..N-1, as
+    ``nuts_streams(key, N, D, K)`` makes them: in the kernel on a CUDA
+    tensor, by ``nuts_streams`` and ``reference_transition`` on a CPU
+    tensor.  Other arguments and the outputs as
+    ``fused_hier_nuts_transition``."""
+    if q.device.type == "cpu":
+        n, d = q.shape
+        return reference_transition(
+            q, pe, grad, *nuts_streams(key, n, d, int(max_doublings),
+                                       q.device),
+            eps, inv_mass, data, max_doublings=max_doublings,
+            divergence_threshold=divergence_threshold)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_hier_nuts_transition_keyed: unsupported "
+                         f"device {q.device}")
+    return _transition("fused_hier_nuts_transition_keyed", q, pe, grad, eps,
+                       inv_mass, data, _doublings(max_doublings),
+                       divergence_threshold, key=_key_words(key))
 
 
 # ---------------------------------------------------------------------------
@@ -238,20 +261,19 @@ def make_batched_transition_hier(x, y, group, num_groups, *,
     """A ``batched_transition(key, states, step_size, inv_mass)`` for
     ``MCMC`` over the centered hier-logistic model (``models/
     hier_logistic.make_model(..., centered=True)``), running
-    ``fused_hier_nuts_transition``.  It draws each transition's per-chain
-    streams from ``key`` by logical chain index and hands them to the
-    kernel, which draws nothing.  Requires ``shared_adapt=True``.  The
-    rows are sorted by group here, once."""
+    ``fused_hier_nuts_transition_keyed``: the kernel draws each
+    transition's per-chain streams from ``key`` by logical chain index, so
+    the host draws nothing.  Requires ``shared_adapt=True``.  The rows are
+    sorted by group here, once."""
     data = hier_data(x, y, group, num_groups)
     kk = int(max_doublings)
 
     def transition(key, states, step_size, inv_mass):
-        n, d = states.q.shape
-        s = nuts_streams(key, n, d, kk, states.q.device)
-        q2, pe2, g2, acc, div, depth, nsteps, h0 = fused_hier_nuts_transition(
-            states.q, states.pe.reshape(n, 1), states.grad, s.mom,
-            s.sign_dir, s.log_u_acc, s.log_u_leaf, step_size, inv_mass, data,
-            max_doublings=kk)
+        n = states.q.shape[0]
+        q2, pe2, g2, acc, div, depth, nsteps, h0 = \
+            fused_hier_nuts_transition_keyed(
+                states.q, states.pe.reshape(n, 1), states.grad, key,
+                step_size, inv_mass, data, max_doublings=kk)
         new_states = IntegratorState(q2, torch.zeros_like(q2), pe2[:, 0], g2)
         info = NUTSInfo(
             accept_prob=acc[:, 0], diverging=div[:, 0] > 0.5,

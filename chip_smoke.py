@@ -19,8 +19,9 @@ kernel's potential and one whole transition against the plain versions,
 drive ``local_posterior_mcmc_fused`` and ``local_posterior_mcmc`` after
 training the decoder with ``run_svi``, gate their posteriors (split-R-hat,
 agreement of the means and variances within Monte-Carlo error), time one
-transition of the kernel and of the plain version, and trace both paths
-and the stream draws.
+transition of the kernel and of the plain version, trace both sampling
+loops, the whole fused call and the stream draws, and time the kernel at
+a narrower and a wider decoder.
 
 Phases 12-16, the hierarchical-logistic path at its bench shape
 (``hier_logistic.Config()``: N=10,000 rows, J=50 groups, F=5 features,
@@ -153,9 +154,10 @@ MF, MF_ODD = {}, (997, 1501)
 MF_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 1e-3)}
 MF_FUSED_LR, MF_TRACE_STEPS = 5e-3, 20
 # published peaks of one H100 SXM (NVIDIA data sheet): FP32 outside the
-# tensor cores, dense bf16 on them, and HBM3; the SFU does 16
+# tensor cores, dense bf16 and TF32 on them, and HBM3; the SFU does 16
 # exp/log/rcp per SM per clock, at the 1.98 GHz boost clock on 132 SMs
-PEAK_FP32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
+PEAK_FP32, PEAK_BF16, PEAK_TF32 = 67e12, 989e12, 494.7e12
+PEAK_BYTES = 3.35e12
 PEAK_SFU = 16 * 132 * 1.98e9
 
 
@@ -280,6 +282,8 @@ def _ptxas_summary(log):
             mangled = line.split("'")[1]
             name = next((k for k in ("hier_train_kernel", "row_kernel",
                                      "atg_kernel", "adam_kernel",
+                                     "dlgm_nuts_kernel", "dlgm_pack_kernel",
+                                     "nuts_draws_kernel",
                                      "nuts_kernel", "potential_kernel",
                                      "gmm_lik_kernel",
                                      "smc_gmm_mutate_kernel",
@@ -294,6 +298,12 @@ def _ptxas_summary(log):
             for pot in ("Dlgm", "Hier"):
                 if f"{pot}Potential" in mangled:
                     name += f"<{pot}>"
+            if name == "dlgm_nuts_kernel":
+                # template arguments: the whole tree or the potential
+                # alone, element groups a lane, mode
+                e, mode = re.findall(r"Li(\d+)E", mangled)[:2]
+                name += ("<tree," if "ILb1E" in mangled else "<potential,") \
+                    + f"{e},{('fast', 'guarded', 'staged')[int(mode)]}>"
             if "gmm" in name:
                 # template arguments: K, D, exact [, mode]
                 name += "<" + ",".join(re.findall(
@@ -322,6 +332,288 @@ def _posterior(diag, torch, res, wall):
                 leapfrogs=float(res.extra["num_steps"].float().mean()),
                 step_size=float(res.extra["step_size"].mean()), wall_s=wall,
                 ess_per_s=min_ess / wall)
+
+
+def _nuts_phases(torch, np, card, dev):
+    """Phases 8-11, the DLGM local-posterior NUTS path; returns the kernels
+    line's entry of its kernel."""
+    from bayesic_tpu_torch.infer.mcmc import (MCMC, IntegratorState,
+                                              StreamKey, nuts_streams)
+    from bayesic_tpu_torch.models import dlgm
+    from bayesic_tpu_torch.ops import fused_nuts as fn
+    from bayesic_tpu_torch.utils import diagnostics as diag
+
+    # -- 8. the NUTS kernel's potential at the NUTS bench shape -----------
+    ncfg = dlgm.Config(**NUTS_SVI, num_chains=NUTS_CHAINS,
+                       num_warmup=NUTS_WARMUP, num_samples=NUTS_SAMPLES,
+                       seed=0, device="cuda")
+    dim = NUTS_ROWS * ncfg.latent_dim
+    dec = dlgm.Decoder(ncfg.latent_dim, ncfg.hidden, ncfg.data_dim,
+                       torch.Generator().manual_seed(0)).to(dev)
+    dparams = {k: p.detach() for k, p in dec.named_parameters()}
+    w = fn.decoder_weights(dparams)
+    xb = torch.as_tensor(dlgm.make_data(ncfg)[:NUTS_ROWS], device=dev)
+    sig = 0.3
+    rng = np.random.default_rng(2)
+    q0 = torch.as_tensor(
+        (0.7 * rng.standard_normal((NUTS_CHAINS, dim))).astype(np.float32),
+        device=dev)
+    pe_k, g_k = fn.fused_nuts_potential(q0, *w, xb, sigma=sig)
+    refs = {"plain": fn.dense_potential(*w, xb, sig)(q0),
+            "autograd": MCMC(
+                dlgm.local_posterior_model(ncfg, dec, dparams, sig, xb),
+                num_warmup=0, num_samples=1, num_chains=NUTS_CHAINS,
+                device=dev)._potential_and_grad(q0)}
+    errs = []
+    for name, (pe_r, g_r) in refs.items():
+        pe_rel = float(((pe_k[:, 0] - pe_r).abs() / pe_r.abs()).max())
+        g_rel = float((g_k - g_r).abs().max() / g_r.abs().max())
+        if pe_rel > 1e-5 or g_rel > 1e-4:
+            raise AssertionError(f"phase 8: potential vs {name}: pe rel err "
+                                 f"{pe_rel}, grad err / max|g| {g_rel}")
+        errs.append(f"vs {name} pe max rel err {pe_rel:.2e}, grad max err "
+                    f"/ max|g| {g_rel:.2e}")
+    print(f"phase 8 potential ok: {NUTS_CHAINS} chains x D {dim}: "
+          + "; ".join(errs), flush=True)
+
+    # -- 9. one whole transition with injected streams -------------------
+    # at the fused path's K, and once at the generic path's max_depth
+    ones = torch.ones(dim, device=dev)
+    nuts_err, lines = 0.0, []
+    for kk, eps in ((NUTS_K, EPS_SMALL), (NUTS_K, EPS_DIVERGE),
+                    (GENERIC_DEPTH, EPS_SMALL)):
+        streams = nuts_streams(StreamKey(9, 2, 0), NUTS_CHAINS, dim, kk, dev)
+        args = (q0, pe_k, g_k, *streams, eps, ones, *w, xb)
+        got = fn.fused_nuts_transition(*args, sigma=sig, max_doublings=kk)
+        want = fn.reference_transition(*args, sigma=sig, max_doublings=kk)
+        torch.cuda.synchronize()
+        same = ((got[4] == want[4]) & (got[5] == want[5])
+                & (got[6] == want[6]))[:, 0]
+        n_diff = NUTS_CHAINS - int(same.sum())
+        if n_diff > 0.01 * NUTS_CHAINS:
+            raise AssertionError(f"phase 9: K {kk} eps {eps}: {n_diff} "
+                                 f"chains differ in depth/steps/divergence")
+        rel = {}
+        for i, name in ((0, "q"), (1, "pe"), (7, "h0")):
+            a, b = got[i][same], want[i][same]
+            err = (a - b).abs()
+            if bool((err > 1e-4 * b.abs() + (1e-4 if i == 0 else 0)).any()):
+                raise AssertionError(f"phase 9: K {kk} eps {eps}: {name} "
+                                     f"max abs err {float(err.max())}")
+            rel[name] = float((err / b.abs().clamp(min=1e-3)).max())
+            if i == 0:
+                nuts_err = max(nuts_err, float(err.max()))
+        pe_chk = fn.fused_nuts_potential(got[0], *w, xb, sigma=sig)[0]
+        inv = float(((got[1] - pe_chk).abs() / pe_chk.abs()).max())
+        if inv > 1e-5:
+            raise AssertionError(f"phase 9: pe' != pe(q'), rel err {inv}")
+        n_div = int(got[4].sum())
+        if eps == EPS_DIVERGE and n_div == 0:
+            raise AssertionError(f"phase 9: no chain diverged at eps {eps}")
+        depth = torch.bincount(got[5][:, 0].long(), minlength=kk + 1)
+        lines.append(
+            f"K {kk} eps {eps}: {n_diff} chains differ, {n_div} diverged, "
+            f"depths {depth.tolist()}, max rel err q {rel['q']:.2e} pe "
+            f"{rel['pe']:.2e} h0 {rel['h0']:.2e}, pe'=pe(q') rel err "
+            f"{inv:.2e}")
+    # the keyed entry, which the main path runs: its in-kernel draws
+    # against nuts_streams on the card, and its transition against the
+    # injected kernel fed those streams, bit for bit, twice
+    key = StreamKey(9, 2, 1)
+    for kk in (NUTS_K, GENERIC_DEPTH):
+        drawn = fn.fused_nuts_draws(key, NUTS_CHAINS, dim, kk, dev)
+        want = nuts_streams(key, NUTS_CHAINS, dim, kk, dev)
+        for name, d_out, s_out in zip(want._fields, drawn, want):
+            if not torch.equal(d_out, s_out):
+                raise AssertionError(
+                    f"phase 9: in-kernel {name} draws at K {kk} differ from "
+                    f"nuts_streams, max abs "
+                    f"{float((d_out - s_out).abs().max())}")
+    kw = dict(sigma=sig, max_doublings=NUTS_K)
+    injected = fn.fused_nuts_transition(
+        q0, pe_k, g_k, *nuts_streams(key, NUTS_CHAINS, dim, NUTS_K, dev),
+        EPS_SMALL, ones, *w, xb, **kw)
+    for call in range(2):
+        keyed = fn.fused_nuts_transition_keyed(q0, pe_k, g_k, key, EPS_SMALL,
+                                               ones, *w, xb, **kw)
+        for i, (k_out, i_out) in enumerate(zip(keyed, injected)):
+            if not torch.equal(k_out, i_out):
+                raise AssertionError(
+                    f"phase 9: keyed call {call + 1}, output {i} differs "
+                    f"from the injected kernel's on nuts_streams, max abs "
+                    f"{float((k_out - i_out).abs().max())}")
+    lines.append(f"in-kernel draws = nuts_streams bit for bit (K {NUTS_K}, "
+                 f"{GENERIC_DEPTH}); keyed = injected bit for bit, twice")
+    print(f"phase 9 transition ok ({NUTS_CHAINS} chains): "
+          + "; ".join(lines), flush=True)
+
+    # -- 10. NUTS main path through the user's entry points --------------
+    out = dlgm.run_svi(dlgm.Config(**NUTS_SVI, seed=0, device="cuda"))
+    lp = (out["decoder"], out["decoder_params"], out["sigma_x"],
+          out["x"][:NUTS_ROWS])
+    fn.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mcmc_f, res_f = dlgm.local_posterior_mcmc_fused(
+        ncfg, *lp, max_doublings=NUTS_K, run_seed=2)
+    torch.cuda.synchronize()
+    wall_f = time.perf_counter() - t
+    nuts_launches = fn.LAUNCHES
+    if nuts_launches < NUTS_WARMUP + NUTS_SAMPLES:
+        raise AssertionError(f"phase 10: the fused path launched the kernel "
+                             f"{nuts_launches} times")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    # another seed: with the same one both paths would draw the same
+    # streams and, to float rounding, run the same chains
+    mcmc_g, res_g = dlgm.local_posterior_mcmc(ncfg, *lp, 3)
+    torch.cuda.synchronize()
+    wall_g = time.perf_counter() - t
+    paths = {"local_posterior_mcmc_fused": _posterior(diag, torch, res_f,
+                                                      wall_f),
+             "local_posterior_mcmc": _posterior(diag, torch, res_g, wall_g)}
+    for name, st in paths.items():
+        if not st["max_rhat"] < 1.01:
+            raise AssertionError(f"phase 10: {name} max split-R-hat "
+                                 f"{st['max_rhat']}")
+    # the two paths' per-coordinate mean and variance of z agree within
+    # 5 x their combined Monte-Carlo error (the variance's from the MCSE
+    # of the squared deviations); 1e-6 covers float rounding only
+    qf, qg = res_f.unconstrained, res_g.unconstrained
+    mf, mg = qf.mean((0, 1)), qg.mean((0, 1))
+    sqf, sqg = (qf - mf) ** 2, (qg - mg) ** 2
+    ratios = {}
+    for name, gap, bound in (
+            ("mean", mf - mg, diag.mcse(qf) + diag.mcse(qg)),
+            ("var", sqf.mean((0, 1)) - sqg.mean((0, 1)),
+             diag.mcse(sqf) + diag.mcse(sqg))):
+        ratio = gap.abs() / (5 * bound + 1e-6)
+        if bool((ratio > 1).any()):
+            raise AssertionError(f"phase 10: posterior {name}s differ, max "
+                                 f"|gap| / bound {float(ratio.max())}")
+        ratios[name] = float(ratio.max())
+    print(f"phase 10 NUTS main path ok [{card}]: decoder sigma_x "
+          f"{out['sigma_x']:.4f}; {NUTS_CHAINS} chains x {NUTS_ROWS} rows, "
+          f"{NUTS_WARMUP} warmup + {NUTS_SAMPLES} samples; "
+          + "; ".join(
+              f"{k}: min ESS {v['min_ess']:.1f}, max R-hat "
+              f"{v['max_rhat']:.4f}, divergences {v['divergences']}, "
+              f"wall {v['wall_s']:.2f} s, min-ESS/s {v['ess_per_s']:.1f}, "
+              f"{v['leapfrogs']:.2f} leapfrogs/transition, step size "
+              f"{v['step_size']:.4f}" for k, v in paths.items())
+          + f"; max |gap| / 5 MCSE: mean {ratios['mean']:.3f}, variance "
+          f"{ratios['var']:.3f}; kernel launches {nuts_launches}", flush=True)
+
+    # -- 11. NUTS times: one transition, then traces of both paths -------
+    def start(mcmc, res):
+        q = res.unconstrained[:, -1].contiguous()
+        pe, g = mcmc._potential_and_grad(q)
+        return IntegratorState(q, torch.zeros_like(q), pe, g)
+
+    # device time per call of the keyed entry (the main path's) and of the
+    # injected one; the plain version on the injected streams
+    st = start(mcmc_f, res_f)
+    step, inv_mass = res_f.extra["step_size"], res_f.extra["inv_mass"]
+    wf = fn.decoder_weights(lp[1])
+    key = StreamKey(11, 2, 0)
+    args = (st.q, st.pe[:, None], st.grad,
+            *nuts_streams(key, NUTS_CHAINS, dim, NUTS_K, dev), step,
+            inv_mass, *wf, lp[3])
+    kargs = (st.q, st.pe[:, None], st.grad, key, step, inv_mass, *wf, lp[3])
+    kw = dict(sigma=lp[2], max_doublings=NUTS_K)
+    nuts_out = fn.fused_nuts_transition_keyed(*kargs, **kw)
+    fn.fused_nuts_transition(*args, **kw)
+    fn.reference_transition(*args, **kw)
+    nuts_ms = _device_ms(
+        torch, lambda: fn.fused_nuts_transition_keyed(*kargs, **kw), 20)
+    inj_ms = _device_ms(
+        torch, lambda: fn.fused_nuts_transition(*args, **kw), 20)
+    nuts_plain_ms, _ = _cuda_ms(torch, lambda: fn.reference_transition(
+        *args, **kw), 3)
+
+    def sample_loop(mcmc, res, n):
+        s0 = start(mcmc, res)
+
+        def run():
+            s = s0
+            for i in range(n):
+                s, _ = mcmc._sample_step(99, s, res.extra["step_size"],
+                                         res.extra["inv_mass"], i)
+        return run
+
+    traces = {
+        "fused NUTS sampling": _trace(
+            torch, sample_loop(mcmc_f, res_f, TRACE_NUTS_FUSED),
+            TRACE_NUTS_FUSED, "transition"),
+        "generic NUTS sampling": _trace(
+            torch, sample_loop(mcmc_g, res_g, TRACE_NUTS_GENERIC),
+            TRACE_NUTS_GENERIC, "transition"),
+        # the user's whole call, warmup adaptation included
+        "whole local_posterior_mcmc_fused run": _trace(
+            torch, lambda: dlgm.local_posterior_mcmc_fused(
+                ncfg, *lp, max_doublings=NUTS_K, run_seed=4),
+            NUTS_WARMUP + NUTS_SAMPLES, "transition"),
+        # what the host drew per transition before the draws moved into
+        # the kernel
+        "nuts_streams alone": _trace(torch, lambda: [
+            nuts_streams(StreamKey(12, 2, i), NUTS_CHAINS, dim, NUTS_K, dev)
+            for i in range(TRACE_NUTS_FUSED)], TRACE_NUTS_FUSED, "call"),
+    }
+    print(f"phase 11 NUTS times ok [{card}]: one transition at the bench "
+          f"state ({float(nuts_out[6].mean()):.2f} leapfrogs per chain): "
+          f"kernel, keyed {nuts_ms:.4f} ms, injected {inj_ms:.4f} ms; "
+          f"plain reference_transition {nuts_plain_ms:.4f} ms; kernel "
+          f"time x launches over phase 10's fused wall "
+          f"{100 * nuts_ms * nuts_launches / (1e3 * wall_f):.1f}%; "
+          + "; ".join(f"{k} {v}" for k, v in traces.items()), flush=True)
+
+    # the kernel's other instances beside the bench's widths, each from a
+    # random start at EPS_SMALL (deeper, uneven trees: not the bench
+    # state): the dlgm smoke config's widths at 64 rows (`guarded`) and a
+    # decoder twice as wide (`staged`)
+    widths = []
+    for lat_, hid_, dat_ in ((8, 64, 32), (3, 16, 8), (8, 128, 64)):
+        dec_ = dlgm.Decoder(lat_, hid_, dat_,
+                            torch.Generator().manual_seed(0)).to(dev)
+        w_ = fn.decoder_weights({k: p.detach()
+                                 for k, p in dec_.named_parameters()})
+        x_ = torch.as_tensor(rng.normal(size=(NUTS_ROWS, dat_))
+                             .astype(np.float32), device=dev)
+        q_ = torch.as_tensor((0.7 * rng.standard_normal(
+            (NUTS_CHAINS, NUTS_ROWS * lat_))).astype(np.float32), device=dev)
+        pe_, g_ = fn.fused_nuts_potential(q_, *w_, x_, sigma=sig)
+        a_ = (q_, pe_, g_, key, torch.full((1,), EPS_SMALL, device=dev),
+              torch.ones(NUTS_ROWS * lat_, device=dev), *w_, x_)
+        kw_ = dict(sigma=sig, max_doublings=NUTS_K)
+        o_ = fn.fused_nuts_transition_keyed(*a_, **kw_)
+        ms_ = _device_ms(torch, lambda: fn.fused_nuts_transition_keyed(
+            *a_, **kw_), 10)
+        widths.append(f"latent {lat_}, hidden {hid_}, data {dat_}: "
+                      f"{ms_:.4f} ms ({float(o_[6].mean()):.2f} leapfrogs)")
+    print(f"phase 11 kernel at other widths, random start, eps {EPS_SMALL} "
+          f"[{card}]: " + "; ".join(widths), flush=True)
+
+    # bounds.  Per chain-leaf the plain version does three decoder
+    # forwards' FLOP (benchmarks/roofline.py), at the FP32 rate; the kernel
+    # runs the four products (z W1, a W2, r W2^T, da W1^T: two forwards'
+    # FLOP) as three TF32 passes on the tensor cores, the bound of the units
+    # it uses, which the kernels line carries.  Over the leaves this
+    # transition took; bytes: every input read once, every output written
+    # once (the keyed entry reads no streams).
+    lat, hid, dat = ncfg.latent_dim, ncfg.hidden, ncfg.data_dim
+    leaves = float(nuts_out[6].sum())
+    fwd = 2 * NUTS_ROWS * (lat * hid + hid * dat)
+    nuts_bytes = 4 * (NUTS_CHAINS * (4 * dim + 7) + dim
+                      + sum(t.numel() for t in wf) + NUTS_ROWS * dat)
+    fp32_bound = _bound(leaves * 3 * fwd, nuts_bytes)
+    tc_bound = _bound(leaves * 3 * 2 * fwd, nuts_bytes, PEAK_TF32)
+    print(f"phase 11 bounds: FP32 {fp32_bound[0]:.4f} ms ({fp32_bound[1]}), "
+          f"TF32 tensor cores x3 {tc_bound[0]:.4f} ms ({tc_bound[1]}); "
+          f"kernel at {100 * tc_bound[0] / nuts_ms:.1f}% of the latter",
+          flush=True)
+    return _record("fused_nuts_transition", "fused_nuts.cu",
+                   "bayesic_tpu/ops/fused_nuts.py:573", nuts_launches,
+                   nuts_err, nuts_ms, nuts_plain_ms, tc_bound)
 
 
 def _hier_phases(torch, np, card, dev):
@@ -521,6 +813,19 @@ def _hier_phases(torch, np, card, dev):
             f"{depth.tolist()}, max rel err q {rel['q']:.2e} pe "
             f"{rel['pe']:.2e} h0 {rel['h0']:.2e}, pe'=pe(q') rel err "
             f"{inv:.2e}")
+    # the keyed entry (the main path's) against the injected kernel fed
+    # nuts_streams on the card, bit for bit
+    key = StreamKey(14, 2, 1)
+    s = nuts_streams(key, HIER_CHAINS, p, HIER_K, dev)
+    injected = fnh.fused_hier_nuts_transition(
+        q0, pe_k, g_k, *s, HIER_EPS_SMALL, ones, data, max_doublings=HIER_K)
+    keyed = fnh.fused_hier_nuts_transition_keyed(
+        q0, pe_k, g_k, key, HIER_EPS_SMALL, ones, data, max_doublings=HIER_K)
+    for i, (k_out, i_out) in enumerate(zip(keyed, injected)):
+        if not torch.equal(k_out, i_out):
+            raise AssertionError(f"phase 14: keyed output {i} differs from "
+                                 f"the injected kernel's on nuts_streams")
+    lines.append("keyed = injected bit for bit")
     print(f"phase 14 hier NUTS kernel ok ({HIER_CHAINS} chains x D {p}, "
           f"N {n}): " + "; ".join(errs + lines), flush=True)
 
@@ -584,14 +889,21 @@ def _hier_phases(torch, np, card, dev):
           f"launches {nuts_launches}", flush=True)
 
     # -- 16. times: kernels against plain versions, traces ----------------
+    # device time per call of the keyed entry (the main path's) and of the
+    # injected one; the plain version on the injected streams
     q = res_f.unconstrained[:, -1].contiguous()
     pe, g = fnh.fused_hier_nuts_potential(q, data)
-    args = (q, pe, g, *nuts_streams(StreamKey(16, 2, 0), HIER_CHAINS, p,
-                                    HIER_K, dev),
+    key = StreamKey(16, 2, 0)
+    args = (q, pe, g, *nuts_streams(key, HIER_CHAINS, p, HIER_K, dev),
             res_f.extra["step_size"], res_f.extra["inv_mass"], data)
+    kargs = (q, pe, g, key, *args[7:])
+    tr_out = fnh.fused_hier_nuts_transition_keyed(*kargs,
+                                                  max_doublings=HIER_K)
     fnh.fused_hier_nuts_transition(*args, max_doublings=HIER_K)
     fnh.reference_transition(*args, max_doublings=HIER_K)
-    tr_ms, tr_out = _cuda_ms(torch, lambda: fnh.fused_hier_nuts_transition(
+    tr_ms = _device_ms(torch, lambda: fnh.fused_hier_nuts_transition_keyed(
+        *kargs, max_doublings=HIER_K), 20)
+    tr_inj_ms = _device_ms(torch, lambda: fnh.fused_hier_nuts_transition(
         *args, max_doublings=HIER_K), 20)
     tr_plain_ms, _ = _cuda_ms(torch, lambda: fnh.reference_transition(
         *args, max_doublings=HIER_K), 3)
@@ -624,9 +936,9 @@ def _hier_phases(torch, np, card, dev):
     }
     leaves = float(tr_out[6].sum())
     print(f"phase 16 hier times ok [{card}]: one transition at the adapted "
-          f"state ({leaves / HIER_CHAINS:.2f} leapfrogs per chain): kernel "
-          f"{tr_ms:.4f} ms, plain reference_transition {tr_plain_ms:.4f} "
-          f"ms; fused trainer {hier_step_ms:.5f} ms/step, plain "
+          f"state ({leaves / HIER_CHAINS:.2f} leapfrogs per chain): kernel, "
+          f"keyed {tr_ms:.4f} ms, injected {tr_inj_ms:.4f} ms; plain "
+          f"reference_transition {tr_plain_ms:.4f} ms; fused trainer {hier_step_ms:.5f} ms/step, plain "
           f"reference_train {plain_step_ms:.4f} ms/step; "
           + "; ".join(f"{k} {v}" for k, v in traces.items()), flush=True)
 
@@ -638,14 +950,14 @@ def _hier_phases(torch, np, card, dev):
     # once per call, the parameters and both moment pairs read and written
     # once, the losses written, over the call's steps.  NUTS transition:
     # N rows per chain-leaf over the leaves this transition took; bytes:
-    # every input read once, every output written once.
+    # every input read once, every output written once (the keyed entry
+    # reads no streams).
     row_ops = 4 * f + 14
     svi_bound = _bound(b * row_ops + 40 * p,
                        4 * (n * (f + 2) + 12 * p + steps) / steps)
     nuts_bound = _bound(
         leaves * (n * row_ops + 10 * p),
-        4 * (n * (f + 2) + j + 1 + p
-             + HIER_CHAINS * (5 * p + 2 * HIER_K + (1 << HIER_K) + 7)))
+        4 * (n * (f + 2) + j + 1 + p + HIER_CHAINS * (4 * p + 7)))
     return [
         _record("fused_hier_train", "fused_hier.cu",
                 "bayesic_tpu/ops/fused_hier.py:185", svi_launches, svi_err,
@@ -1480,217 +1792,22 @@ def main():
     print(f"phase 7 trace ok [{card}]: "
           + "; ".join(f"{k} {v}" for k, v in traces.items()), flush=True)
 
-    # -- 8. the NUTS kernel's potential at the NUTS bench shape -----------
-    from bayesic_tpu_torch.infer.mcmc import (MCMC, IntegratorState,
-                                              StreamKey, nuts_streams)
-    from bayesic_tpu_torch.ops import fused_nuts as fn
-    from bayesic_tpu_torch.utils import diagnostics as diag
-
-    ncfg = dlgm.Config(**NUTS_SVI, num_chains=NUTS_CHAINS,
-                       num_warmup=NUTS_WARMUP, num_samples=NUTS_SAMPLES,
-                       seed=0, device="cuda")
-    dim = NUTS_ROWS * ncfg.latent_dim
-    dec = dlgm.Decoder(ncfg.latent_dim, ncfg.hidden, ncfg.data_dim,
-                       torch.Generator().manual_seed(0)).to(dev)
-    dparams = {k: p.detach() for k, p in dec.named_parameters()}
-    w = fn.decoder_weights(dparams)
-    xb = torch.as_tensor(dlgm.make_data(ncfg)[:NUTS_ROWS], device=dev)
-    sig = 0.3
-    rng = np.random.default_rng(2)
-    q0 = torch.as_tensor(
-        (0.7 * rng.standard_normal((NUTS_CHAINS, dim))).astype(np.float32),
-        device=dev)
-    pe_k, g_k = fn.fused_nuts_potential(q0, *w, xb, sigma=sig)
-    refs = {"plain": fn.dense_potential(*w, xb, sig)(q0),
-            "autograd": MCMC(
-                dlgm.local_posterior_model(ncfg, dec, dparams, sig, xb),
-                num_warmup=0, num_samples=1, num_chains=NUTS_CHAINS,
-                device=dev)._potential_and_grad(q0)}
-    errs = []
-    for name, (pe_r, g_r) in refs.items():
-        pe_rel = float(((pe_k[:, 0] - pe_r).abs() / pe_r.abs()).max())
-        g_rel = float((g_k - g_r).abs().max() / g_r.abs().max())
-        if pe_rel > 1e-5 or g_rel > 1e-4:
-            raise AssertionError(f"phase 8: potential vs {name}: pe rel err "
-                                 f"{pe_rel}, grad err / max|g| {g_rel}")
-        errs.append(f"vs {name} pe max rel err {pe_rel:.2e}, grad max err "
-                    f"/ max|g| {g_rel:.2e}")
-    print(f"phase 8 potential ok: {NUTS_CHAINS} chains x D {dim}: "
-          + "; ".join(errs), flush=True)
-
-    # -- 9. one whole transition with injected streams -------------------
-    # at the fused path's K, and once at the generic path's max_depth
-    ones = torch.ones(dim, device=dev)
-    nuts_err, lines = 0.0, []
-    for kk, eps in ((NUTS_K, EPS_SMALL), (NUTS_K, EPS_DIVERGE),
-                    (GENERIC_DEPTH, EPS_SMALL)):
-        streams = nuts_streams(StreamKey(9, 2, 0), NUTS_CHAINS, dim, kk, dev)
-        args = (q0, pe_k, g_k, *streams, eps, ones, *w, xb)
-        got = fn.fused_nuts_transition(*args, sigma=sig, max_doublings=kk)
-        want = fn.reference_transition(*args, sigma=sig, max_doublings=kk)
-        torch.cuda.synchronize()
-        same = ((got[4] == want[4]) & (got[5] == want[5])
-                & (got[6] == want[6]))[:, 0]
-        n_diff = NUTS_CHAINS - int(same.sum())
-        if n_diff > 0.01 * NUTS_CHAINS:
-            raise AssertionError(f"phase 9: K {kk} eps {eps}: {n_diff} "
-                                 f"chains differ in depth/steps/divergence")
-        rel = {}
-        for i, name in ((0, "q"), (1, "pe"), (7, "h0")):
-            a, b = got[i][same], want[i][same]
-            err = (a - b).abs()
-            if bool((err > 1e-4 * b.abs() + (1e-4 if i == 0 else 0)).any()):
-                raise AssertionError(f"phase 9: K {kk} eps {eps}: {name} "
-                                     f"max abs err {float(err.max())}")
-            rel[name] = float((err / b.abs().clamp(min=1e-3)).max())
-            if i == 0:
-                nuts_err = max(nuts_err, float(err.max()))
-        pe_chk = fn.fused_nuts_potential(got[0], *w, xb, sigma=sig)[0]
-        inv = float(((got[1] - pe_chk).abs() / pe_chk.abs()).max())
-        if inv > 1e-5:
-            raise AssertionError(f"phase 9: pe' != pe(q'), rel err {inv}")
-        n_div = int(got[4].sum())
-        if eps == EPS_DIVERGE and n_div == 0:
-            raise AssertionError(f"phase 9: no chain diverged at eps {eps}")
-        depth = torch.bincount(got[5][:, 0].long(), minlength=kk + 1)
-        lines.append(
-            f"K {kk} eps {eps}: {n_diff} chains differ, {n_div} diverged, "
-            f"depths {depth.tolist()}, max rel err q {rel['q']:.2e} pe "
-            f"{rel['pe']:.2e} h0 {rel['h0']:.2e}, pe'=pe(q') rel err "
-            f"{inv:.2e}")
-    print(f"phase 9 transition ok ({NUTS_CHAINS} chains): "
-          + "; ".join(lines), flush=True)
-
-    # -- 10. NUTS main path through the user's entry points --------------
-    out = dlgm.run_svi(dlgm.Config(**NUTS_SVI, seed=0, device="cuda"))
-    lp = (out["decoder"], out["decoder_params"], out["sigma_x"],
-          out["x"][:NUTS_ROWS])
-    fn.LAUNCHES = 0
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    mcmc_f, res_f = dlgm.local_posterior_mcmc_fused(
-        ncfg, *lp, max_doublings=NUTS_K, run_seed=2)
-    torch.cuda.synchronize()
-    wall_f = time.perf_counter() - t
-    nuts_launches = fn.LAUNCHES
-    if nuts_launches < NUTS_WARMUP + NUTS_SAMPLES:
-        raise AssertionError(f"phase 10: the fused path launched the kernel "
-                             f"{nuts_launches} times")
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    # another seed: with the same one both paths would draw the same
-    # streams and, to float rounding, run the same chains
-    mcmc_g, res_g = dlgm.local_posterior_mcmc(ncfg, *lp, 3)
-    torch.cuda.synchronize()
-    wall_g = time.perf_counter() - t
-    paths = {"local_posterior_mcmc_fused": _posterior(diag, torch, res_f,
-                                                      wall_f),
-             "local_posterior_mcmc": _posterior(diag, torch, res_g, wall_g)}
-    for name, st in paths.items():
-        if not st["max_rhat"] < 1.01:
-            raise AssertionError(f"phase 10: {name} max split-R-hat "
-                                 f"{st['max_rhat']}")
-    # the two paths' per-coordinate mean and variance of z agree within
-    # 5 x their combined Monte-Carlo error (the variance's from the MCSE
-    # of the squared deviations); 1e-6 covers float rounding only
-    qf, qg = res_f.unconstrained, res_g.unconstrained
-    mf, mg = qf.mean((0, 1)), qg.mean((0, 1))
-    sqf, sqg = (qf - mf) ** 2, (qg - mg) ** 2
-    ratios = {}
-    for name, gap, bound in (
-            ("mean", mf - mg, diag.mcse(qf) + diag.mcse(qg)),
-            ("var", sqf.mean((0, 1)) - sqg.mean((0, 1)),
-             diag.mcse(sqf) + diag.mcse(sqg))):
-        ratio = gap.abs() / (5 * bound + 1e-6)
-        if bool((ratio > 1).any()):
-            raise AssertionError(f"phase 10: posterior {name}s differ, max "
-                                 f"|gap| / bound {float(ratio.max())}")
-        ratios[name] = float(ratio.max())
-    print(f"phase 10 NUTS main path ok [{card}]: decoder sigma_x "
-          f"{out['sigma_x']:.4f}; {NUTS_CHAINS} chains x {NUTS_ROWS} rows, "
-          f"{NUTS_WARMUP} warmup + {NUTS_SAMPLES} samples; "
-          + "; ".join(
-              f"{k}: min ESS {v['min_ess']:.1f}, max R-hat "
-              f"{v['max_rhat']:.4f}, divergences {v['divergences']}, "
-              f"wall {v['wall_s']:.2f} s, min-ESS/s {v['ess_per_s']:.1f}, "
-              f"{v['leapfrogs']:.2f} leapfrogs/transition, step size "
-              f"{v['step_size']:.4f}" for k, v in paths.items())
-          + f"; max |gap| / 5 MCSE: mean {ratios['mean']:.3f}, variance "
-          f"{ratios['var']:.3f}; kernel launches {nuts_launches}", flush=True)
-
-    # -- 11. NUTS times: one transition, then traces of both paths -------
-    def start(mcmc, res):
-        q = res.unconstrained[:, -1].contiguous()
-        pe, g = mcmc._potential_and_grad(q)
-        return IntegratorState(q, torch.zeros_like(q), pe, g)
-
-    st = start(mcmc_f, res_f)
-    step, inv_mass = res_f.extra["step_size"], res_f.extra["inv_mass"]
-    wf = fn.decoder_weights(lp[1])
-    args = (st.q, st.pe[:, None], st.grad,
-            *nuts_streams(StreamKey(11, 2, 0), NUTS_CHAINS, dim, NUTS_K,
-                          dev), step, inv_mass, *wf, lp[3])
-    kw = dict(sigma=lp[2], max_doublings=NUTS_K)
-    fn.fused_nuts_transition(*args, **kw)
-    fn.reference_transition(*args, **kw)
-    nuts_ms, nuts_out = _cuda_ms(
-        torch, lambda: fn.fused_nuts_transition(*args, **kw), 20)
-    nuts_plain_ms, _ = _cuda_ms(torch, lambda: fn.reference_transition(
-        *args, **kw), 3)
-
-    def sample_loop(mcmc, res, n):
-        s0 = start(mcmc, res)
-
-        def run():
-            s = s0
-            for i in range(n):
-                s, _ = mcmc._sample_step(99, s, res.extra["step_size"],
-                                         res.extra["inv_mass"], i)
-        return run
-
-    traces = {
-        "fused NUTS sampling": _trace(
-            torch, sample_loop(mcmc_f, res_f, TRACE_NUTS_FUSED),
-            TRACE_NUTS_FUSED, "transition"),
-        "generic NUTS sampling": _trace(
-            torch, sample_loop(mcmc_g, res_g, TRACE_NUTS_GENERIC),
-            TRACE_NUTS_GENERIC, "transition"),
-        # the share of the fused path's launches that draws the streams
-        "nuts_streams alone": _trace(torch, lambda: [
-            nuts_streams(StreamKey(12, 2, i), NUTS_CHAINS, dim, NUTS_K, dev)
-            for i in range(TRACE_NUTS_FUSED)], TRACE_NUTS_FUSED, "call"),
-    }
-    print(f"phase 11 NUTS times ok [{card}]: one transition at the bench "
-          f"state: kernel {nuts_ms:.4f} ms, plain reference_transition "
-          f"{nuts_plain_ms:.4f} ms; "
-          + "; ".join(f"{k} {v}" for k, v in traces.items()), flush=True)
-
-    # bounds.  SVI step: encoder, reparameterisation and decoder forward
+    # bound.  SVI step: encoder, reparameterisation and decoder forward
     # and a backward of about twice that (benchmarks/roofline.py
     # dlgm_svi); bytes: the data set read once per call and the
     # parameters, both Adam moments and the losses read and written once,
-    # over the call's steps.  NUTS transition: three decoder forwards per
-    # chain-leaf, over the leaves this transition took; bytes: every input
-    # read once, every output written once.
+    # over the call's steps.
     n_, b_ = cfg.num_data, cfg.batch_size
     d_, h_, z_ = cfg.data_dim, cfg.hidden, cfg.latent_dim
     svi_ops = 3 * 2 * b_ * (d_ * h_ + 2 * h_ * z_ + z_ * h_ + h_ * d_)
     n_par = sum(int(np.prod(s)) for s in fv.leaf_shapes(fv.FusedVAEDims(
         n_, d_, h_, z_, b_)).values())
     svi_bytes = 4 * (n_ * d_ + 6 * n_par + f_steps) / f_steps
-    lat, hid, dat = ncfg.latent_dim, ncfg.hidden, ncfg.data_dim
-    leaves = float(nuts_out[6].sum())
-    nuts_ops = leaves * 3 * 2 * NUTS_ROWS * (lat * hid + hid * dat)
-    nuts_bytes = 4 * (NUTS_CHAINS * (5 * dim + 2 * NUTS_K + (1 << NUTS_K)
-                                     + 7) + dim + sum(t.numel() for t in wf)
-                      + NUTS_ROWS * dat)
     records = [
         _record("fused_vae_train", "fused_vae.cu",
                 "bayesic_tpu/ops/fused_vae.py:199", launches, max_abs_err,
                 kernel_step_ms, plain_step_ms, _bound(svi_ops, svi_bytes)),
-        _record("fused_nuts_transition", "fused_nuts.cu",
-                "bayesic_tpu/ops/fused_nuts.py:573", nuts_launches, nuts_err,
-                nuts_ms, nuts_plain_ms, _bound(nuts_ops, nuts_bytes)),
+        _nuts_phases(torch, np, card, dev),
     ]
     records += _hier_phases(torch, np, card, dev)
     records += _gmm_phases(torch, np, card, dev)

@@ -12,8 +12,10 @@ transition: equal depth, num_steps and diverging, q' / pe' / h0 rtol 1e-5
 (q' with atol 1e-5 for coordinates near zero); the posterior of the two
 DLGM entry points as in ``tests/test_fused_nuts.py``.
 
-The kernel itself runs only on a CUDA card: ``test_kernel_matches_plain``
-is marked ``gpu`` and skips here.
+The kernel computes the potential's products on the tensor cores in TF32
+with both operands split (three passes); ``test_operand_split_precision``
+emulates that arithmetic on the CPU at the bench widths.  The kernel itself
+runs only on a CUDA card: the tests marked ``gpu`` skip here.
 """
 
 import dataclasses
@@ -269,17 +271,131 @@ def test_dlgm_run_smoke_reports_nuts():
     assert 0 <= out["nuts_divergences"] <= 8 * 100
 
 
+def _tf32(x):
+    """x rounded to TF32 (10 stored mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_mm(x, y, acc, split):
+    """``acc + x @ y`` with the kernel's operands: split (lo hi + hi lo + hi
+    hi, float32 sums) or, without ``split``, one TF32 pass."""
+    xh, yh = _tf32(x), _tf32(y)
+    if split:
+        xl, yl = _tf32(x - xh), _tf32(y - yh)
+        acc = acc + xl @ yh
+        acc = acc + xh @ yl
+    return acc + xh @ yh
+
+
+def _emulated_potential(w1, b1, w2, b2, x, sigma, q, grad_split=True):
+    """The kernel's potential on the CPU: z W1 and a W2 always split (their
+    sums enter pe), r W2^T and da W1^T split or one TF32 pass."""
+    nb, data = x.shape
+    latent = w1.shape[0]
+    inv_s2, const = tfn._constants(nb, latent, data, sigma)
+    c = q.shape[0]
+    z = q.reshape(c, nb, latent)
+    a = torch.tanh(_split_mm(z, w1, b1, True))
+    res = _split_mm(a, w2, b2, True) - x
+    pe = (0.5 * torch.sum(q * q, 1)
+          + (0.5 * inv_s2) * torch.sum(res * res, (1, 2)) + const)
+    da = _split_mm(res * inv_s2, w2.T, 0.0, grad_split) * (1.0 - a * a)
+    return pe, q + _split_mm(da, w1.T, 0.0, grad_split).reshape(c, -1)
+
+
+def _bench_potential_inputs(seed, chains=64):
+    """A decoder at the NUTS bench widths (64 rows, latent 8, hidden 64,
+    data 32) with the model's init, a data batch and chain states."""
+    dec = tdlgm.Decoder(8, 64, 32, torch.Generator().manual_seed(seed))
+    w = tfn.decoder_weights({k: p.detach() for k, p in dec.named_parameters()})
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.normal(size=(64, 32)).astype(np.float32))
+    q = torch.as_tensor((0.7 * rng.normal(size=(chains, 512)))
+                        .astype(np.float32))
+    return w, x, q
+
+
+@pytest.mark.parametrize("variant,within", [("split", True),
+                                            ("tf32", False)])
+def test_operand_split_precision(variant, within):
+    """The kernel's operand handling emulated at the bench widths against
+    the plain version: the three-pass split holds phase 8's limits (pe rel
+    1e-5, grad 1e-4 of max|g|; ~2e-7 and ~5e-7 here); one TF32 pass on the
+    gradient products does not hold the gradient's (~4e-4)."""
+    for seed in (0, 1):
+        w, x, q = _bench_potential_inputs(seed)
+        pe_r, g_r = tfn.dense_potential(*w, x, 0.3)(q)
+        pe, g = _emulated_potential(*w, x, 0.3, q, variant == "split")
+        pe_rel = float(((pe - pe_r).abs() / pe_r.abs()).max())
+        g_rel = float((g - g_r).abs().max() / g_r.abs().max())
+        assert pe_rel <= 1e-5, pe_rel
+        assert (g_rel <= 1e-4) == within, g_rel
+
+
+def _ffma_design_takes(nb, latent, hidden, data, kk):
+    """Whether the earlier fp32 FFMA design of the kernel (one block per
+    chain, the decoder, its activations and the tree in shared memory)
+    took the shape: its shared-memory floats against the 227 KB a block
+    may hold."""
+    pot = (latent * (hidden + 1) + hidden + hidden * (data + 1) + data
+           + nb * data + nb * (hidden + 1) + nb * data)
+    tree = (14 + 2 * kk) * nb * latent + 8 * (2 + 2 * tfn.MAX_DOUBLINGS)
+    return 4 * (pot + tree) <= 232448
+
+
+def test_kernel_takes_every_shape_of_the_ffma_design():
+    """Every shape the fp32 design took over a grid of widths, depths and
+    row counts (latent dividing 128, as the JAX kernel needs, and odd ones)
+    is within the tensor-core kernel's 16 element groups a lane; the rest
+    of its shapes fit by moving the packed weights or the tree's vectors to
+    device memory, which the kernel decides on the card."""
+    taken = 0
+    for latent in (1, 2, 3, 4, 8, 16, 32, 64, 128):
+        for nb in (1, 4, 16, 64, 100, 128, 160, 256, 300, 512, 1024, 2048,
+                   3000, 4096):
+            for hidden in (8, 16, 64, 128, 256):
+                for data in (4, 8, 32, 64, 128):
+                    for kk in (1, 6, 10, 12):
+                        if _ffma_design_takes(nb, latent, hidden, data, kk):
+                            taken += 1
+                            assert tfn.element_groups(nb, latent) \
+                                <= tfn.MAX_GROUPS, (nb, latent)
+    assert taken > 1000
+
+
+@pytest.mark.gpu
+def test_kernel_potential_at_bench_widths():
+    """On a CUDA card: the kernel's potential at the bench widths against
+    the plain version with phase 8's limits, and against the CPU emulation
+    of its own arithmetic much closer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    w, x, q = _bench_potential_inputs(2, chains=256)
+    pe, g = tfn.fused_nuts_potential(q.to(dev), *(t.to(dev) for t in w),
+                                     x.to(dev), sigma=0.3)
+    pe, g = pe[:, 0].cpu(), g.cpu()
+    for want, pe_lim, g_lim in (
+            (tfn.dense_potential(*w, x, 0.3)(q), 1e-5, 1e-4),
+            (_emulated_potential(*w, x, 0.3, q), 1e-6, 1e-5)):
+        pe_rel = float(((pe - want[0]).abs() / want[0].abs()).max())
+        g_rel = float((g - want[1]).abs().max() / want[1].abs().max())
+        assert pe_rel <= pe_lim and g_rel <= g_lim, (pe_rel, g_rel)
+
+
 @pytest.mark.gpu
 def test_kernel_matches_plain():
     """On a CUDA card: the kernel's potential and one transition equal the
     plain version's on the card (discrete outputs on every chain, values to
-    rtol 1e-4), at the test shape and at K = 10."""
+    rtol 1e-4), at the test shape and at K = 6 and 10."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     tw = [a.to(dev) for a in _t(*_weights(11))]
-    for kk in (K, 10):
+    for kk in (K, 6, 10):
         q, mom, sign, lua, lul = _t(*_streams(12, kk=kk))
         q = q.to(dev)
         pe, g = tfn.fused_nuts_potential(q, *tw, sigma=SIGMA)
@@ -303,3 +419,62 @@ def test_kernel_matches_plain():
     with pytest.raises(ValueError, match="inv_mass"):
         tfn.fused_nuts_transition(*args[:8], torch.ones(2, D, device=dev),
                                   *tw, sigma=SIGMA, max_doublings=10)
+
+
+# (nb, latent, hidden, data, K): the dlgm smoke config's widths; chunked
+# hidden and data, whole chunks and partial; two row blocks a warp; two,
+# four and eight latent tiles; packed weights too large for shared memory;
+# tree vectors too large for it
+WIDE_SHAPES = [(2, 3, 16, 8, 6), (64, 8, 128, 64, 6), (64, 8, 100, 40, 6),
+               (300, 8, 64, 32, 6), (16, 16, 64, 32, 6), (32, 32, 64, 32, 6),
+               (16, 64, 32, 16, 6), (64, 8, 512, 256, 6),
+               (16, 128, 64, 32, 10)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_kernel_matches_plain_at_other_widths(shape):
+    """On a CUDA card: the kernel at widths other than the bench's (tile
+    counts from the shape, chunked passes, several element groups a lane,
+    packed weights or tree vectors in device memory) against the plain
+    version: the potential to pe rel 1e-5 and grad 1e-4 of max|g|, one
+    transition's discrete outputs equal on every chain and its values to
+    1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    nb, latent, hidden, data, kk = shape
+    rng = np.random.default_rng(nb + latent + hidden + data)
+    w1 = rng.normal(size=(latent, hidden)) / np.sqrt(latent)
+    b1 = 0.1 * rng.normal(size=hidden)
+    w2 = rng.normal(size=(hidden, data)) / np.sqrt(hidden)
+    b2 = 0.1 * rng.normal(size=data)
+    x = rng.normal(size=(nb, data))
+    tw = [torch.as_tensor(a.astype(np.float32), device=dev)
+          for a in (w1, b1, w2, b2, x)]
+    c, d = 32, nb * latent
+    q = torch.as_tensor((0.5 * rng.normal(size=(c, d))).astype(np.float32),
+                        device=dev)
+    pe, g = tfn.fused_nuts_potential(q, *tw, sigma=SIGMA)
+    rpe, rg = tfn.dense_potential(*tw, SIGMA)(q)
+    assert float(((pe[:, 0] - rpe).abs() / rpe.abs()).max()) <= 1e-5
+    assert float((g - rg).abs().max() / rg.abs().max()) <= 1e-4
+    mom = torch.as_tensor(rng.normal(size=(c, d)).astype(np.float32),
+                          device=dev)
+    sign = torch.as_tensor(np.where(rng.random((c, kk)) < 0.5, 1.0, -1.0)
+                           .astype(np.float32), device=dev)
+    lua = torch.as_tensor(np.log(rng.random((c, kk))).astype(np.float32),
+                          device=dev)
+    lul = torch.as_tensor(np.log(rng.random((c, 1 << kk)))
+                          .astype(np.float32), device=dev)
+    eps = 0.5 / np.sqrt(1.0 + nb * data / SIGMA ** 2 / d)
+    args = (q, rpe[:, None], rg, mom, sign, lua, lul, float(eps),
+            torch.ones(d, device=dev), *tw)
+    got = tfn.fused_nuts_transition(*args, sigma=SIGMA, max_doublings=kk)
+    want = tfn.reference_transition(*args, sigma=SIGMA, max_doublings=kk)
+    for i in (4, 5, 6):
+        torch.testing.assert_close(got[i], want[i], rtol=0, atol=0)
+    for i in (0, 1, 7):
+        torch.testing.assert_close(got[i], want[i], rtol=1e-4, atol=1e-4)
+    assert float(got[6].mean()) > 2.0
