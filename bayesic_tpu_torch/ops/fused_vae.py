@@ -46,11 +46,12 @@ LEAVES = ("w1e", "b1e", "wmu", "bmu", "wsig", "bsig",
           "w1d", "b1d", "w2d", "b2d", "usig")
 
 # calls of the kernel's C entry, through either entry point: one per call,
-# though each call enqueues three kernels (rows, A^T G tiles, Adam) for
-# every one of its steps
+# though each call packs the weights once (a memset and a launch) and
+# enqueues three kernels (rows, split-K A^T G tiles, the partial sums and
+# Adam) for every one of its steps
 LAUNCHES = 0
 
-_ROWS = 8          # rows per block of the row kernel (csrc/fused_vae.cu)
+_ROWS = 8          # the batch a CUDA call takes is a multiple of this
 
 
 class FusedVAEDims(NamedTuple):
@@ -139,13 +140,21 @@ def _flatten(tree, device=None):
             for k in LEAVES]
 
 
-def reference_train(x, params, m, v, *, idx_stream, eps_stream, lr, t0=0):
+def _scale(n, b, n_total):
+    """The likelihood's plate scale: the global data size over the batch
+    (``n_total``, for a shard of a larger data set) or the local one."""
+    return (int(n_total) if n_total else n) / b
+
+
+def reference_train(x, params, m, v, *, idx_stream, eps_stream, lr, t0=0,
+                    n_total=None):
     """Run the plain ``_step_math`` + ``_adam`` over injected (steps, B)
     index and (steps, B, Z) noise streams.  Returns (params, m, v, losses
-    (steps,)) — the kernel's parity oracle."""
+    (steps,)) — the kernel's parity oracle.  ``n_total``: the global data
+    size when x is one shard of it (None: x's own)."""
     n = x.shape[0]
     b = idx_stream.shape[1]
-    scale = n / b
+    scale = _scale(n, b, n_total)
     p = tuple(_flatten(params, x.device))
     mm = tuple(_flatten(m, x.device))
     vv = tuple(_flatten(v, x.device))
@@ -198,7 +207,8 @@ def _unpack(flat, dims):
     return out
 
 
-def _launch(x, params, m, v, dims, *, steps, lr, seed, t0, thin, idx, eps):
+def _launch(x, params, m, v, dims, *, steps, lr, seed, t0, thin, idx, eps,
+            scale):
     lib = _build.load()
     x = x.contiguous()
     p, mf, vf = _pack(params), _pack(m), _pack(v)
@@ -214,8 +224,8 @@ def _launch(x, params, m, v, dims, *, steps, lr, seed, t0, thin, idx, eps):
         err = lib.fused_vae_train(
             ptr(x), ptr(p), ptr(mf), ptr(vf), ptr(losses), ptr(scratch),
             ptr(idx), ptr(eps), dims.n, dims.d, dims.h, dims.z, dims.b,
-            int(steps), int(t0), int(thin), float(lr),
-            float(dims.n / dims.b), int(seed) & 0xFFFFFFFFFFFFFFFF,
+            int(steps), int(t0), int(thin), float(lr), float(scale),
+            int(seed) & 0xFFFFFFFFFFFFFFFF,
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(
@@ -224,13 +234,16 @@ def _launch(x, params, m, v, dims, *, steps, lr, seed, t0, thin, idx, eps):
     return _unpack(p, dims), _unpack(mf, dims), _unpack(vf, dims), losses
 
 
-def fused_train(x, params, m, v, *, steps, lr, seed, batch=256, t0=0):
+def fused_train(x, params, m, v, *, steps, lr, seed, batch=256, t0=0,
+                n_total=None):
     """Run ``steps`` fused DLGM ELBO steps.
 
     x (N,D) f32; params/m/v: dicts over LEAVES (see leaf_shapes), on x's
     device; t0: global Adam step count already taken (bias correction and
     the Philox counter continue from it, so successive calls never repeat
-    a stream).  Returns (params, m, v, losses), losses thinned to at most
+    a stream); n_total: the global data size when x is one data-parallel
+    shard of it, so the likelihood is scaled by n_total / batch (None: N /
+    batch).  Returns (params, m, v, losses), losses thinned to at most
     2048 entries by the JAX kernel's rule.
 
     CUDA tensors run the kernel with in-kernel Philox streams; CPU tensors
@@ -244,7 +257,8 @@ def fused_train(x, params, m, v, *, steps, lr, seed, batch=256, t0=0):
     if x.device.type == "cuda":
         dims = _check(x, params, m, v, batch)
         out = _launch(x, params, m, v, dims, steps=steps, lr=lr, seed=seed,
-                      t0=t0, thin=thin, idx=None, eps=None)
+                      t0=t0, thin=thin, idx=None, eps=None,
+                      scale=_scale(dims.n, dims.b, n_total))
         LAUNCHES += 1
         return out
     if x.device.type != "cpu":
@@ -256,7 +270,8 @@ def fused_train(x, params, m, v, *, steps, lr, seed, batch=256, t0=0):
     idx = torch.randint(0, n, (steps, int(batch)), generator=gen)
     eps = torch.randn((steps, int(batch), z), generator=gen)
     p, mm, vv, losses = reference_train(x, params, m, v, idx_stream=idx,
-                                        eps_stream=eps, lr=lr, t0=t0)
+                                        eps_stream=eps, lr=lr, t0=t0,
+                                        n_total=n_total)
     return p, mm, vv, thin_losses(losses, steps)
 
 
@@ -277,7 +292,8 @@ def fused_train_injected(x, params, m, v, *, idx_stream, eps_stream, lr):
             raise ValueError("idx_stream out of range")
         eps = eps_stream.to(torch.float32).contiguous()
         out = _launch(x, params, m, v, dims, steps=steps, lr=lr, seed=0,
-                      t0=0, thin=1, idx=idx, eps=eps)
+                      t0=0, thin=1, idx=idx, eps=eps,
+                      scale=_scale(dims.n, b, None))
         LAUNCHES += 1
         return out
     if x.device.type != "cpu":

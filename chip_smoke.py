@@ -10,8 +10,13 @@ hand-written kernels from ``bayesic_tpu_torch/csrc/``.
 
 Phases 1-7, the SVI path: check the fused VAE kernel against its plain
 PyTorch version at the SVI bench shape (N=65,536, D=128, Z=32, H=256,
-B=1024), drive both entry points (``run_svi`` and ``run_svi_fused``), time
-the kernel and the plain version, and trace where the device time goes.
+B=1024; one step's gradients also at the DLGM default ``Config()``'s
+widths and at ragged ones with a batch that is not a multiple of 16), its
+Philox twin and that two calls agree bit for bit, drive both entry points
+(``run_svi`` and ``run_svi_fused``), time the kernel against the plain
+work's FP32 bound and its own TF32 tensor-core bound, time the plain
+version, and trace where the device time goes (the three kernels of a
+step and their shares).
 
 Phases 8-11, the local-posterior NUTS path at its bench shape (1024
 chains, 64 rows, latent 8, hidden 64, data 32): check the fused NUTS
@@ -69,9 +74,12 @@ largest error against the plain version, its time and the plain
 version's (per SVI step, NUTS transition, SMC stage or likelihood call),
 and the bound: the least time the card could take for the same work, the
 larger of the bytes over the memory rate and the operations over the FP32
-peak (phase 20 also prints the GMM kernels' exp/log/rcp count at the SFU
-rate; phase 25 the MF cell pass's bf16-mode bound at the bf16 tensor-core
-rate and its scratch bytes).  The last line is ``{"ok": true, "device":
+peak, or for the two kernels whose products run on the tensor cores
+(``fused_vae_train``, ``fused_nuts_transition``) their three TF32 passes
+over the TF32 peak (phases 5 and 11 print both; phase 20 also prints
+the GMM kernels' exp/log/rcp count at the SFU rate; phase 25 the MF cell
+pass's bf16-mode bound at the bf16 tensor-core rate and its scratch
+bytes).  The last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device, or outside a checkout, it exits non-zero
 and prints no result.
 """
@@ -89,6 +97,12 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BENCH = dict(num_data=65_536, data_dim=128, latent_dim=32, hidden=256,
              batch_size=1024)
+# phase 2's shapes off the bench: the DLGM default Config()'s widths, and
+# ragged widths with a batch that is not a multiple of 16
+SVI_OFF_BENCH = (dict(num_data=10_000, data_dim=32, latent_dim=8, hidden=64,
+                      batch_size=256),
+                 dict(num_data=3000, data_dim=37, latent_dim=5, hidden=100,
+                      batch_size=40))
 LR = 1e-3
 # steps per traced window (phase 7): the kernel path, and the host-bound
 # generic engine and plain version
@@ -281,15 +295,19 @@ def _ptxas_summary(log):
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             name = next((k for k in ("hier_train_kernel", "row_kernel",
-                                     "atg_kernel", "adam_kernel",
+                                     "wgrad_kernel", "adam_kernel",
                                      "dlgm_nuts_kernel", "dlgm_pack_kernel",
                                      "nuts_draws_kernel",
                                      "nuts_kernel", "potential_kernel",
                                      "gmm_lik_kernel",
                                      "smc_gmm_mutate_kernel",
                                      "linreg_train_kernel", "mf_cell_kernel",
-                                     "mf_pack_kernel", "mf_reduce_kernel")
+                                     "mf_pack_kernel", "mf_reduce_kernel",
+                                     "pack_kernel")
                          if k in mangled), mangled)
+            if name == "row_kernel":
+                # template argument: its buffers in shared memory or not
+                name += "<smem>" if "ILb1E" in mangled else "<global>"
             if name in ("mf_cell_kernel", "mf_pack_kernel"):
                 # template arguments: bf16 [, A padded to a multiple of 8]
                 name += "<" + ",".join(
@@ -332,6 +350,229 @@ def _posterior(diag, torch, res, wall):
                 leapfrogs=float(res.extra["num_steps"].float().mean()),
                 step_size=float(res.extra["step_size"].mean()), wall_s=wall,
                 ess_per_s=min_ess / wall)
+
+
+def _svi_phases(torch, np, card, dev):
+    """Phases 2-7, the DLGM SVI path at its bench shape; returns the fused
+    VAE kernel's entry of the kernels line."""
+    from bayesic_tpu_torch.models import dlgm
+    from bayesic_tpu_torch.ops import _kernel_common as kc
+    from bayesic_tpu_torch.ops import fused_vae as fv
+
+    cfg = dlgm.Config(**BENCH, lr=LR, seed=0, device="cuda")
+    x = torch.as_tensor(dlgm.make_data(cfg), device=dev)
+    p0, m0, v0 = dlgm.fused_init(cfg, torch.Generator().manual_seed(0), dev)
+    n, b, z = cfg.num_data, cfg.batch_size, cfg.latent_dim
+    rng = np.random.default_rng(1)
+
+    def streams(steps):
+        idx = torch.as_tensor(rng.integers(0, n, (steps, b)), device=dev)
+        eps = torch.as_tensor(
+            rng.standard_normal((steps, b, z)).astype(np.float32),
+            device=dev)
+        return idx, eps
+
+    # -- 2. gradients of one injected step, at the bench shape and at two
+    #       off it: the DLGM default Config()'s widths, and ragged widths
+    #       with a batch that is not a multiple of 16
+    def one_step(cfg_, x_, p_, m_, v_, gen_rng):
+        n_, b_ = cfg_.num_data, cfg_.batch_size
+        idx_ = torch.as_tensor(gen_rng.integers(0, n_, (1, b_)), device=dev)
+        eps_ = torch.as_tensor(gen_rng.standard_normal(
+            (1, b_, cfg_.latent_dim)).astype(np.float32), device=dev)
+        _, m1, _, l1 = fv.fused_train_injected(x_, p_, m_, v_,
+                                               idx_stream=idx_,
+                                               eps_stream=eps_, lr=LR)
+        torch.cuda.synchronize()
+        elbo, grads = fv._step_math(tuple(p_[k] for k in fv.LEAVES),
+                                    x_[idx_[0]], eps_[0], n_ / b_)
+        worst, max_err = 0.0, 0.0
+        for k, g in zip(fv.LEAVES, grads):
+            gk = -m1[k] / 0.1          # one Adam step from zero: m = -0.1 g
+            err = (gk - g).abs()
+            tol = 1e-4 * g.abs() + 1e-5 * float(g.abs().max())
+            if bool((err > tol).any()):
+                raise AssertionError(
+                    f"phase 2: {cfg_.data_dim}/{cfg_.hidden}/"
+                    f"{cfg_.latent_dim} B {b_}: grad {k} differs, max abs "
+                    f"err {float(err.max())}")
+            max_err = max(max_err, float(err.max()))
+            worst = max(worst, float((err / tol).max()))
+        loss_err = abs(float(l1[0]) + float(elbo)) / abs(float(elbo))
+        if loss_err > 1e-4:
+            raise AssertionError(f"phase 2: {cfg_.data_dim}/{cfg_.hidden}/"
+                                 f"{cfg_.latent_dim} B {b_}: loss rel err "
+                                 f"{loss_err}")
+        return max_err, (f"D {cfg_.data_dim} H {cfg_.hidden} Z "
+                         f"{cfg_.latent_dim} B {b_}: max abs err "
+                         f"{max_err:.3e}, worst err/tol {worst:.3f}, loss "
+                         f"rel err {loss_err:.2e}")
+
+    max_abs_err, line = one_step(cfg, x, p0, m0, v0, rng)
+    lines = [line]
+    rng_o = np.random.default_rng(3)
+    for shape in SVI_OFF_BENCH:
+        cfg_o = dlgm.Config(**shape, lr=LR, seed=0, device="cuda")
+        x_o = torch.as_tensor(dlgm.make_data(cfg_o), device=dev)
+        lines.append(one_step(cfg_o, x_o, *dlgm.fused_init(
+            cfg_o, torch.Generator().manual_seed(1), dev), rng_o)[1])
+    print("phase 2 gradients ok, 11 leaves: " + "; ".join(lines),
+          flush=True)
+
+    # -- 3. 50-step injected trajectory ----------------------------------
+    idx, eps = streams(50)
+    pk, _, _, lk = fv.fused_train_injected(x, p0, m0, v0, idx_stream=idx,
+                                           eps_stream=eps, lr=LR)
+    pr, _, _, lr_ = fv.reference_train(x, p0, m0, v0, idx_stream=idx,
+                                       eps_stream=eps, lr=LR)
+    rel = float(((lk - lr_).abs() / lr_.abs()).max())
+    if rel > 1e-3:
+        raise AssertionError(f"phase 3: loss rel err {rel}")
+    prel = max(float(((pk[k] - pr[k]).abs()).max()
+                     / max(float(pr[k].abs().max()), 1e-30))
+               for k in fv.LEAVES)
+    print(f"phase 3 trajectory ok: 50 steps, loss max rel err {rel:.2e}, "
+          f"param max err / leaf max {prel:.2e}", flush=True)
+
+    # -- 4. Philox path ----------------------------------------------------
+    seed = 12345
+    _, _, _, lk = fv.fused_train(x, p0, m0, v0, steps=50, lr=LR, seed=seed,
+                                 batch=b)
+    idx, eps = kc.philox_streams(seed, 0, 50, b, n, z, device=dev)
+    _, _, _, lr_ = fv.reference_train(x, p0, m0, v0, idx_stream=idx,
+                                      eps_stream=eps, lr=LR)
+    bits_rel = float(((lk - lr_).abs() / lr_.abs()).max())
+    if bits_rel > 1e-3:
+        raise AssertionError(f"phase 4: in-kernel Philox streams differ "
+                             f"from the plain twin, loss rel err {bits_rel}")
+    again = [fv.fused_train(x, p0, m0, v0, steps=50, lr=LR, seed=seed,
+                            batch=b) for _ in range(2)]
+    same = torch.equal(again[0][3], again[1][3]) and all(
+        torch.equal(a[k], c[k]) for a, c in zip(again[0][:3], again[1][:3])
+        for k in fv.LEAVES)
+    if not same:
+        raise AssertionError("phase 4: two calls with the same inputs "
+                             "differ")
+    steps = 3000
+    _, _, _, lk = fv.fused_train(x, p0, m0, v0, steps=steps, lr=LR,
+                                 seed=seed, batch=b)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.randint(0, n, (steps, b), generator=gen, device=dev)
+    eps = torch.randn((steps, b, z), generator=gen, device=dev)
+    _, _, _, lp = fv.reference_train(x, p0, m0, v0, idx_stream=idx,
+                                     eps_stream=eps, lr=LR)
+    thin = fv._thin(steps)
+    keep = torch.clamp(torch.arange(len(lk), device=dev) * thin + thin - 1,
+                       max=steps - 1)
+    lk, lp = lk.cpu().numpy(), lp[keep].cpu().numpy()
+    k_last, p_last = float(lk[-200:].mean()), float(lp[-200:].mean())
+    k_first, p_first = float(lk[:100].mean()), float(lp[:100].mean())
+    gap = abs(k_last - p_last) / abs(p_last)
+    if not (np.isfinite(lk).all() and np.isfinite(lp).all()):
+        raise AssertionError("phase 4: non-finite losses")
+    if gap > 0.02 or not (k_last < k_first and p_last < p_first):
+        raise AssertionError(
+            f"phase 4: kernel last-200 {k_last} vs plain {p_last} "
+            f"(first-100 {k_first} / {p_first})")
+    print(f"phase 4 philox ok: 50-step twin rel err {bits_rel:.2e}, two "
+          f"calls bit-identical; "
+          f"{steps} steps last-200 mean kernel {k_last:.1f} plain "
+          f"{p_last:.1f} (gap {100 * gap:.3f}%), first-100 {k_first:.1f} / "
+          f"{p_first:.1f}", flush=True)
+
+    # -- 5. main path through the user's entry points ---------------------
+    cfg_g = dlgm.Config(**BENCH, lr=LR, seed=0, steps=300, device="cuda")
+    cfg_f = dlgm.Config(**BENCH, lr=LR, seed=0, steps=3000, device="cuda")
+    fv.LAUNCHES = 0
+    out_g = dlgm.run_svi(cfg_g)
+    out_f = dlgm.run_svi_fused(cfg_f)
+    torch.cuda.synchronize()
+    launches = fv.LAUNCHES
+    if launches < 1:
+        raise AssertionError("phase 5: run_svi_fused never launched the "
+                             "kernel")
+    for name, out in (("run_svi", out_g), ("run_svi_fused", out_f)):
+        ls = out["losses"]
+        if not (np.isfinite(ls).all() and np.isfinite(out["sigma_x"])
+                and out["sigma_x"] > 0):
+            raise AssertionError(f"phase 5: {name} gave non-finite output")
+        if not ls[-20:].mean() < ls[:20].mean():
+            raise AssertionError(f"phase 5: {name} loss did not fall")
+    # timing, after the runs above warmed everything up
+    gen = torch.Generator(device=dev).manual_seed(1)
+    svi, res = out_g["svi"], out_g["result"]
+    g_steps = 200
+    g_ms, _ = _cuda_ms(torch, lambda: svi.run(gen, g_steps, state=res.state,
+                                              model_args=(out_g["x"],)))
+    f_steps = 3000
+    pf, (mf, vf) = out_f["params"], out_f["opt_state"]
+    f_ms, _ = _cuda_ms(torch, lambda: fv.fused_train(
+        out_f["x"], pf, mf, vf, steps=f_steps, lr=LR, seed=7, batch=b,
+        t0=cfg_f.steps))
+    g_rate, f_rate = 1e3 * g_steps / g_ms, 1e3 * f_steps / f_ms
+    kernel_step_ms = f_ms / f_steps
+    # bounds.  SVI step: encoder, reparameterisation and decoder forward
+    # and a backward of about twice that (benchmarks/roofline.py
+    # dlgm_svi), the plain work at the FP32 rate; the kernel runs its
+    # products as three TF32 passes on the tensor cores, the bound of the
+    # units it uses, which the kernels line carries.  Bytes: the data set
+    # read once per call and the parameters, both Adam moments and the
+    # losses read and written once, over the call's steps.
+    d_, h_, z_ = cfg.data_dim, cfg.hidden, cfg.latent_dim
+    svi_ops = 3 * 2 * b * (d_ * h_ + 2 * h_ * z_ + z_ * h_ + h_ * d_)
+    n_par = sum(int(np.prod(s)) for s in fv.leaf_shapes(fv.FusedVAEDims(
+        n, d_, h_, z_, b)).values())
+    svi_bytes = 4 * (n * d_ + 6 * n_par + f_steps) / f_steps
+    fp32_bound = _bound(svi_ops, svi_bytes)
+    tc_bound = _bound(3 * svi_ops, svi_bytes, PEAK_TF32)
+    print(f"phase 5 main path ok [{card}]: run_svi final ELBO "
+          f"{out_g['final_elbo']:.1f} sigma_x {out_g['sigma_x']:.4f} "
+          f"{g_rate:.1f} steps/s; run_svi_fused final ELBO "
+          f"{out_f['final_elbo']:.1f} sigma_x {out_f['sigma_x']:.4f} "
+          f"{f_rate:.1f} steps/s ({kernel_step_ms:.4f} ms/step); kernel C "
+          f"calls (LAUNCHES) {launches}, {3 * cfg_f.steps} kernels "
+          f"enqueued; bounds: the plain work at FP32 {fp32_bound[0]:.4f} "
+          f"ms ({fp32_bound[1]}), TF32 tensor cores x3 {tc_bound[0]:.4f} "
+          f"ms ({tc_bound[1]}); kernel at "
+          f"{100 * tc_bound[0] / kernel_step_ms:.1f}% of the latter",
+          flush=True)
+
+    # -- 6. plain version's time at the same shape ------------------------
+    idx, eps = streams(200)
+    fv.reference_train(x, p0, m0, v0, idx_stream=idx[:20],
+                       eps_stream=eps[:20], lr=LR)
+    plain_ms, _ = _cuda_ms(torch, lambda: fv.reference_train(
+        x, p0, m0, v0, idx_stream=idx, eps_stream=eps, lr=LR))
+    plain_step_ms = plain_ms / 200
+    # the kernel's injected-stream mode (the parity entry) on the same 200
+    # steps, warmed up by the first call
+    fv.fused_train_injected(x, p0, m0, v0, idx_stream=idx, eps_stream=eps,
+                            lr=LR)
+    inj_ms, _ = _cuda_ms(torch, lambda: fv.fused_train_injected(
+        x, p0, m0, v0, idx_stream=idx, eps_stream=eps, lr=LR))
+    print(f"phase 6 plain timing ok [{card}]: reference_train "
+          f"{plain_step_ms:.4f} ms/step, kernel {kernel_step_ms:.4f} "
+          f"ms/step (injected streams {inj_ms / 200:.4f} ms/step)",
+          flush=True)
+
+    # -- 7. where the device time goes, under torch.profiler --------------
+    traces = {
+        "fused_train": _trace(torch, lambda: fv.fused_train(
+            out_f["x"], pf, mf, vf, steps=TRACE_FUSED_STEPS, lr=LR, seed=8,
+            batch=b, t0=cfg_f.steps + f_steps), TRACE_FUSED_STEPS),
+        "run_svi engine": _trace(torch, lambda: svi.run(
+            gen, TRACE_HOST_STEPS, state=res.state,
+            model_args=(out_g["x"],)), TRACE_HOST_STEPS),
+        "reference_train": _trace(torch, lambda: fv.reference_train(
+            x, p0, m0, v0, idx_stream=idx[:TRACE_HOST_STEPS],
+            eps_stream=eps[:TRACE_HOST_STEPS], lr=LR), TRACE_HOST_STEPS),
+    }
+    print(f"phase 7 trace ok [{card}]: "
+          + "; ".join(f"{k} {v}" for k, v in traces.items()), flush=True)
+
+    return _record("fused_vae_train", "fused_vae.cu",
+                   "bayesic_tpu/ops/fused_vae.py:199", launches, max_abs_err,
+                   kernel_step_ms, plain_step_ms, tc_bound)
 
 
 def _nuts_phases(torch, np, card, dev):
@@ -1621,10 +1862,7 @@ def main():
     if not os.path.isdir(os.path.join(ROOT, "bayesic_tpu_torch", "csrc")):
         _fail("run me from a checkout of the repository")
     sys.path.insert(0, ROOT)
-    from bayesic_tpu_torch.models import dlgm
     from bayesic_tpu_torch.ops import _build
-    from bayesic_tpu_torch.ops import _kernel_common as kc
-    from bayesic_tpu_torch.ops import fused_vae as fv
 
     card = _card()
     print(card, flush=True)
@@ -1637,178 +1875,8 @@ def main():
     print(f"phase 1 build ok in {build_s:.1f} s: "
           f"{_ptxas_summary(_build.build_log())}", flush=True)
 
-    cfg = dlgm.Config(**BENCH, lr=LR, seed=0, device="cuda")
-    x = torch.as_tensor(dlgm.make_data(cfg), device=dev)
-    p0, m0, v0 = dlgm.fused_init(cfg, torch.Generator().manual_seed(0), dev)
-    n, b, z = cfg.num_data, cfg.batch_size, cfg.latent_dim
-    scale = n / b
-    rng = np.random.default_rng(1)
-
-    def streams(steps):
-        idx = torch.as_tensor(rng.integers(0, n, (steps, b)), device=dev)
-        eps = torch.as_tensor(
-            rng.standard_normal((steps, b, z)).astype(np.float32),
-            device=dev)
-        return idx, eps
-
-    # -- 2. gradients of one injected step -------------------------------
-    idx, eps = streams(1)
-    _, m1, _, l1 = fv.fused_train_injected(x, p0, m0, v0, idx_stream=idx,
-                                           eps_stream=eps, lr=LR)
-    torch.cuda.synchronize()
-    elbo, grads = fv._step_math(tuple(p0[k] for k in fv.LEAVES), x[idx[0]],
-                                eps[0], scale)
-    worst_rel, max_abs_err = 0.0, 0.0
-    for k, g in zip(fv.LEAVES, grads):
-        gk = -m1[k] / 0.1          # one Adam step from zero: m = -0.1 g
-        err = (gk - g).abs()
-        tol = 1e-4 * g.abs() + 1e-5 * float(g.abs().max())
-        if bool((err > tol).any()):
-            raise AssertionError(
-                f"phase 2: grad {k} differs, max abs err {float(err.max())}")
-        max_abs_err = max(max_abs_err, float(err.max()))
-        worst_rel = max(worst_rel, float((err / tol).max()))
-    loss_err = abs(float(l1[0]) + float(elbo)) / abs(float(elbo))
-    if loss_err > 1e-4:
-        raise AssertionError(f"phase 2: loss rel err {loss_err}")
-    print(f"phase 2 gradients ok: 11 leaves, max abs err {max_abs_err:.3e}, "
-          f"worst err/tol {worst_rel:.3f}, loss rel err {loss_err:.2e}",
-          flush=True)
-
-    # -- 3. 50-step injected trajectory ----------------------------------
-    idx, eps = streams(50)
-    pk, _, _, lk = fv.fused_train_injected(x, p0, m0, v0, idx_stream=idx,
-                                           eps_stream=eps, lr=LR)
-    pr, _, _, lr_ = fv.reference_train(x, p0, m0, v0, idx_stream=idx,
-                                       eps_stream=eps, lr=LR)
-    rel = float(((lk - lr_).abs() / lr_.abs()).max())
-    if rel > 1e-3:
-        raise AssertionError(f"phase 3: loss rel err {rel}")
-    prel = max(float(((pk[k] - pr[k]).abs()).max()
-                     / max(float(pr[k].abs().max()), 1e-30))
-               for k in fv.LEAVES)
-    print(f"phase 3 trajectory ok: 50 steps, loss max rel err {rel:.2e}, "
-          f"param max err / leaf max {prel:.2e}", flush=True)
-
-    # -- 4. Philox path ----------------------------------------------------
-    seed = 12345
-    _, _, _, lk = fv.fused_train(x, p0, m0, v0, steps=50, lr=LR, seed=seed,
-                                 batch=b)
-    idx, eps = kc.philox_streams(seed, 0, 50, b, n, z, device=dev)
-    _, _, _, lr_ = fv.reference_train(x, p0, m0, v0, idx_stream=idx,
-                                      eps_stream=eps, lr=LR)
-    bits_rel = float(((lk - lr_).abs() / lr_.abs()).max())
-    if bits_rel > 1e-3:
-        raise AssertionError(f"phase 4: in-kernel Philox streams differ "
-                             f"from the plain twin, loss rel err {bits_rel}")
-    steps = 3000
-    _, _, _, lk = fv.fused_train(x, p0, m0, v0, steps=steps, lr=LR,
-                                 seed=seed, batch=b)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    idx = torch.randint(0, n, (steps, b), generator=gen, device=dev)
-    eps = torch.randn((steps, b, z), generator=gen, device=dev)
-    _, _, _, lp = fv.reference_train(x, p0, m0, v0, idx_stream=idx,
-                                     eps_stream=eps, lr=LR)
-    thin = fv._thin(steps)
-    keep = torch.clamp(torch.arange(len(lk), device=dev) * thin + thin - 1,
-                       max=steps - 1)
-    lk, lp = lk.cpu().numpy(), lp[keep].cpu().numpy()
-    k_last, p_last = float(lk[-200:].mean()), float(lp[-200:].mean())
-    k_first, p_first = float(lk[:100].mean()), float(lp[:100].mean())
-    gap = abs(k_last - p_last) / abs(p_last)
-    if not (np.isfinite(lk).all() and np.isfinite(lp).all()):
-        raise AssertionError("phase 4: non-finite losses")
-    if gap > 0.02 or not (k_last < k_first and p_last < p_first):
-        raise AssertionError(
-            f"phase 4: kernel last-200 {k_last} vs plain {p_last} "
-            f"(first-100 {k_first} / {p_first})")
-    print(f"phase 4 philox ok: 50-step twin rel err {bits_rel:.2e}; "
-          f"{steps} steps last-200 mean kernel {k_last:.1f} plain "
-          f"{p_last:.1f} (gap {100 * gap:.3f}%), first-100 {k_first:.1f} / "
-          f"{p_first:.1f}", flush=True)
-
-    # -- 5. main path through the user's entry points ---------------------
-    cfg_g = dlgm.Config(**BENCH, lr=LR, seed=0, steps=300, device="cuda")
-    cfg_f = dlgm.Config(**BENCH, lr=LR, seed=0, steps=3000, device="cuda")
-    fv.LAUNCHES = 0
-    out_g = dlgm.run_svi(cfg_g)
-    out_f = dlgm.run_svi_fused(cfg_f)
-    torch.cuda.synchronize()
-    launches = fv.LAUNCHES
-    if launches < 1:
-        raise AssertionError("phase 5: run_svi_fused never launched the "
-                             "kernel")
-    for name, out in (("run_svi", out_g), ("run_svi_fused", out_f)):
-        ls = out["losses"]
-        if not (np.isfinite(ls).all() and np.isfinite(out["sigma_x"])
-                and out["sigma_x"] > 0):
-            raise AssertionError(f"phase 5: {name} gave non-finite output")
-        if not ls[-20:].mean() < ls[:20].mean():
-            raise AssertionError(f"phase 5: {name} loss did not fall")
-    # timing, after the runs above warmed everything up
-    gen = torch.Generator(device=dev).manual_seed(1)
-    svi, res = out_g["svi"], out_g["result"]
-    g_steps = 200
-    g_ms, _ = _cuda_ms(torch, lambda: svi.run(gen, g_steps, state=res.state,
-                                              model_args=(out_g["x"],)))
-    f_steps = 3000
-    pf, (mf, vf) = out_f["params"], out_f["opt_state"]
-    f_ms, _ = _cuda_ms(torch, lambda: fv.fused_train(
-        out_f["x"], pf, mf, vf, steps=f_steps, lr=LR, seed=7, batch=b,
-        t0=cfg_f.steps))
-    g_rate, f_rate = 1e3 * g_steps / g_ms, 1e3 * f_steps / f_ms
-    print(f"phase 5 main path ok [{card}]: run_svi final ELBO "
-          f"{out_g['final_elbo']:.1f} sigma_x {out_g['sigma_x']:.4f} "
-          f"{g_rate:.1f} steps/s; run_svi_fused final ELBO "
-          f"{out_f['final_elbo']:.1f} sigma_x {out_f['sigma_x']:.4f} "
-          f"{f_rate:.1f} steps/s; kernel C calls (LAUNCHES) {launches}, "
-          f"{3 * cfg_f.steps} kernels enqueued",
-          flush=True)
-
-    # -- 6. plain version's time at the same shape ------------------------
-    idx, eps = streams(200)
-    fv.reference_train(x, p0, m0, v0, idx_stream=idx[:20],
-                       eps_stream=eps[:20], lr=LR)
-    plain_ms, _ = _cuda_ms(torch, lambda: fv.reference_train(
-        x, p0, m0, v0, idx_stream=idx, eps_stream=eps, lr=LR))
-    plain_step_ms = plain_ms / 200
-    kernel_step_ms = f_ms / f_steps
-    print(f"phase 6 plain timing ok [{card}]: reference_train "
-          f"{plain_step_ms:.4f} ms/step, kernel {kernel_step_ms:.4f} "
-          f"ms/step", flush=True)
-
-    # -- 7. where the device time goes, under torch.profiler --------------
-    traces = {
-        "fused_train": _trace(torch, lambda: fv.fused_train(
-            out_f["x"], pf, mf, vf, steps=TRACE_FUSED_STEPS, lr=LR, seed=8,
-            batch=b, t0=cfg_f.steps + f_steps), TRACE_FUSED_STEPS),
-        "run_svi engine": _trace(torch, lambda: svi.run(
-            gen, TRACE_HOST_STEPS, state=res.state,
-            model_args=(out_g["x"],)), TRACE_HOST_STEPS),
-        "reference_train": _trace(torch, lambda: fv.reference_train(
-            x, p0, m0, v0, idx_stream=idx[:TRACE_HOST_STEPS],
-            eps_stream=eps[:TRACE_HOST_STEPS], lr=LR), TRACE_HOST_STEPS),
-    }
-    print(f"phase 7 trace ok [{card}]: "
-          + "; ".join(f"{k} {v}" for k, v in traces.items()), flush=True)
-
-    # bound.  SVI step: encoder, reparameterisation and decoder forward
-    # and a backward of about twice that (benchmarks/roofline.py
-    # dlgm_svi); bytes: the data set read once per call and the
-    # parameters, both Adam moments and the losses read and written once,
-    # over the call's steps.
-    n_, b_ = cfg.num_data, cfg.batch_size
-    d_, h_, z_ = cfg.data_dim, cfg.hidden, cfg.latent_dim
-    svi_ops = 3 * 2 * b_ * (d_ * h_ + 2 * h_ * z_ + z_ * h_ + h_ * d_)
-    n_par = sum(int(np.prod(s)) for s in fv.leaf_shapes(fv.FusedVAEDims(
-        n_, d_, h_, z_, b_)).values())
-    svi_bytes = 4 * (n_ * d_ + 6 * n_par + f_steps) / f_steps
-    records = [
-        _record("fused_vae_train", "fused_vae.cu",
-                "bayesic_tpu/ops/fused_vae.py:199", launches, max_abs_err,
-                kernel_step_ms, plain_step_ms, _bound(svi_ops, svi_bytes)),
-        _nuts_phases(torch, np, card, dev),
-    ]
+    records = [_svi_phases(torch, np, card, dev),
+               _nuts_phases(torch, np, card, dev)]
     records += _hier_phases(torch, np, card, dev)
     records += _gmm_phases(torch, np, card, dev)
     records += _linreg_phases(torch, np, card, dev)

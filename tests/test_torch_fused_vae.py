@@ -8,8 +8,9 @@ step math and hand backward rtol 2e-4 / atol 2e-5, Adam rtol 1e-5 /
 atol 1e-7, 5-step trajectories losses rtol 1e-4 / atol 1e-3, params
 rtol 1e-4 / atol 1e-5, Adam v rtol 1e-3 / atol 1e-6.
 
-The kernel itself runs only on a CUDA card: ``test_kernel_matches_plain``
-is marked ``gpu`` and skips here.
+The kernel itself runs only on a CUDA card: the tests marked ``gpu`` skip
+here.  On the CPU, ``test_operand_split_precision`` emulates the kernel's
+tensor-core arithmetic (TF32 operands, split or not) at the bench widths.
 """
 
 import math
@@ -21,6 +22,7 @@ import torch
 
 from bayesic_tpu.ops import _kernel_common as jkc
 from bayesic_tpu.ops import fused_vae as jfv
+from bayesic_tpu_torch.models import dlgm as tdlgm
 from bayesic_tpu_torch.ops import _kernel_common as tkc
 from bayesic_tpu_torch.ops import fused_vae as tfv
 
@@ -29,11 +31,11 @@ torch.set_num_threads(2)
 DIMS = tfv.FusedVAEDims(n=200, d=12, h=16, z=4, b=32)
 
 
-def _init(seed):
+def _init(seed, dims=DIMS):
     """numpy leaves as tests/test_fused_vae.py draws them: weights
     N(0, 1/fan_in), zero biases and usig; zero Adam state."""
     rng = np.random.default_rng(seed)
-    shapes = tfv.leaf_shapes(DIMS)
+    shapes = tfv.leaf_shapes(dims)
     params, m, v = {}, {}, {}
     for name in tfv.LEAVES:
         s = shapes[name]
@@ -205,6 +207,37 @@ def test_reference_train_matches_jax_interpret_kernel(five_steps):
                        tuple(map(_np, want[:3])) + (np.asarray(want[3]),))
 
 
+def test_n_total_scales_like_jax(five_steps):
+    """With ``n_total`` (a shard of a larger data set) the likelihood is
+    scaled by n_total / B in both packages: the port's reference_train
+    equals the JAX one at the trajectory tolerances, and the CPU dispatch
+    of fused_train passes it through."""
+    s = five_steps
+    n_total = 7 * DIMS.n
+    want = jfv.reference_train(
+        jnp.asarray(s["x"]), _j(s["params"]), _j(s["m"]), _j(s["v"]),
+        idx_stream=jnp.asarray(s["idx"]), eps_stream=jnp.asarray(s["eps"]),
+        lr=s["lr"], n_total=n_total)
+    got = tfv.reference_train(
+        torch.as_tensor(s["x"]), _t(s["params"]), _t(s["m"]), _t(s["v"]),
+        idx_stream=torch.as_tensor(s["idx"]),
+        eps_stream=torch.as_tensor(s["eps"]), lr=s["lr"], n_total=n_total)
+    _assert_trajectory(tuple(map(_np, got[:3])) + (got[3].numpy(),),
+                       tuple(map(_np, want[:3])) + (np.asarray(want[3]),))
+    assert not np.allclose(got[3].numpy(), s["ref"][3].numpy(), rtol=0.1)
+    x = torch.as_tensor(s["x"])
+    out = tfv.fused_train(x, _t(s["params"]), _t(s["m"]), _t(s["v"]),
+                          steps=3, lr=s["lr"], seed=4, batch=DIMS.b,
+                          n_total=n_total)
+    gen = torch.Generator().manual_seed(4 * 1_000_003)
+    idx = torch.randint(0, DIMS.n, (3, DIMS.b), generator=gen)
+    eps = torch.randn((3, DIMS.b, DIMS.z), generator=gen)
+    ref = tfv.reference_train(x, _t(s["params"]), _t(s["m"]), _t(s["v"]),
+                              idx_stream=idx, eps_stream=eps, lr=s["lr"],
+                              n_total=n_total)
+    torch.testing.assert_close(out[3], ref[3], rtol=0, atol=0)
+
+
 def test_injected_entry_on_cpu_is_reference(five_steps):
     s = five_steps
     before = tfv.LAUNCHES
@@ -305,6 +338,132 @@ def test_philox_streams_recipe():
     assert int(idx[1, 5]) == min(int((int(w0[0]) >> 8) / 2**24 * n), n - 1)
 
 
+def _tf32(x):
+    """x rounded to TF32 (10 stored mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tc_mm(a, b, split, a_exact_lo):
+    """``a @ b`` as the kernel forms it on the tensor cores.  Split: hi =
+    tf32(x), lo = tf32(x - hi), lo hi + hi lo + hi hi in float32; in the
+    row pass an activation's lo is kept exact (``a_exact_lo``) and the
+    tensor core drops its low 13 bits.  Otherwise one TF32 pass."""
+    ah, bh = _tf32(a), _tf32(b)
+    if not split:
+        return ah @ bh
+    al = a - ah
+    if a_exact_lo:
+        al = (al.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+    else:
+        al = _tf32(al)
+    return al @ bh + ah @ _tf32(b - bh) + ah @ bh
+
+
+def _emulated_step_math(params, xb, eps, scale, row_split, grad_split):
+    """The kernel's step on the CPU: the row pass's seven products (an
+    activation times a packed weight; split or not by ``row_split``) and
+    the weight-gradient pass's four (by ``grad_split``),
+    in the kernel's groupings ([Wmu | Wsig], [g_z | g_pre]); the bias
+    gradients as column sums."""
+    (w1e, b1e, wmu, bmu, wsig, bsig, w1d, b1d, w2d, b2d, usig) = params
+    z = wmu.shape[1]
+    c = tfv._C
+    row = lambda a, b: _tc_mm(a, b, row_split, True)  # noqa: E731
+    grad = lambda a, b: _tc_mm(a, b, grad_split, False)  # noqa: E731
+    csum = lambda a: torch.sum(a, dim=0, keepdim=True)  # noqa: E731
+    wms = torch.cat([wmu, wsig], 1)
+    h1 = torch.tanh(row(xb, w1e) + b1e)
+    mp = row(h1, wms)
+    pre = mp[:, z:] + bsig
+    ls = torch.clamp(pre, -6.0, 3.0)
+    zl = mp[:, :z] + bmu + torch.exp(ls) * eps
+    hd = torch.tanh(row(zl, w1d) + b1d)
+    r = row(hd, w2d) + b2d - xb
+    u = usig[0, 0]
+    inv_s2 = torch.exp(-2.0 * u)
+    elbo = scale * (torch.sum(-0.5 * zl * zl - c)
+                    + torch.sum(-0.5 * r * r * inv_s2 - u - c)
+                    - torch.sum(-ls - 0.5 * eps * eps - c))
+    g_mx = -scale * r * inv_s2
+    g_a1d = row(g_mx, w2d.T) * (1.0 - hd * hd)
+    g_z = (row(g_a1d, w1d.T) - scale * zl
+           + scale * eps * torch.exp(-ls))
+    g_pre = g_z * eps * torch.exp(ls) * ((pre > -6.0) & (pre < 3.0))
+    gzp = torch.cat([g_z, g_pre], 1)
+    g_a1e = row(gzp, wms.T) * (1.0 - h1 * h1)
+    g_wms = grad(h1.T, gzp)
+    return elbo, (grad(xb.T, g_a1e), csum(g_a1e), g_wms[:, :z], csum(g_z),
+                  g_wms[:, z:], csum(g_pre), grad(zl.T, g_a1d),
+                  csum(g_a1d), grad(hd.T, g_mx), csum(g_mx),
+                  (scale * torch.sum(r * r * inv_s2 - 1.0)).reshape(1, 1))
+
+
+@pytest.mark.parametrize("row_split,grad_split,within", [
+    (True, True, True), (False, False, False), (True, False, False)])
+def test_operand_split_precision(row_split, grad_split, within):
+    """The kernel's tensor-core arithmetic emulated at the bench widths (D
+    128, H 256, Z 32, the model's init; 64 rows of the batch) against the
+    plain float32 step, with chip_smoke.py phase 2's limits (each gradient
+    within 1e-4 |g| + 1e-5 max|g|, the loss within rel 1e-4): the
+    three-pass split holds them with more than 3x margin (worst err/tol
+    ~0.05); one TF32 pass everywhere misses by ~40x, and one pass on the
+    weight-gradient products alone by ~17x."""
+    cfg = tdlgm.Config(num_data=4096, data_dim=128, latent_dim=32,
+                       hidden=256, batch_size=64, device="cpu")
+    x = torch.as_tensor(tdlgm.make_data(cfg))
+    p0, _, _ = tdlgm.fused_init(cfg, torch.Generator().manual_seed(0))
+    params = tuple(p0[k] for k in tfv.LEAVES)
+    rng = np.random.default_rng(1)
+    xb = x[torch.as_tensor(rng.integers(0, cfg.num_data, cfg.batch_size))]
+    eps = torch.as_tensor(rng.standard_normal(
+        (cfg.batch_size, cfg.latent_dim)).astype(np.float32))
+    scale = 65_536 / cfg.batch_size
+    want_e, want = tfv._step_math(params, xb, eps, scale)
+    got_e, got = _emulated_step_math(params, xb, eps, scale, row_split,
+                                     grad_split)
+    worst = max(float(((g - w).abs()
+                       / (1e-4 * w.abs() + 1e-5 * w.abs().max())).max())
+                for g, w in zip(got, want))
+    assert abs(float(got_e - want_e)) <= 1e-4 * abs(float(want_e))
+    if within:
+        assert worst <= 1.0 / 3.0, worst
+    else:
+        assert worst > 1.0, worst
+
+
+def _ffma_design_takes(d, h, z, b):
+    """Whether the earlier fp32 FFMA design took the shape: a batch in
+    whole blocks of 8 rows, and those rows' buffers within the 227 KB of
+    shared memory a block may hold."""
+    return b % 8 == 0 and 4 * 8 * (2 * d + 3 * h + 6 * z) <= 232448
+
+
+def test_kernel_takes_every_shape_of_the_ffma_design():
+    """Every shape the FFMA design took over a grid of batches and widths
+    passes the wrapper's check: the tensor-core kernel pads any width to
+    whole tiles and keeps the row blocks of a shape too wide for shared
+    memory in the device scratch, so the batch's multiple of 8 is the only
+    rule left (``test_kernel_matches_plain_at_other_shapes`` runs such a
+    shape on the card)."""
+    taken = 0
+    for b in (8, 24, 256, 1024):
+        for d in (1, 7, 128, 200):
+            for h in (3, 64, 256, 300):
+                for z in (1, 3, 8, 32, 40):
+                    if not _ffma_design_takes(d, h, z, b):
+                        continue
+                    taken += 1
+                    dims = tfv.FusedVAEDims(50, d, h, z, b)
+                    tree = {k: torch.zeros(s) for k, s in
+                            tfv.leaf_shapes(dims).items()}
+                    x = torch.zeros(50, d)
+                    assert tfv._check(x, tree, tree, tree, b) == dims
+    assert taken == 320
+    assert _ffma_design_takes(2000, 1000, 8, 24)   # OTHER_SHAPES' widest
+
+
 @pytest.mark.gpu
 def test_kernel_matches_plain():
     """On a CUDA card: the kernel's 5-step injected trajectory equals the
@@ -338,3 +497,84 @@ def test_kernel_matches_plain():
                                eps_stream=eps, lr=1e-2)
     np.testing.assert_allclose(got[3].cpu().numpy(), want[3].cpu().numpy(),
                                rtol=1e-4, atol=1e-3)
+
+
+# (N, D, H, Z, B) off the bench: ragged widths with a batch that is not a
+# multiple of 16; wider layers; a shape whose row blocks do not fit in
+# shared memory (the kernel's global instance)
+OTHER_SHAPES = [(300, 7, 37, 3, 24), (500, 33, 300, 40, 40),
+                (100, 2000, 1000, 8, 24)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", OTHER_SHAPES)
+def test_kernel_matches_plain_at_other_shapes(shape):
+    """On a CUDA card, at shapes off the bench: one injected step's
+    gradients within
+    chip_smoke.py phase 2's limits (1e-4 |g| + 1e-5 max|g|, loss rel 1e-4)
+    and a 5-step trajectory's losses within this file's tolerance of the
+    plain version on the card.  The parameters after 5 steps are compared
+    only at the test shape (``test_kernel_matches_plain``): Adam moves
+    each parameter by about lr whatever its gradient's size, so at the
+    wide shape (2M encoder weights from 24 rows) many entries whose
+    gradients nearly cancel between steps part by up to lr when the
+    float32 order of summation changes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    dims = tfv.FusedVAEDims(*shape)
+    params, m, v = _init(20, dims)
+    rng = np.random.default_rng(21)
+    x = torch.as_tensor(rng.normal(size=(dims.n, dims.d))
+                        .astype(np.float32), device=dev)
+    idx = torch.as_tensor(rng.integers(0, dims.n, (5, dims.b)), device=dev)
+    eps = torch.as_tensor(rng.normal(size=(5, dims.b, dims.z))
+                          .astype(np.float32), device=dev)
+    tp, tm, tv = ({k: torch.as_tensor(a, device=dev) for k, a in t.items()}
+                  for t in (params, m, v))
+    _, m1, _, l1 = tfv.fused_train_injected(x, tp, tm, tv,
+                                            idx_stream=idx[:1],
+                                            eps_stream=eps[:1], lr=1e-2)
+    elbo, grads = tfv._step_math(tuple(tp[k] for k in tfv.LEAVES),
+                                 x[idx[0]], eps[0], dims.n / dims.b)
+    for k, g in zip(tfv.LEAVES, grads):
+        err = (-m1[k] / 0.1 - g).abs()
+        tol = 1e-4 * g.abs() + 1e-5 * float(g.abs().max())
+        assert bool((err <= tol).all()), (k, float(err.max()))
+    assert abs(float(l1[0]) + float(elbo)) <= 1e-4 * abs(float(elbo))
+    got = tfv.fused_train_injected(x, tp, tm, tv, idx_stream=idx,
+                                   eps_stream=eps, lr=1e-2)
+    want = tfv.reference_train(x, tp, tm, tv, idx_stream=idx,
+                               eps_stream=eps, lr=1e-2)
+    np.testing.assert_allclose(got[3].cpu().numpy(), want[3].cpu().numpy(),
+                               rtol=1e-4, atol=1e-3)
+    for k in tfv.LEAVES:
+        assert bool(torch.isfinite(got[0][k]).all()), k
+
+
+@pytest.mark.gpu
+def test_kernel_repeats_bit_for_bit():
+    """On a CUDA card: two calls with the same inputs give the same bits,
+    through the Philox entry and the injected one (fixed-order sums, no
+    float atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    dims = tfv.FusedVAEDims(2000, 128, 256, 32, 1024)
+    params, m, v = _init(22, dims)
+    x = torch.as_tensor(np.random.default_rng(23).normal(
+        size=(dims.n, dims.d)).astype(np.float32), device=dev)
+    tp, tm, tv = ({k: torch.as_tensor(a, device=dev) for k, a in t.items()}
+                  for t in (params, m, v))
+    idx, eps = tkc.philox_streams(5, 0, 20, dims.b, dims.n, dims.z, dev)
+    for call in (
+            lambda: tfv.fused_train(x, tp, tm, tv, steps=20, lr=1e-3,
+                                    seed=5, batch=dims.b),
+            lambda: tfv.fused_train_injected(x, tp, tm, tv, idx_stream=idx,
+                                             eps_stream=eps, lr=1e-3)):
+        a, b = call(), call()
+        assert torch.equal(a[3], b[3])
+        for ta, tb in zip(a[:3], b[:3]):
+            for k in tfv.LEAVES:
+                assert torch.equal(ta[k], tb[k]), k
