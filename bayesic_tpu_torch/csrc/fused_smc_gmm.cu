@@ -12,34 +12,60 @@
 //   pe = -log Dirichlet(1)(w) - ldj_SB(uw) + |mu|^2/50 + sum_k s_k^2/8
 //        - sum_k us_k + const - beta ll,
 // the density of build_logjoint, constants included.  ll and its parameter
-// gradient are gmm_lik.cuh's; the pullback through the stick-breaking and
-// exp transforms is written out below.
+// gradient are gmm_lik.cuh's function; the pullback through the
+// stick-breaking and exp transforms is written out below.
 //
 // Semantics kept from the TPU kernel: momenta (pre-scaled) and log-uniforms
 // come in from outside; a transition accepts when log u < log a; the step
 // size adapts by dual averaging (t0 = 2, gamma 0.05, kappa 0.75, mu = log of
 // the carried step) on the mean accept probability of a block of 128
-// particles, so one CUDA block owns one such block and the mean is summed
-// in a fixed order (per warp, then over four warps), no atomics.  A last
-// block that is not full is padded as the TPU wrapper pads it: the missing
-// particles sit at q = 0 with zero momentum, are never accepted, and their
-// accept probabilities count in the block's mean.  The next stage's step is
-// the geometric mean of the blocks' averaged steps (taken by the wrapper).
-// Not ported: the 128-lane padding of q, the (D, N) transposed data with
-// masks, the column helpers and the (PB, 1) replicated step output.
+// particles.  A last block that is not full is padded as the TPU wrapper
+// pads it: the missing particles sit at q = 0 with zero momentum, are never
+// accepted, and their accept probabilities count in the block's mean.  The
+// next stage's step is the geometric mean of the blocks' averaged steps
+// (taken by the wrapper).  Not ported: the 128-lane padding of q, the
+// (D, N) transposed data with masks, the column helpers and the (PB, 1)
+// replicated step output.
 //
-// Layout: x (N D floats) and the block's state (q, grad, and the
-// trajectory's q, p, grad: 5 x 128 x dim floats) live in shared memory,
-// ~69 KB at N = 2000, D = 2, dim 11.  Each of the 16 warps evaluates 8
-// particles per potential evaluation, one at a time, its lanes striding
-// over the points; the leapfrog updates run over (particle, coordinate).
+// What bounds it: per (particle, point) and evaluation, K exps, the
+// responsibilities' reciprocal and the ~40 fp32 operations around them, K L
+// + 1 evaluations per stage: the SFU and the issue rate, not memory (the
+// data, N D floats, sits in each block's shared memory).  The design:
 //
-// What bounds it: the SFU, as gmm_lik.cuh says: K exps, a log and a
-// reciprocal per (particle, point) and evaluation, K L + 1 evaluations per
-// stage.  At P = 8192 there are 64 blocks for 132 SMs: the 128-particle
-// block is the semantics of the adaptation, not a tuning knob, so half the
-// card idles; splitting a block's points over a cluster is the later fix.
+// * A cluster of CL = 2 blocks per 128-particle adaptation block.  Each
+//   block owns 64 particles and its own copy of x.  The one value that
+//   crosses blocks is the adaptation block's mean accept, once per
+//   transition: every warp writes the fixed-order sum of its particles'
+//   accept probabilities into a slot of its block's shared memory (two
+//   slots, by the parity of t), the cluster synchronises, and every warp of
+//   every block reads all the slots through distributed shared memory and
+//   adds them in one fixed order, so all hold the same bits of the mean and
+//   of the adapted step; no atomics.  At P = 8192 that is 128 blocks, where
+//   one block per adaptation block filled 64 of the 132 SMs.
+// * Warp-owned particles: a warp owns PPW particles for the whole stage and
+//   runs their leapfrogs, energies and MH decisions with __syncwarp only
+//   (lane j holds coordinate j of each); the cluster barrier once per
+//   transition is the only barrier between warps.  Their state lives in the
+//   warp's rows of shared memory.  The K 3, D 2 instance runs 32 warps of
+//   two particles at 64 registers a thread; the generic one 16 warps of
+//   four, at 128 (its arrays spill at 64).
+// * The per-point loop (mutate_points) works in the log2 domain: log2 e is
+//   folded into each component's constants once per evaluation, so each
+//   component's exp is one ex2.approx of a non-positive argument (the
+//   largest is exactly 1), one rcp.approx gives the responsibilities, and
+//   the log of the sum is taken once per kChunk points, of their product
+//   (each sum lies in [1, K], so the product stays below 8^16 < 2^48), with
+//   the maxes summed apart.  gmm_lik.cuh's accumulate, which the likelihood
+//   kernels use, is not changed.  The PTX ISA's bounds (ex2 2 ulp, lg2
+//   2^-22 absolute, rcp 1 ulp) are held against float64 by
+//   tests/test_torch_fused_smc_gmm.py:test_mutation_arithmetic_precision.
+//   The loop can carry W particles through each point a lane loads; W = 1
+//   in both instances, as two particles a group at 16 warps was slower than
+//   one at 32 (tools/smc_mutation_ablation.py times the alternatives).
+// * No tensor cores: D <= 4 gives no product worth an mma, and the expanded
+//   |x|^2 - 2 mu.x + |mu|^2 cancels when a component sits on the data.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -47,11 +73,20 @@
 
 #include "gmm_lik.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int MT_NT = 512;               // threads per block
-constexpr int MT_WARPS = MT_NT / 32;
-constexpr int PB = 128;                  // particles per adaptation block
+constexpr int PB = 128;               // particles per adaptation block
+constexpr int CL = 2;                 // blocks per cluster (per PB)
+constexpr int PPC = PB / CL;          // particles per block
+// warps per block: the K 3, D 2 instance fits 64 registers a thread, the
+// generic one's K <= 8, D <= 4 arrays need 128
+constexpr int NW_EXACT = 32;
+constexpr int NW_GENERIC = 16;
+constexpr int kChunk = 16;            // points a lane multiplies before a log
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.69314718055994531f;
 
 struct MutateArgs {
   const float *q, *mom, *log_u, *m_inv, *x, *beta, *eps0;
@@ -60,195 +95,406 @@ struct MutateArgs {
   float target, cst;
 };
 
+__device__ __forceinline__ float ex2_approx(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ float lg2_approx(float v) {
+  float r;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ float rcp_approx(float v) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
 __device__ __forceinline__ float softplus(float t) {
   return fmaxf(t, 0.f) + log1pf(expf(-fabsf(t)));
 }
 
-// pe, grad and ll of every particle of the block at qs (PB, dim) in shared
-// memory; ends with a barrier.
-template <int MK, int MD>
-__device__ void eval_block(const float* qs, float* gs, float* pes, float* lls,
-                           const float* xs, float beta, const MutateArgs& A,
-                           int k, int d) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int dim = (k - 1) + k * d + k, off_mu = k - 1, off_us = k - 1 + k * d;
-  for (int i = warp; i < PB; i += MT_WARPS) {
-    const float* qi = qs + i * dim;
-    // stick breaking: log w_j = log z_j + sum_{i<j} log(1 - z_i), the last
-    // weight the remainder; ldj = sum_j log z_j + log(1-z_j) + that sum
-    float z[MK], logw[MK], sg[MK], inv_s2[MK];
-    float cum = 0.f, ldj = 0.f;
+// W particles' mixtures in the log2 domain: log2 of component k's weighted
+// density at x is c_k - h_k |x - mu_k|^2.
+template <int MK, int MD, int W>
+struct Mix2 {
+  float mu[W][MK][MD];
+  float c[W][MK];   // log2 e (log w_k - D log s_k - D/2 log 2pi)
+  float h[W][MK];   // log2 e / (2 s_k^2)
+};
+
+// W particles' per-lane sums over the points; ll in log2 units (the maxes
+// plus the logs of the chunk products).
+template <int MK, int MD, int W>
+struct Acc2 {
+  float ll[W];
+  float r[W][MK], rq[W][MK], rdx[W][MK][MD];
+};
+
+// One particle's transformed parameters: the stick-breaking z_j and log
+// weights, its log-Jacobian, and the scales.
+template <int MK>
+struct Terms {
+  float z[MK], logw[MK], sg[MK], inv_s2[MK];
+  float ldj;
+};
+
+template <int MK>
+__device__ __forceinline__ Terms<MK> particle_terms(const float* qi, int k,
+                                                    int off_us) {
+  // stick breaking: log w_j = log z_j + sum_{i<j} log(1 - z_i), the last
+  // weight the remainder; ldj = sum_j log z_j + log(1-z_j) + that sum
+  Terms<MK> t;
+  float cum = 0.f;
+  t.ldj = 0.f;
 #pragma unroll
-    for (int j = 0; j < MK; ++j) {
-      if (j < k - 1) {
-        const float t = qi[j] - logf((float)(k - 1 - j));
-        z[j] = 1.f / (1.f + expf(-t));
-        const float lz = -softplus(-t), l1mz = -softplus(t);
-        logw[j] = lz + cum;
-        ldj += lz + l1mz + cum;
-        cum += l1mz;
-      } else if (j == k - 1) {
-        logw[j] = cum;
+  for (int j = 0; j < MK; ++j) {
+    t.z[j] = 0.f;
+    t.logw[j] = 0.f;
+    if (j < k - 1) {
+      const float v = qi[j] - logf((float)(k - 1 - j));
+      t.z[j] = 1.f / (1.f + expf(-v));
+      const float lz = -softplus(-v), l1mz = -softplus(v);
+      t.logw[j] = lz + cum;
+      t.ldj += lz + l1mz + cum;
+      cum += l1mz;
+    } else if (j == k - 1) {
+      t.logw[j] = cum;
+    }
+    const float us = j < k ? qi[off_us + j] : 0.f;
+    t.sg[j] = expf(us);
+    t.inv_s2[j] = 1.f / (t.sg[j] * t.sg[j]);
+  }
+  return t;
+}
+
+// Add the points lane, lane + 32, ... < n of the row-major (n, d) array xs
+// to the W particles' sums.
+template <int MK, int MD, bool EXACT, int W>
+__device__ __forceinline__ void mutate_points(const Mix2<MK, MD, W>& m,
+                                              const float* __restrict__ xs,
+                                              int lane, int n, int k, int d,
+                                              Acc2<MK, MD, W>& s) {
+  for (int n0 = lane; n0 < n; n0 += 32 * kChunk) {
+    const int n1 = min(n, n0 + 32 * kChunk);
+    float prod[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) prod[w] = 1.f;
+#pragma unroll 1
+    for (int i = n0; i < n1; i += 32) {
+      float xv[MD];
+      if constexpr (EXACT && MD == 2) {
+        const float2 v = reinterpret_cast<const float2*>(xs)[i];
+        xv[0] = v.x;
+        xv[1] = v.y;
+      } else {
+#pragma unroll
+        for (int j = 0; j < MD; ++j) xv[j] = j < d ? xs[i * d + j] : 0.f;
       }
-    }
-    Mix<MK, MD> m;
 #pragma unroll
-    for (int kk = 0; kk < MK; ++kk) {
-      const float us = kk < k ? qi[off_us + kk] : 0.f;
-      sg[kk] = expf(us);
-      inv_s2[kk] = 1.f / (sg[kk] * sg[kk]);
-      m.c[kk] = kk < k ? logw[kk] - (float)d * us - (float)d * kHalfLog2Pi
-                       : 0.f;
-      m.h[kk] = 0.5f * inv_s2[kk];
+      for (int w = 0; w < W; ++w) {
+        float dx[MK][MD], qd[MK], e[MK];
+        float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < MD; ++j)
-        m.mu[kk][j] = kk < k && j < d ? qi[off_mu + kk * d + j] : 0.f;
-    }
-    Sums<MK, MD> s;
-    s.zero();
-    accumulate<MK, MD, true, true>(m, xs, lane, A.n, k, d, s);
-    reduce<MK, MD, true, true>(s, k, d);
-    if (lane == 0) {
-      float* gi = gs + i * dim;
-      float pe = A.cst - ldj - beta * s.ll, suf = 0.f;
+        for (int kk = 0; kk < MK; ++kk) {
+          if (kk < k) {
+            float qq = 0.f;
 #pragma unroll
-      for (int kk = MK - 1; kk >= 0; --kk) {
-        if (kk < k) {
-          if (kk < k - 1) {
-            // d ll / d uw_j = r_j (1 - z_j) - z_j sum_{i>j} r_i;
-            // d ldj / d uw_j = (1 - 2 z_j) - z_j (K - 2 - j)
-            const float zj = z[kk];
-            const float dll = s.r[kk] * (1.f - zj) - zj * suf;
-            const float dldj = (1.f - 2.f * zj) - zj * (float)(k - 2 - kk);
-            gi[kk] = -dldj - beta * dll;
-          }
-          suf += s.r[kk];
-          const float us = qi[off_us + kk];
-          pe += sg[kk] * sg[kk] * 0.125f - us;
-          gi[off_us + kk] =
-              sg[kk] * sg[kk] * 0.25f - 1.f -
-              beta * (s.rq[kk] * inv_s2[kk] - (float)d * s.r[kk]);
-#pragma unroll
-          for (int j = 0; j < MD; ++j) {
-            if (j < d) {
-              const float mu = m.mu[kk][j];
-              pe += mu * mu * 0.02f;
-              gi[off_mu + kk * d + j] =
-                  mu * 0.04f - beta * (s.rdx[kk][j] * inv_s2[kk]);
+            for (int j = 0; j < MD; ++j) {
+              dx[kk][j] = xv[j] - m.mu[w][kk][j];
+              if (j < d) qq = fmaf(dx[kk][j], dx[kk][j], qq);
             }
+            qd[kk] = qq;
+            e[kk] = fmaf(-qq, m.h[w][kk], m.c[w][kk]);
+            mx = fmaxf(mx, e[kk]);
+          }
+        }
+        float se = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < MK; ++kk) {
+          if (kk < k) {
+            e[kk] = ex2_approx(e[kk] - mx);
+            se += e[kk];
+          }
+        }
+        prod[w] *= se;
+        s.ll[w] += mx;
+        const float inv = rcp_approx(se);
+#pragma unroll
+        for (int kk = 0; kk < MK; ++kk) {
+          if (kk < k) {
+            const float rr = e[kk] * inv;
+            s.r[w][kk] += rr;
+            s.rq[w][kk] = fmaf(rr, qd[kk], s.rq[w][kk]);
+#pragma unroll
+            for (int j = 0; j < MD; ++j)
+              if (j < d) s.rdx[w][kk][j] = fmaf(rr, dx[kk][j], s.rdx[w][kk][j]);
           }
         }
       }
-      pes[i] = pe;
-      lls[i] = s.ll;
     }
+#pragma unroll
+    for (int w = 0; w < W; ++w) s.ll[w] += lg2_approx(prod[w]);
   }
-  __syncthreads();
 }
 
-template <int MK, int MD, bool EXACT>
-__global__ void __launch_bounds__(MT_NT) smc_gmm_mutate_kernel(MutateArgs A) {
-  extern __shared__ float sm[];
+// pe, grad and ll of the W particles at qs (W rows of dim floats in shared
+// memory): every lane computes the sums' totals and pe; lane j writes
+// gradient coordinate j (and j + 32, ...); lane 0 writes pe and ll.
+template <int MK, int MD, bool EXACT, int W>
+__device__ __forceinline__ void eval_group(const float* qs, float* gs,
+                                           float* pes, float* lls,
+                                           const float* xs, float beta,
+                                           const MutateArgs& A, int k, int d,
+                                           int lane) {
+  const int dim = (k - 1) + k * d + k, off_mu = k - 1, off_us = off_mu + k * d;
+  Mix2<MK, MD, W> m;
+  Acc2<MK, MD, W> s;
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const float* qi = qs + w * dim;
+    const Terms<MK> t = particle_terms<MK>(qi, k, off_us);
+#pragma unroll
+    for (int kk = 0; kk < MK; ++kk) {
+      const float us = kk < k ? qi[off_us + kk] : 0.f;
+      m.c[w][kk] = kk < k ? kLog2e * (t.logw[kk] - (float)d * us -
+                                      (float)d * kHalfLog2Pi)
+                          : 0.f;
+      m.h[w][kk] = kLog2e * 0.5f * t.inv_s2[kk];
+#pragma unroll
+      for (int j = 0; j < MD; ++j)
+        m.mu[w][kk][j] = kk < k && j < d ? qi[off_mu + kk * d + j] : 0.f;
+      s.r[w][kk] = s.rq[w][kk] = 0.f;
+#pragma unroll
+      for (int j = 0; j < MD; ++j) s.rdx[w][kk][j] = 0.f;
+    }
+    s.ll[w] = 0.f;
+  }
+  mutate_points<MK, MD, EXACT, W>(m, xs, lane, A.n, k, d, s);
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    s.ll[w] = warp_sum(s.ll[w]);
+#pragma unroll
+    for (int kk = 0; kk < MK; ++kk) {
+      if (kk < k) {
+        s.r[w][kk] = warp_sum(s.r[w][kk]);
+        s.rq[w][kk] = warp_sum(s.rq[w][kk]);
+#pragma unroll
+        for (int j = 0; j < MD; ++j)
+          if (j < d) s.rdx[w][kk][j] = warp_sum(s.rdx[w][kk][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const float* qi = qs + w * dim;
+    const Terms<MK> t = particle_terms<MK>(qi, k, off_us);
+    const float ll = kLn2 * s.ll[w];
+    float pe = A.cst - t.ldj - beta * ll;
+#pragma unroll
+    for (int kk = 0; kk < MK; ++kk) {
+      if (kk < k) {
+        pe += t.sg[kk] * t.sg[kk] * 0.125f - qi[off_us + kk];
+#pragma unroll
+        for (int j = 0; j < MD; ++j) {
+          if (j < d) {
+            const float mu = qi[off_mu + kk * d + j];
+            pe += mu * mu * 0.02f;
+          }
+        }
+      }
+    }
+    for (int e = lane; e < dim; e += 32) {
+      float gv;
+      if (e < off_mu) {
+        // d ll / d uw_j = r_j (1 - z_j) - z_j sum_{i>j} r_i;
+        // d ldj / d uw_j = (1 - 2 z_j) - z_j (K - 2 - j)
+        float zj = 0.f, rj = 0.f, suf = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < MK; ++kk) {
+          if (kk == e) {
+            zj = t.z[kk];
+            rj = s.r[w][kk];
+          } else if (kk > e && kk < k) {
+            suf += s.r[w][kk];
+          }
+        }
+        const float dll = rj * (1.f - zj) - zj * suf;
+        const float dldj = (1.f - 2.f * zj) - zj * (float)(k - 2 - e);
+        gv = -dldj - beta * dll;
+      } else if (e < off_us) {
+        float rdx = 0.f, inv_s2 = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < MK; ++kk) {
+#pragma unroll
+          for (int j = 0; j < MD; ++j) {
+            if (kk < k && j < d && off_mu + kk * d + j == e) {
+              rdx = s.rdx[w][kk][j];
+              inv_s2 = t.inv_s2[kk];
+            }
+          }
+        }
+        gv = qi[e] * 0.04f - beta * (rdx * inv_s2);
+      } else {
+        float r = 0.f, rq = 0.f, sg = 0.f, inv_s2 = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < MK; ++kk) {
+          if (off_us + kk == e) {
+            r = s.r[w][kk];
+            rq = s.rq[w][kk];
+            sg = t.sg[kk];
+            inv_s2 = t.inv_s2[kk];
+          }
+        }
+        gv = sg * sg * 0.25f - 1.f - beta * (rq * inv_s2 - (float)d * r);
+      }
+      gs[w * dim + e] = gv;
+    }
+    if (lane == 0) {
+      pes[w] = pe;
+      lls[w] = ll;
+    }
+  }
+}
+
+// pe, grad and ll of the warp's PPW particles, W at a time; ends with a
+// __syncwarp.
+template <int MK, int MD, bool EXACT, int W, int PPW>
+__device__ __forceinline__ void eval_warp(const float* qs, float* gs,
+                                          float* pes, float* lls,
+                                          const float* xs, float beta,
+                                          const MutateArgs& A, int k, int d,
+                                          int dim, int lane) {
+  for (int i = 0; i < PPW; i += W)
+    eval_group<MK, MD, EXACT, W>(qs + i * dim, gs + i * dim, pes + i, lls + i,
+                                 xs, beta, A, k, d, lane);
+  __syncwarp();
+}
+
+// sum_j v_j^2 m_inv_j over the lanes' coordinates; the same bits on every
+// lane.
+__device__ __forceinline__ float kinetic(const float* v, const float* minv,
+                                         int dim, int lane) {
+  float kin = 0.f;
+  for (int e = lane; e < dim; e += 32) kin = fmaf(v[e] * v[e], minv[e], kin);
+  return warp_sum(kin);
+}
+
+template <int MK, int MD, bool EXACT, int W, int NW>
+__global__ void __launch_bounds__(NW * 32, 1)
+    smc_gmm_mutate_kernel(MutateArgs A) {
+  constexpr int NT = NW * 32, PPW = PPC / NW;
+  static_assert(PPW * NW == PPC && PPW % W == 0,
+                "a warp's particles split into groups of W");
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  cg::cluster_group cluster = cg::this_cluster();
   const int k = EXACT ? MK : A.k, d = EXACT ? MD : A.d;
   const int dim = (k - 1) + k * d + k, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int base = blockIdx.x * PB, p = A.p, kmut = A.kmut;
-  const int nf = PB * dim;
+  const int p = A.p, kmut = A.kmut, n = A.n;
+  const int rank = (int)cluster.block_rank();
+  const int blk = blockIdx.x / CL;           // the adaptation block
+  const int row0 = blk * PB + rank * PPC;    // this block's first particle
+  const int nf = PPC * dim;
   float* xs = sm;
-  float* q = xs + A.n * d;
+  float* q = xs + ((n * d + 3) & ~3);
   float* g = q + nf;
   float* qq = g + nf;
   float* pp = qq + nf;
   float* gg = pp + nf;
   float* minv = gg + nf;
   float* pe = minv + dim;
-  float* ll = pe + PB;
-  float* pen = ll + PB;
-  float* lln = pen + PB;
-  float* h0 = lln + PB;
-  float* acc = h0 + PB;
-  float* av = acc + PB;
-  float* take = av + PB;
-  float* part = take + PB;
+  float* ll = pe + PPC;
+  float* pen = ll + PPC;
+  float* lln = pen + PPC;
+  float* h0 = lln + PPC;
+  float* acc = h0 + PPC;
+  float* wpart = acc + PPC;                  // [2][NW]: by the parity of t
 
-  for (int i = tid; i < A.n * d; i += MT_NT) xs[i] = A.x[i];
-  for (int j = tid; j < dim; j += MT_NT) minv[j] = A.m_inv[j];
-  for (int e = tid; e < nf; e += MT_NT) {
-    const int row = base + e / dim;
+  for (int i = tid; i < n * d; i += NT) xs[i] = A.x[i];
+  for (int j = tid; j < dim; j += NT) minv[j] = A.m_inv[j];
+  for (int e = tid; e < nf; e += NT) {
+    const int row = row0 + e / dim;
     q[e] = row < p ? A.q[(size_t)row * dim + e % dim] : 0.f;
   }
-  for (int i = tid; i < PB; i += MT_NT) acc[i] = 0.f;
+  for (int i = tid; i < PPC; i += NT) acc[i] = 0.f;
   const float beta = *A.beta;
   const float log_eps0 = logf(*A.eps0);
   __syncthreads();
-  eval_block<MK, MD>(q, g, pe, ll, xs, beta, A, k, d);
+
+  // the warp's particles: local rows i0 .. i0 + PPW - 1
+  const int i0 = warp * PPW, f0 = i0 * dim;
+  eval_warp<MK, MD, EXACT, W, PPW>(q + f0, g + f0, pe + i0, ll + i0, xs,
+                                   beta, A, k, d, dim, lane);
 
   float log_step = log_eps0, log_avg = log_eps0, grad_avg = 0.f;
   for (int t = 0; t < kmut; ++t) {
     const float eps = expf(log_step);
-    for (int e = tid; e < nf; e += MT_NT) {
-      const int row = base + e / dim;
-      pp[e] = row < p ? A.mom[((size_t)t * p + row) * dim + e % dim] : 0.f;
-      qq[e] = q[e];
-      gg[e] = g[e];
-    }
-    __syncthreads();
-    for (int i = tid; i < PB; i += MT_NT) {
-      float kin = 0.f;
-      for (int j = 0; j < dim; ++j) {
-        const float v = pp[i * dim + j];
-        kin = fmaf(v * v, minv[j], kin);
+    for (int i = 0; i < PPW; ++i) {
+      const int row = row0 + i0 + i, f = f0 + i * dim;
+      for (int e = lane; e < dim; e += 32) {
+        pp[f + e] =
+            row < p ? A.mom[((size_t)t * p + row) * dim + e] : 0.f;
+        qq[f + e] = q[f + e];
+        gg[f + e] = g[f + e];
       }
-      h0[i] = pe[i] + 0.5f * kin;
+      const float kin = kinetic(pp + f, minv, dim, lane);
+      if (lane == 0) h0[i0 + i] = pe[i0 + i] + 0.5f * kin;
     }
-    __syncthreads();
     for (int l = 0; l < A.lsteps; ++l) {
-      for (int e = tid; e < nf; e += MT_NT) {
-        pp[e] -= 0.5f * eps * gg[e];
-        qq[e] += eps * minv[e % dim] * pp[e];
+      for (int i = 0; i < PPW; ++i) {
+        const int f = f0 + i * dim;
+        for (int e = lane; e < dim; e += 32) {
+          pp[f + e] -= 0.5f * eps * gg[f + e];
+          qq[f + e] += eps * minv[e] * pp[f + e];
+        }
       }
-      __syncthreads();
-      eval_block<MK, MD>(qq, gg, pen, lln, xs, beta, A, k, d);
-      for (int e = tid; e < nf; e += MT_NT) pp[e] -= 0.5f * eps * gg[e];
-      __syncthreads();
+      __syncwarp();
+      eval_warp<MK, MD, EXACT, W, PPW>(qq + f0, gg + f0, pen + i0, lln + i0,
+                                       xs, beta, A, k, d, dim, lane);
+      for (int i = 0; i < PPW; ++i) {
+        const int f = f0 + i * dim;
+        for (int e = lane; e < dim; e += 32)
+          pp[f + e] -= 0.5f * eps * gg[f + e];
+      }
     }
-    for (int i = tid; i < PB; i += MT_NT) {
-      float kin = 0.f;
-      for (int j = 0; j < dim; ++j) {
-        const float v = pp[i * dim + j];
-        kin = fmaf(v * v, minv[j], kin);
-      }
-      float delta = pen[i] + 0.5f * kin - h0[i];
+    // MH in log space; every lane reaches the same decision
+    float a_warp = 0.f;
+    for (int i = 0; i < PPW; ++i) {
+      const int row = row0 + i0 + i, f = f0 + i * dim;
+      const float kin = kinetic(pp + f, minv, dim, lane);
+      float delta = pen[i0 + i] + 0.5f * kin - h0[i0 + i];
       if (isnan(delta)) delta = INFINITY;
       const float log_a = fminf(0.f, -delta);
       const float a = expf(log_a);
-      const int row = base + i;
       const float lu = row < p ? A.log_u[(size_t)row * kmut + t] : 0.f;
-      const bool tk = lu < log_a;
-      av[i] = a;
-      acc[i] += a;
-      take[i] = tk ? 1.f : 0.f;
-      if (tk) {
-        pe[i] = pen[i];
-        ll[i] = lln[i];
+      a_warp += a;
+      if (lu < log_a) {
+        for (int e = lane; e < dim; e += 32) {
+          q[f + e] = qq[f + e];
+          g[f + e] = gg[f + e];
+        }
+        if (lane == 0) {
+          pe[i0 + i] = pen[i0 + i];
+          ll[i0 + i] = lln[i0 + i];
+        }
       }
+      if (lane == 0) acc[i0 + i] += a;
     }
-    __syncthreads();
-    for (int e = tid; e < nf; e += MT_NT) {
-      if (take[e / dim] != 0.f) {
-        q[e] = qq[e];
-        g[e] = gg[e];
-      }
-    }
-    if (warp < PB / 32) {
-      const float v = warp_sum(av[warp * 32 + lane]);
-      if (lane == 0) part[warp] = v;
-    }
-    __syncthreads();
-    float a_sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < PB / 32; ++w) a_sum += part[w];
-    const float a_mean = a_sum / (float)PB;
+    __syncwarp();
+    // the adaptation block's mean accept: each warp's sum, then every warp
+    // adds all CL * NW of them in one fixed order
+    float* slot = wpart + (t & 1) * NW;
+    if (lane == 0) slot[warp] = a_warp;
+    cluster.sync();
+    float a_part = 0.f;
+    for (int j = lane; j < CL * NW; j += 32)
+      a_part += cluster.map_shared_rank(slot, j / NW)[j % NW];
+    const float a_mean = warp_sum(a_part) / (float)PB;
     // dual averaging: Nesterov's, as infer/mcmc/adapt.da_update at t0 = 2
     const float t2 = (float)(t + 1);
     const float eta_h = 1.f / (t2 + 2.f);
@@ -257,24 +503,65 @@ __global__ void __launch_bounds__(MT_NT) smc_gmm_mutate_kernel(MutateArgs A) {
     const float eta_x = expf(-0.75f * logf(t2));
     log_avg = eta_x * log_step + (1.f - eta_x) * log_avg;
   }
-  __syncthreads();
-  for (int e = tid; e < nf; e += MT_NT) {
-    const int row = base + e / dim;
-    if (row < p) A.q_out[(size_t)row * dim + e % dim] = q[e];
-  }
-  for (int i = tid; i < PB; i += MT_NT) {
-    const int row = base + i;
+  __syncwarp();
+  for (int i = 0; i < PPW; ++i) {
+    const int row = row0 + i0 + i, f = f0 + i * dim;
     if (row < p) {
-      A.ll_out[row] = ll[i];
-      A.acc_out[row] = acc[i] / (float)kmut;
+      for (int e = lane; e < dim; e += 32)
+        A.q_out[(size_t)row * dim + e] = q[f + e];
+      if (lane == 0) {
+        A.ll_out[row] = ll[i0 + i];
+        A.acc_out[row] = acc[i0 + i] / (float)kmut;
+      }
     }
   }
-  if (tid == 0) A.eps_out[blockIdx.x] = expf(log_avg);
+  if (rank == 0 && tid == 0) A.eps_out[blk] = expf(log_avg);
+  // a peer may still be reading this block's slots
+  cluster.sync();
+}
+
+bool exact_instance(int k, int d) { return k == 3 && d == 2; }
+
+int warps(int k, int d) {
+  return exact_instance(k, d) ? NW_EXACT : NW_GENERIC;
 }
 
 size_t smem_bytes(int n, int k, int d) {
   const size_t dim = (k - 1) + k * d + k;
-  return 4 * ((size_t)n * d + 5 * PB * dim + dim + 8 * PB + PB / 32);
+  return 4 * ((((size_t)n * d + 3) & ~(size_t)3) + 5 * PPC * dim + dim +
+              6 * PPC + 2 * warps(k, d));
+}
+
+// The launch: one cluster of CL blocks per adaptation block.
+template <int MK, int MD, bool EXACT, int W, int NW>
+cudaError_t launch(const MutateArgs& A, size_t bytes, cudaStream_t st,
+                   int* max_clusters) {
+  auto kernel = smc_gmm_mutate_kernel<MK, MD, EXACT, W, NW>;
+  cudaError_t err = gmm_prepare(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL * ((A.p + PB - 1) / PB));
+  cfg.blockDim = dim3(NW * 32);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (max_clusters) return cudaOccupancyMaxActiveClusters(max_clusters, kernel,
+                                                          &cfg);
+  return cudaLaunchKernelEx(&cfg, kernel, A);
+}
+
+cudaError_t dispatch(const MutateArgs& A, size_t bytes, cudaStream_t st,
+                     int* max_clusters) {
+  if (exact_instance(A.k, A.d))
+    return launch<3, 2, true, 1, NW_EXACT>(A, bytes, st, max_clusters);
+  return launch<GMM_MAXK, GMM_MAXD, false, 1, NW_GENERIC>(A, bytes, st,
+                                                          max_clusters);
 }
 
 }  // namespace
@@ -285,6 +572,25 @@ extern "C" {
 size_t smc_gmm_mutate_smem_bytes(int n, int k, int d) {
   const size_t b = smem_bytes(n, k, d);
   return b > kGmmMaxSmem ? 0 : b;
+}
+
+// The launch geometry at (n, k, d): out[0] blocks per cluster, out[1]
+// threads per block, out[2] particles per warp, out[3] the clusters that
+// can be resident at once (cudaOccupancyMaxActiveClusters).  Returns a
+// cudaError_t.
+int smc_gmm_mutate_geometry(int n, int k, int d, int* out) {
+  if (n <= 0 || k < 2 || k > GMM_MAXK || d < 1 || d > GMM_MAXD)
+    return cudaErrorInvalidValue;
+  const size_t bytes = smem_bytes(n, k, d);
+  MutateArgs A{};
+  A.p = PB;
+  A.n = n;
+  A.k = k;
+  A.d = d;
+  out[0] = CL;
+  out[1] = 32 * warps(k, d);
+  out[2] = PPC / warps(k, d);
+  return dispatch(A, bytes, nullptr, &out[3]);
 }
 
 // One SMC stage's mutation for p particles: q (p, dim), mom (kmut, p, dim)
@@ -303,23 +609,12 @@ int smc_gmm_mutate(const float* q, const float* mom, const float* log_u,
   if (p <= 0 || n <= 0 || k < 2 || k > GMM_MAXK || d < 1 || d > GMM_MAXD ||
       kmut < 1 || lsteps < 1)
     return cudaErrorInvalidValue;
-  const size_t bytes = smem_bytes(n, k, d);
   const MutateArgs A{q, mom, log_u, m_inv, x, beta, eps0, q_out, ll_out,
                      acc_out, eps_out, p, n, k, d, kmut, lsteps, target, cst};
-  const dim3 grid((p + PB - 1) / PB);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream_ptr);
-  cudaError_t err;
-  if (k == 3 && d == 2) {
-    err = gmm_prepare(smc_gmm_mutate_kernel<3, 2, true>, bytes);
-    if (err != cudaSuccess) return err;
-    smc_gmm_mutate_kernel<3, 2, true><<<grid, MT_NT, bytes, st>>>(A);
-  } else {
-    err = gmm_prepare(smc_gmm_mutate_kernel<GMM_MAXK, GMM_MAXD, false>,
-                      bytes);
-    if (err != cudaSuccess) return err;
-    smc_gmm_mutate_kernel<GMM_MAXK, GMM_MAXD, false>
-        <<<grid, MT_NT, bytes, st>>>(A);
-  }
+  const cudaError_t err = dispatch(A, smem_bytes(n, k, d),
+                                   static_cast<cudaStream_t>(stream_ptr),
+                                   nullptr);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 

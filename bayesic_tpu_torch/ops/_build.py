@@ -100,6 +100,8 @@ def _declare(lib):
     lib.gmm_loglik_vg.restype = i32
     lib.smc_gmm_mutate_smem_bytes.argtypes = [i32] * 3
     lib.smc_gmm_mutate_smem_bytes.restype = ctypes.c_size_t
+    lib.smc_gmm_mutate_geometry.argtypes = [i32] * 3 + [vp]
+    lib.smc_gmm_mutate_geometry.restype = i32
     lib.smc_gmm_mutate.argtypes = [vp] * 11 + [i32] * 6 + [f32, f32, vp]
     lib.smc_gmm_mutate.restype = i32
     lib.fused_linreg_train.argtypes = (

@@ -29,6 +29,12 @@ population that is not a multiple of 128 is padded with particles at q = 0
 with zero momentum that are never accepted and whose accept probabilities
 count in their block's mean.  The TPU's 128-lane padding of q is not
 ported: the particles carry their real dim coordinates.
+
+The kernel runs one cluster of ``CLUSTER`` blocks per 128-particle block,
+of ``THREADS_EXACT`` threads at K = 3, D = 2 and ``THREADS_GENERIC`` at
+the other shapes; ``launch_geometry`` gives its shape at P particles and
+``device_geometry`` the library's own, with the clusters the card can hold
+at once.
 """
 
 from __future__ import annotations
@@ -43,10 +49,17 @@ from .fused_nuts import _ptr, _raise, _stream
 from .gmm_logprob import MAX_COMPONENTS, MAX_DATA_DIM
 
 __all__ = ["make_gmm_potential_flat", "mutation_core", "fused_gmm_mutate",
-           "make_batched_mutation", "potential_constant", "PB"]
+           "make_batched_mutation", "potential_constant", "launch_geometry",
+           "device_geometry", "PB", "CLUSTER", "THREADS_EXACT",
+           "THREADS_GENERIC", "CHUNK"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 PB = 128        # particles per adaptation block (PB of csrc/fused_smc_gmm.cu)
+CLUSTER = 2     # blocks per cluster, one cluster per adaptation block (CL)
+# threads per block: 32 warps at K = 3, D = 2, 16 at the generic instance
+# (32 * NW_EXACT, 32 * NW_GENERIC)
+THREADS_EXACT, THREADS_GENERIC = 1024, 512
+CHUNK = 16      # points whose sums a lane multiplies before one log (kChunk)
 
 # launches of the mutation kernel; one launch is one stage's mutation of
 # every particle
@@ -55,6 +68,31 @@ LAUNCHES = 0
 
 def _dim(k, d):
     return (k - 1) + k * d + k
+
+
+def launch_geometry(p, k, d):
+    """The kernel's launch for ``p`` particles of a (K, D) mixture: blocks
+    per cluster, threads per block, blocks in all and particles per
+    warp."""
+    threads = THREADS_EXACT if (k, d) == (3, 2) else THREADS_GENERIC
+    return dict(cluster=CLUSTER, threads=threads,
+                ctas=CLUSTER * -(-p // PB),
+                particles_per_warp=PB // (CLUSTER * threads // 32))
+
+
+def device_geometry(n, k, d):
+    """The library's launch geometry at (N, K, D), as ``launch_geometry``
+    names it (without ``ctas``), and ``max_active_clusters``: the clusters
+    that can be resident on the current card at once
+    (``cudaOccupancyMaxActiveClusters``).  Needs a CUDA card."""
+    import ctypes
+
+    lib = _build.load()
+    out = (ctypes.c_int * 4)()
+    _raise(lib.smc_gmm_mutate_geometry(n, k, d, out),
+           "smc_gmm_mutate_geometry")
+    return dict(zip(("cluster", "threads", "particles_per_warp",
+                     "max_active_clusters"), out))
 
 
 def potential_constant(k, d):

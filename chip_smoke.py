@@ -43,10 +43,12 @@ Phases 17-20, the GMM tempered-SMC path at its bench shape
 steps of 5 leapfrogs): check the three likelihood kernels (forward,
 backward, value+grad) against their plain versions at the bench shape and
 an odd one, and the fused mutation kernel against ``mutation_core`` on the
-same draws at three temperatures; run ``SMC`` in its four modes (generic,
+same draws at three temperatures (and its generic instance at K 4, D 3),
+with a second launch bit for bit; run ``SMC`` in its four modes (generic,
 kernels, fused on five paired seeds, split on one) and gate the posterior
 predictive and the paired log-evidence; time every kernel against its
-plain version and trace one stage of each mode.
+plain version (the mutation also on one 128-particle adaptation block,
+with its cluster launch's geometry) and trace one stage of each mode.
 
 Phases 21-22, the linear-regression path at its bench shape
 (``linreg.Config(n=16384, dim=64)``): check the fused linreg trainer's
@@ -137,6 +139,7 @@ GMM_SEEDS = (100, 101, 102, 103, 104)
 # accepted (the posterior narrows as beta grows, so the step shrinks)
 GMM_BETA_EPS = ((0.05, 0.1), (0.5, 0.04), (1.0, 0.03))
 GMM_ODD = dict(p=1001, n=1999)      # phase 17's odd shape
+GMM_GENERIC = (4, 3)    # phase 18's (K, D) of the generic kernel instance
 # phase 18 at K = 5: limits on the adaptation's outcome against the plain
 # core (per-block and pooled step rel err, mean accept abs err, share of
 # particles whose q' parts by more than 1e-3, ll' rel err of the others),
@@ -336,6 +339,72 @@ def _ptxas_summary(log):
     return "; ".join(
         f"{k} {v.get('regs', '?')} regs, {v.get('spill', '?')} B spill"
         for k, v in stats.items()) or "library already built"
+
+
+def _sass_loops(so, kernel):
+    """The innermost loops that hold exps (MUFU.EX2) in each instance of
+    ``kernel`` in the library ``so``, read from ``cuobjdump -sass``: per
+    loop, the (particle, point) pairs an iteration covers (its EX2 count
+    over the instance's component count, its first template argument) and
+    the SASS instructions per pair: all, FP32 (FFMA, FADD, FMUL, FMNMX),
+    MUFU, and the rest."""
+    from bayesic_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, name, labels = {}, None, {}
+    for line in sass.splitlines():
+        fn = re.match(r"\s*Function : (\S+)", line)
+        if fn:
+            name = fn.group(1) if kernel in fn.group(1) else None
+            if name:
+                funcs[name], labels[name] = [], {}
+            continue
+        if name is None:
+            continue
+        lab = re.match(r"\s*(\.L_x_\d+):", line)
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if lab:
+            labels[name][lab.group(1)] = None
+        elif ins:
+            off = int(ins.group(1), 16)
+            for lb, at in labels[name].items():
+                if at is None:
+                    labels[name][lb] = off
+            funcs[name].append((off, ins.group(2)))
+    out = []
+    for fname, body in funcs.items():
+        loops = []
+        for off, txt in body:
+            br = re.search(r"\bBRA(?:\.\S+)?\s+`?\(?(0x[0-9a-f]+|\.L_x_\d+)",
+                           txt)
+            if br:
+                tgt = br.group(1)
+                tgt = int(tgt, 16) if tgt.startswith("0x") \
+                    else labels[fname].get(tgt)
+                if tgt is not None and tgt < off:
+                    loops.append((tgt, off))
+        ops = {lp: [re.sub(r"^@!?U?P\w+\s+", "", t).split()[0]
+                    for o, t in body if lp[0] <= o <= lp[1]] for lp in loops}
+        ex2 = {lp: sum(op.startswith("MUFU.EX2") for op in v)
+               for lp, v in ops.items()}
+        inner = [lp for lp in loops if ex2[lp] and not any(
+            o != lp and ex2[o] and lp[0] <= o[0] and o[1] <= lp[1]
+            for o in loops)]
+        tmpl = re.findall(r"L[ib](\d+)E", fname.split("kernelI")[1])
+        for lp in inner:
+            v = ops[lp]
+            pairs = ex2[lp] / int(tmpl[0])
+            fp32 = sum(op.split(".")[0] in ("FFMA", "FADD", "FMUL", "FMNMX")
+                       for op in v)
+            mufu = sum(op.startswith("MUFU") for op in v)
+            out.append(f"{kernel}<{','.join(tmpl)}> loop of {len(v)} "
+                       f"instructions, {pairs:g} pairs: "
+                       f"{len(v) / pairs:.1f} a pair (FP32 "
+                       f"{fp32 / pairs:.1f}, MUFU {mufu / pairs:.2f}, other "
+                       f"{(len(v) - fp32 - mufu) / pairs:.1f})")
+    return "; ".join(out) or f"no {kernel} loop with MUFU.EX2 found"
 
 
 def _posterior(diag, torch, res, wall):
@@ -1274,12 +1343,53 @@ def _gmm_phases(torch, np, card, dev):
           "gradient err / max|g|): " + "; ".join(lines), flush=True)
 
     # -- 18. the mutation kernel against mutation_core --------------------
+    def near_truth(tr, p):
+        base = torch.cat([
+            StickBreaking().inverse(torch.as_tensor(tr["weights"])),
+            torch.as_tensor(tr["centers"]).reshape(-1),
+            torch.log(torch.as_tensor(tr["scales"]))]).to(dev)
+        return base + t32(rng.normal(0.0, 0.03, (p, base.numel())))
+
+    def one_transition(got, want, q0, log_u, pg_, beta, tag):
+        """Phase 18's limits on one transition; returns (line, q' err)."""
+        # a = exp(H0 - H1): float32 sums of |pe| ~ 1e3-1e4 round each
+        # energy by ~2.4e-7 |pe| (phase 17), so log a may differ by
+        # 2e-6 |pe| between two correct versions
+        a_err = (got[2] - want[2]).abs()
+        a_tol = want[2] * (2e-6 * pg_(q0, beta)[0].abs() + 1e-5) + 1e-6
+        if bool((a_err > a_tol).any()):
+            raise AssertionError(f"phase 18: {tag}: accept max err / "
+                                 f"tolerance {float((a_err / a_tol).max())}")
+        differ = (got[0] != q0).any(1) != (want[0] != q0).any(1)
+        margin = (log_u[:, 0] - torch.log(want[2])).abs()[differ]
+        if bool((margin >= 1e-2).any()):
+            raise AssertionError(f"phase 18: {tag}: a decision differs "
+                                 f"{float(margin.max())} from its threshold")
+        agree = ~differ
+        m_max = float(margin.max()) if margin.numel() else 0.0
+        q_err = (got[0] - want[0]).abs()[agree]
+        ll_rel = ((got[1] - want[1]).abs() / want[1].abs())[agree]
+        if bool((q_err > 1e-4 + 1e-4 * want[0].abs()[agree]).any()) \
+                or float(ll_rel.max()) > 1e-5:
+            raise AssertionError(f"phase 18: {tag}: q' max err "
+                                 f"{float(q_err.max())}, ll' rel err "
+                                 f"{float(ll_rel.max())}")
+        return (f"accept max abs err {float(a_err.max()):.2e} (err/tol "
+                f"{float((a_err / a_tol).max()):.3f}), {int(differ.sum())} "
+                f"decisions differ (max |log u - log a| {m_max:.1e}), q' max "
+                f"err {float(q_err.max()):.2e}, ll' rel err "
+                f"{float(ll_rel.max()):.2e}"), float(q_err.max())
+
+    def ll_matches_q(got, pg_, beta, tag):
+        ll_chk = pg_(got[0], beta)[2]
+        inv = float(((got[1] - ll_chk).abs() / ll_chk.abs()).max())
+        if inv > 1e-5:
+            raise AssertionError(f"phase 18: {tag}: ll' != ll(q'), rel err "
+                                 f"{inv}")
+        return inv
+
     pg = fsg.make_gmm_potential_flat(x, k, d)
-    base = torch.cat([
-        StickBreaking().inverse(torch.as_tensor(truth["weights"])),
-        torch.as_tensor(truth["centers"]).reshape(-1),
-        torch.log(torch.as_tensor(truth["scales"]))]).to(dev)
-    q0 = base + t32(rng.normal(0.0, 0.03, (p_b, dim)))
+    q0 = near_truth(truth, p_b)
     m_inv = torch.ones(dim, device=dev)
     mut_err, lines = 0.0, []
     for beta, eps in GMM_BETA_EPS:
@@ -1293,38 +1403,9 @@ def _gmm_phases(torch, np, card, dev):
             torch.cuda.synchronize()
             tag = f"beta {beta} eps {eps} K {kk}"
             if kk == 1:
-                # a = exp(H0 - H1): float32 sums of |pe| ~ 1e3-1e4 round
-                # each energy by ~2.4e-7 |pe| (phase 17), so log a may
-                # differ by 2e-6 |pe| between two correct versions
-                a_err = (got[2] - want[2]).abs()
-                a_tol = want[2] * (2e-6 * pg(q0, beta)[0].abs() + 1e-5) \
-                    + 1e-6
-                if bool((a_err > a_tol).any()):
-                    raise AssertionError(f"phase 18: {tag}: accept max err "
-                                         f"/ tolerance "
-                                         f"{float((a_err / a_tol).max())}")
-                differ = (got[0] != q0).any(1) != (want[0] != q0).any(1)
-                margin = (log_u[:, 0] - torch.log(want[2])).abs()[differ]
-                if bool((margin >= 1e-2).any()):
-                    raise AssertionError(f"phase 18: {tag}: a decision "
-                                         f"differs {float(margin.max())} "
-                                         f"from its threshold")
-                agree = ~differ
-                m_max = float(margin.max()) if margin.numel() else 0.0
-                extra = (f"accept max abs err {float(a_err.max()):.2e} "
-                         f"(err/tol {float((a_err / a_tol).max()):.3f}), "
-                         f"{int(differ.sum())} decisions differ (max "
-                         f"|log u - log a| {m_max:.1e})")
-                q_err = (got[0] - want[0]).abs()[agree]
-                ll_rel = ((got[1] - want[1]).abs() / want[1].abs())[agree]
-                if bool((q_err > 1e-4 + 1e-4 * want[0].abs()[agree]).any()) \
-                        or float(ll_rel.max()) > 1e-5:
-                    raise AssertionError(f"phase 18: {tag}: q' max err "
-                                         f"{float(q_err.max())}, ll' rel "
-                                         f"err {float(ll_rel.max())}")
-                mut_err = max(mut_err, float(q_err.max()))
-                extra += (f", q' max err {float(q_err.max()):.2e}, ll' rel "
-                          f"err {float(ll_rel.max()):.2e}")
+                extra, q_err = one_transition(got, want, q0, log_u, pg, beta,
+                                              tag)
+                mut_err = max(mut_err, q_err)
             else:
                 # With K > 1 a block's adaptation feeds its mean accept back
                 # into its step size, which amplifies the float32 rounding
@@ -1355,13 +1436,41 @@ def _gmm_phases(torch, np, card, dev):
                          f"err {stats['accept']:.2e}, parted "
                          f"{100 * stats['parted']:.2f}%, ll' rel err of "
                          f"the rest {stats['ll kept']:.2e}")
-            ll_chk = pg(got[0], beta)[2]
-            inv = float(((got[1] - ll_chk).abs() / ll_chk.abs()).max())
-            if inv > 1e-5:
-                raise AssertionError(f"phase 18: {tag}: ll' != ll(q'), rel "
-                                     f"err {inv}")
+                # the fixed-order cluster sum: a second launch, same bits
+                again = fsg.fused_gmm_mutate(q0, mom, log_u, beta, eps,
+                                             m_inv, x, k=k, d=d, kmut=kk,
+                                             lsteps=lsteps)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"phase 18: {tag}: a second launch "
+                                         f"differs")
+                extra += ", a second launch bit for bit"
+            inv = ll_matches_q(got, pg, beta, tag)
             lines.append(f"{tag}: mean accept {float(got[2].mean()):.3f}, "
                          f"{extra}, ll'=ll(q') rel err {inv:.2e}")
+    # the generic instance (K <= 8, D <= 4), one transition at K 4, D 3
+    cfg_g = gmm.Config(num_components=GMM_GENERIC[0],
+                       data_dim=GMM_GENERIC[1], num_data=n_b)
+    xg_n, truth_g = gmm.make_data(cfg_g)
+    xg = torch.as_tensor(xg_n, device=dev)
+    kg, dg = cfg_g.num_components, cfg_g.data_dim
+    dim_g = (kg - 1) + kg * dg + kg
+    pg_g = fsg.make_gmm_potential_flat(xg, kg, dg)
+    qg = near_truth(truth_g, p_b)
+    for beta, eps in GMM_BETA_EPS:
+        mom = t32(rng.normal(size=(1, p_b, dim_g)))
+        log_u = t32(np.log(rng.uniform(size=(p_b, 1))))
+        ones = torch.ones(dim_g, device=dev)
+        got = fsg.fused_gmm_mutate(qg, mom, log_u, beta, eps, ones, xg, k=kg,
+                                   d=dg, kmut=1, lsteps=lsteps)
+        want = fsg.mutation_core(qg, mom, log_u, beta, eps, ones, pg_g, 1,
+                                 lsteps, 0.65)
+        torch.cuda.synchronize()
+        tag = f"generic K {kg} D {dg} beta {beta} eps {eps} K 1"
+        extra, q_err = one_transition(got, want, qg, log_u, pg_g, beta, tag)
+        mut_err = max(mut_err, q_err)
+        inv = ll_matches_q(got, pg_g, beta, tag)
+        lines.append(f"{tag}: mean accept {float(got[2].mean()):.3f}, "
+                     f"{extra}, ll'=ll(q') rel err {inv:.2e}")
     print(f"phase 18 mutation kernel ok ({p_b} particles, "
           f"{p_b // fsg.PB} blocks): " + "; ".join(lines), flush=True)
 
@@ -1455,6 +1564,18 @@ def _gmm_phases(torch, np, card, dev):
         _cuda_ms(torch, lambda: fsg.fused_gmm_mutate(*margs, **mkw), 5)[0],
         _cuda_ms(torch, lambda: fsg.mutation_core(
             q0, mom, log_u, 1.0, 0.03, m_inv, pg, kmut, lsteps, 0.65))[0])
+    # one adaptation block alone: one cluster's latency, without the fill
+    b_args = (q0[:fsg.PB].contiguous(), mom[:, :fsg.PB].contiguous(),
+              log_u[:fsg.PB].contiguous(), 1.0, 0.03, m_inv, x)
+    fsg.fused_gmm_mutate(*b_args, **mkw)
+    ms_block = _cuda_ms(torch, lambda: fsg.fused_gmm_mutate(*b_args, **mkw),
+                        5)[0]
+    geo = fsg.device_geometry(n_b, k, d)
+    want_geo = fsg.launch_geometry(p_b, k, d)
+    if any(geo[kk] != want_geo[kk] for kk in ("cluster", "threads",
+                                              "particles_per_warp")):
+        raise AssertionError(f"phase 20: the library's geometry {geo} is not "
+                             f"launch_geometry's {want_geo}")
     # one stage of each mode from the end of a run, tempered back to 0.9
     res = last["kernels"]
     gen = torch.Generator(device=dev).manual_seed(20)
@@ -1497,7 +1618,13 @@ def _gmm_phases(torch, np, card, dev):
         f"{kk} kernel {ms[kk][0]:.4f} ms, plain {ms[kk][1]:.4f} ms, bound "
         f"{bounds[kk][0]:.4f} ms ({bounds[kk][1]}), SFU "
         f"{_sfu_ms(cost[kk][2]):.4f} ms" for kk in ms)
-        + " (mutate per stage, the others per call); one stage: "
+        + f" (mutate per stage, the others per call); mutate at P "
+        f"{fsg.PB} (one adaptation block) {ms_block:.4f} ms; clusters of "
+        f"{geo['cluster']} blocks x {geo['threads']} threads, "
+        f"{want_geo['ctas']} blocks at P {p_b}, "
+        f"{geo['particles_per_warp']} particles a warp, "
+        f"cudaOccupancyMaxActiveClusters "
+        f"{geo['max_active_clusters']}; one stage: "
         + "; ".join(f"{kk} {v}" for kk, v in traces.items()), flush=True)
 
     n_launch = {kk: sum(lc[kk] for lc in launches.values())
@@ -1873,7 +2000,9 @@ def main():
     _build.load()
     build_s = time.perf_counter() - t
     print(f"phase 1 build ok in {build_s:.1f} s: "
-          f"{_ptxas_summary(_build.build_log())}", flush=True)
+          f"{_ptxas_summary(_build.build_log())}; SASS: "
+          f"{_sass_loops(_build.load()._name, 'smc_gmm_mutate_kernel')}",
+          flush=True)
 
     records = [_svi_phases(torch, np, card, dev),
                _nuts_phases(torch, np, card, dev)]

@@ -15,9 +15,18 @@ the expanded |x|^2 - 2 mu.x + |mu|^2), gradient within 1e-4 of max|g|;
 mutation q' atol 2e-5, ll' atol 2e-3, accept and per-block step atol
 2e-4, all rtol 1e-3 (the JAX package's own kernel-vs-core tolerances).
 
-The kernel itself runs only on a CUDA card: ``test_kernel_matches_plain``
-is marked ``gpu`` and skips here.
+The kernel itself runs only on a CUDA card: ``test_kernel_matches_plain``,
+``test_kernel_repeats_bit_for_bit`` and ``test_device_geometry`` are
+marked ``gpu`` and skip here.  What the CPU can check of it:
+``test_mutation_arithmetic_precision`` emulates its per-point arithmetic
+(log2-domain constants, ex2/lg2/rcp at the PTX ISA's error bounds, the
+chunked product of sums under one log, the lanes' order and the
+butterfly) in numpy float32 against float64, and the launch geometry and
+the chunk length are checked against the source.
 """
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,8 +35,10 @@ import torch
 
 from bayesic_tpu.ops import fused_smc_gmm as jfsg
 from bayesic_tpu_torch import interop
+from bayesic_tpu_torch.dist import StickBreaking
 from bayesic_tpu_torch.models import gmm as tgmm
 from bayesic_tpu_torch.ops import fused_smc_gmm as tfsg
+from bayesic_tpu_torch.ops.gmm_logprob import MAX_COMPONENTS
 
 torch.set_num_threads(2)
 
@@ -52,10 +63,10 @@ def _lanes(a):
     return jnp.asarray(out)
 
 
-def _inputs(c, kmut, seed=1):
+def _inputs(c, kmut, seed=1, dim=DIM):
     rng = np.random.default_rng(seed)
-    q = rng.normal(0.0, 0.5, (c, DIM)).astype(np.float32)
-    mom = rng.normal(0.0, 1.0, (kmut, c, DIM)).astype(np.float32)
+    q = rng.normal(0.0, 0.5, (c, dim)).astype(np.float32)
+    mom = rng.normal(0.0, 1.0, (kmut, c, dim)).astype(np.float32)
     log_u = np.log(rng.uniform(1e-6, 1.0, (c, kmut))).astype(np.float32)
     return q, mom, log_u
 
@@ -186,23 +197,220 @@ def test_wrapper_checks():
         tfsg.fused_gmm_mutate(*meta, 0.5, 0.1, torch.ones(DIM), x, **kw)
 
 
+# the PTX ISA's documented bounds of the kernel's approximate functions:
+# ex2.approx.ftz.f32 within 2 ulp (relative 2^-22), lg2.approx.ftz.f32
+# within 2^-22 absolute, rcp.approx.ftz.f32 within 1 ulp (relative 2^-23)
+EX2_REL, LG2_ABS, RCP_REL = 2.0 ** -22, 2.0 ** -22, 2.0 ** -23
+_F32 = np.float32
+_CU = Path(tfsg.__file__).resolve().parents[1] / "csrc" / "fused_smc_gmm.cu"
+
+
+def _fma(a, b, c):
+    """fmaf: the float32 product is exact in float64, one rounding (twice,
+    float64 then float32, a half-ulp apart at worst)."""
+    return (np.asarray(a, np.float64) * b + c).astype(_F32)
+
+
+def _softplus(v):
+    return np.maximum(v, _F32(0)) + np.log1p(np.exp(-np.abs(v)))
+
+
+def _butterfly(v):
+    """warp_sum over the last axis (32 lanes): xor shuffles 16 .. 1."""
+    lanes = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        v = (v + v[..., lanes ^ o]).astype(_F32)
+    return v
+
+
+def _emulated_potential(q, x, beta, sign):
+    """pe, grad and ll of the particles q (P, dim) as the kernel computes
+    them at K = 3, D = 2 (particle_terms, mutate_points, eval_group) in
+    float32, every ex2, lg2 and rcp moved by ``sign`` times its bound."""
+    k, d = K, D
+    off_mu, off_us = k - 1, k - 1 + k * d
+    q, x = q.astype(_F32), x.astype(_F32)
+    p, n = q.shape[0], x.shape[0]
+    # particle_terms
+    t = q[:, :k - 1] - np.log(np.arange(k - 1, 0, -1)).astype(_F32)
+    z = _F32(1) / (_F32(1) + np.exp(-t))
+    lz, l1mz = -_softplus(-t), -_softplus(t)
+    cum = np.zeros(p, _F32)
+    ldj = np.zeros(p, _F32)
+    logw = np.zeros((p, k), _F32)
+    for j in range(k - 1):
+        logw[:, j] = lz[:, j] + cum
+        ldj = ldj + (lz[:, j] + l1mz[:, j] + cum)
+        cum = cum + l1mz[:, j]
+    logw[:, k - 1] = cum
+    us = q[:, off_us:]
+    sg = np.exp(us)
+    inv_s2 = _F32(1) / (sg * sg)
+    mu = q[:, off_mu:off_us].reshape(p, k, d)
+    c2 = _F32(np.log2(np.e)) * (logw - _F32(d) * us
+                                 - _F32(d) * _F32(0.5 * np.log(2 * np.pi)))
+    h2 = _F32(0.5 * np.log2(np.e)) * inv_s2
+    # mutate_points: lane l takes the points l, l + 32, ...; a lane's sums
+    # run in that order, its chunks of CHUNK points end in one lg2
+    iters = -(-n // 32)
+    last = (n - 1 - np.arange(32)) // 32          # a lane's last iteration
+    ll2 = np.zeros((p, 32), _F32)
+    prod = np.ones((p, 32), _F32)
+    r = np.zeros((p, 32, k), _F32)
+    rq = np.zeros((p, 32, k), _F32)
+    rdx = np.zeros((p, 32, k, d), _F32)
+    for it in range(iters):
+        idx = np.minimum(np.arange(32) + 32 * it, n - 1)
+        live = (it <= last)[None, :, None]
+        dx = (x[idx][None, :, None, :] - mu[:, None]).astype(_F32)
+        qd = _fma(dx[..., 1], dx[..., 1], dx[..., 0] * dx[..., 0])
+        lk = _fma(-qd, h2[:, None], c2[:, None])
+        mx = lk.max(-1)
+        e = (np.exp2(np.asarray(lk - mx[..., None], np.float64))
+             * (1 + sign * EX2_REL)).astype(_F32)
+        se = ((e[..., 0] + e[..., 1]).astype(_F32) + e[..., 2]).astype(_F32)
+        inv = (1.0 / np.asarray(se, np.float64)
+               * (1 + sign * RCP_REL)).astype(_F32)
+        rr = (e * inv[..., None]).astype(_F32)
+        prod = np.where(live[..., 0], prod * se, prod).astype(_F32)
+        ll2 = np.where(live[..., 0], ll2 + mx, ll2).astype(_F32)
+        r = np.where(live, r + rr, r).astype(_F32)
+        rq = np.where(live, _fma(rr, qd, rq), rq)
+        rdx = np.where(live[..., None], _fma(rr[..., None], dx, rdx), rdx)
+        end = live[..., 0] & ((it % tfsg.CHUNK == tfsg.CHUNK - 1)
+                              | (it == last)[None])
+        lg = (np.log2(np.asarray(prod, np.float64))
+              + sign * LG2_ABS).astype(_F32)
+        ll2 = np.where(end, ll2 + lg, ll2).astype(_F32)
+        prod = np.where(end, _F32(1), prod)
+    ll = _F32(np.log(2.0)) * _butterfly(ll2)[:, 0]
+    r = _butterfly(np.moveaxis(r, 1, -1))[..., 0]
+    rq = _butterfly(np.moveaxis(rq, 1, -1))[..., 0]
+    rdx = _butterfly(np.moveaxis(rdx, 1, -1))[..., 0]
+    # eval_group's epilogue
+    beta = _F32(beta)
+    pe = _F32(tfsg.potential_constant(k, d)) - ldj - beta * ll
+    for kk in range(k):
+        pe = pe + (sg[:, kk] * sg[:, kk] * _F32(0.125) - us[:, kk])
+        for j in range(d):
+            pe = pe + mu[:, kk, j] * mu[:, kk, j] * _F32(0.02)
+    g = np.zeros((p, DIM), _F32)
+    for j in range(k - 1):
+        suf = np.zeros(p, _F32)
+        for kk in range(j + 1, k):
+            suf = suf + r[:, kk]
+        dll = r[:, j] * (1 - z[:, j]) - z[:, j] * suf
+        dldj = (1 - 2 * z[:, j]) - z[:, j] * _F32(k - 2 - j)
+        g[:, j] = -dldj - beta * dll
+    g[:, off_mu:off_us] = (mu * _F32(0.04) - beta * (
+        rdx * inv_s2[..., None])).reshape(p, -1)
+    g[:, off_us:] = sg * sg * _F32(0.25) - 1 - beta * (rq * inv_s2
+                                                        - _F32(d) * r)
+    return pe, g, ll
+
+
+def test_mutation_arithmetic_precision():
+    """The kernel's per-point arithmetic (log2-domain constants, one ex2
+    per component, one rcp, the sums of CHUNK points multiplied under one
+    lg2 and the maxes summed apart), emulated in float32 with every
+    approximate function at its PTX ISA bound in either direction, at N
+    2,000, K 3, D 2 for particles near the truth and far from it: ll and
+    pe within rel 1e-5 and the gradient within 1e-4 of max|g| of float64
+    (phase 18's and the potential tests' limits)."""
+    cfg = tgmm.Config(num_data=2000)
+    x, truth = tgmm.make_data(cfg)
+    rng = np.random.default_rng(11)
+    base = np.concatenate([
+        StickBreaking().inverse(torch.as_tensor(truth["weights"])).numpy(),
+        truth["centers"].reshape(-1), np.log(truth["scales"])])
+    sets = {"near": base + rng.normal(0.0, 0.03, (8, DIM)),
+            "prior": rng.normal(0.0, 0.5, (8, DIM)),
+            "far": rng.normal(0.0, 3.0, (8, DIM))}
+    pg64 = tfsg.make_gmm_potential_flat(
+        torch.as_tensor(x, dtype=torch.float64), K, D)
+    for name, q in sets.items():
+        q = q.astype(np.float32)
+        pe_r, g_r, ll_r = (a.numpy() for a in pg64(
+            torch.as_tensor(q, dtype=torch.float64), 1.0))
+        for sign in (1.0, -1.0):
+            pe, g, ll = _emulated_potential(q, x, 1.0, sign)
+            ll_err = np.abs(ll - ll_r) / np.abs(ll_r)
+            pe_err = np.abs(pe - pe_r) / np.abs(pe_r)
+            g_err = np.abs(g - g_r).max() / np.abs(g_r).max()
+            assert ll_err.max() < 1e-5, (name, sign, ll_err.max())
+            assert pe_err.max() < 1e-5, (name, sign, pe_err.max())
+            assert g_err < 1e-4, (name, sign, g_err)
+
+
+def test_chunk_product_cannot_overflow():
+    """A point's sum of component exps lies in [1, K] (the largest is ex2(0)
+    = 1), so a lane's product over CHUNK points lies in [1, K^CHUNK]: at
+    K = 8, the most the kernel takes, with every ex2 at its bound and
+    every product rounded up, it stays finite and below 2^64 in float32,
+    and the kernel's chunk is this one."""
+    assert MAX_COMPONENTS == 8
+    se = _F32(MAX_COMPONENTS * (1 + EX2_REL) * (1 + 2.0 ** -23))
+    prod = _F32(1)
+    for _ in range(tfsg.CHUNK):
+        prod = _F32(np.float64(prod) * se * (1 + 2.0 ** -23))
+    assert np.isfinite(prod) and 1.0 <= prod < 2.0 ** 64
+    src = _CU.read_text()
+    assert int(re.search(r"kChunk = (\d+);", src).group(1)) == tfsg.CHUNK
+
+
+@pytest.mark.parametrize("p, ctas", [(40, 2), (200, 4), (256, 4),
+                                     (8192, 128)])
+def test_launch_geometry(p, ctas):
+    """A cluster of CLUSTER blocks per 128-particle block: P 40 is one
+    cluster whose second block holds only padding, P 200 is ragged across
+    blocks, P 8192 fills 128 blocks; 32 warps a block at K 3, D 2 and 16 at
+    the generic instance; the constants are the kernel's."""
+    src = _CU.read_text()
+    consts = {name: int(re.search(rf"int {name} = (\d+);", src).group(1))
+              for name in ("PB", "CL", "NW_EXACT", "NW_GENERIC")}
+    assert (consts["PB"], consts["CL"]) == (tfsg.PB, tfsg.CLUSTER)
+    for (k, d), nw in (((K, D), consts["NW_EXACT"]),
+                       ((4, 3), consts["NW_GENERIC"])):
+        g = tfsg.launch_geometry(p, k, d)
+        assert g["ctas"] == ctas and g["ctas"] % g["cluster"] == 0
+        assert g["threads"] == 32 * nw
+        assert g["cluster"] * nw * g["particles_per_warp"] == tfsg.PB
+
+
+def _gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _generic_x(dev, num_data=200):
+    """Data of the generic instance's case, K 4, D 3."""
+    x, _ = tgmm.make_data(tgmm.Config(num_components=4, data_dim=3,
+                                      num_data=num_data))
+    return torch.as_tensor(x, device=dev)
+
+
 @pytest.mark.gpu
 def test_kernel_matches_plain():
     """On a CUDA card: the mutation kernel against ``mutation_core`` on
-    the same draws, on 2 blocks and on a population that is not a multiple
-    of 128: with one transition, accept probabilities within rtol 1e-3
-    and atol 2e-4, every differing accept decision within 1e-2 of its
-    threshold, and q' / ll' where the decisions agree; with three, the
-    per-block steps within 10% and the mean accept within 0.01."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    dev = torch.device("cuda")
-    x = torch.as_tensor(_x(), device=dev)
-    for p, kmut in ((256, 1), (200, 1), (256, 3), (200, 3)):
-        q, mom, log_u = (torch.as_tensor(a, device=dev)
-                         for a in _inputs(p, kmut, seed=p + kmut))
-        args = (q, mom, log_u, 0.7, 0.05, torch.ones(DIM, device=dev), x)
-        kw = dict(k=K, d=D, kmut=kmut, lsteps=4)
+    the same draws: at K 3, D 2 on a lone block whose second cluster block
+    holds only padding (P 40), a population ragged across blocks (P 200)
+    and 2 blocks (P 256); at K 4, D 3 (the generic instance) on P 200.
+    With one transition, accept probabilities within rtol 1e-3 and atol
+    2e-4, every differing accept decision within 1e-2 of its threshold,
+    and q' / ll' where the decisions agree; with three, the per-block
+    steps within 10% and the mean accept within 0.01."""
+    dev = _gpu()
+    data = {(K, D): torch.as_tensor(_x(), device=dev),
+            (4, 3): _generic_x(dev)}
+    cases = [(K, D, p) for p in (40, 200, 256)] + [(4, 3, 200)]
+    for (k, d, p), kmut in ((c, km) for c in cases for km in (1, 3)):
+        dim = (k - 1) + k * d + k
+        x = data[(k, d)]
+        q, mom, log_u = (torch.as_tensor(a, device=dev) for a in
+                         _inputs(p, kmut, seed=p + kmut + 10 * k, dim=dim))
+        args = (q, mom, log_u, 0.7, 0.05, torch.ones(dim, device=dev), x)
+        kw = dict(k=k, d=d, kmut=kmut, lsteps=4)
         before = tfsg.LAUNCHES
         got = tfsg.fused_gmm_mutate(*args, **kw)
         torch.cuda.synchronize()
@@ -233,3 +441,37 @@ def test_kernel_matches_plain():
             torch.testing.assert_close(got[3], want[3], rtol=0.1, atol=0)
             torch.testing.assert_close(got[2].mean(), want[2].mean(),
                                        rtol=0, atol=0.01)
+
+
+@pytest.mark.gpu
+def test_kernel_repeats_bit_for_bit():
+    """Two launches on the same inputs give the same bits: the cluster's
+    mean accept is summed in one fixed order, with no atomics."""
+    dev = _gpu()
+    for k, d, x in ((K, D, torch.as_tensor(_x(), device=dev)),
+                    (4, 3, _generic_x(dev))):
+        dim = (k - 1) + k * d + k
+        q, mom, log_u = (torch.as_tensor(a, device=dev)
+                         for a in _inputs(200, 3, seed=3, dim=dim))
+        args = (q, mom, log_u, 0.7, 0.05, torch.ones(dim, device=dev), x)
+        kw = dict(k=k, d=d, kmut=3, lsteps=4)
+        one = tfsg.fused_gmm_mutate(*args, **kw)
+        two = tfsg.fused_gmm_mutate(*args, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(one, two):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_device_geometry():
+    """The library launches the geometry ``launch_geometry`` gives, and
+    the card can hold at least one of its clusters."""
+    _gpu()
+    for k, d in ((K, D), (4, 3)):
+        want = tfsg.launch_geometry(128, k, d)
+        got = tfsg.device_geometry(2000, k, d)
+        assert got["max_active_clusters"] >= 1
+        assert {kk: got[kk] for kk in ("cluster", "threads",
+                                       "particles_per_warp")} \
+            == {kk: want[kk] for kk in ("cluster", "threads",
+                                        "particles_per_warp")}
