@@ -108,6 +108,9 @@ def _declare(lib):
         [vp] * 9 + [i32] * 2 + [ctypes.c_longlong, i32, f32, i32, f32, f32,
                                 ctypes.c_ulonglong, vp])
     lib.fused_linreg_train.restype = i32
+    lib.fused_linreg_probe.argtypes = (
+        lib.fused_linreg_train.argtypes[:-1] + [vp, vp])
+    lib.fused_linreg_probe.restype = i32
     lib.mf_dense_scratch_floats.argtypes = [i32] * 3
     lib.mf_dense_scratch_floats.restype = ctypes.c_size_t
     lib.mf_dense_cell_grads.argtypes = [vp] * 8 + [i32] * 4 + [vp]

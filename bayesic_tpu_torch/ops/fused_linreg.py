@@ -11,12 +11,15 @@ residual of a draw ``z = (w, b)`` is ``P u`` with ``u = (z, -1)``, so
 exactly: a step is one (D+2) x (D+2) matvec, whatever N is.
 
 On a CUDA tensor, ``fused_train`` runs the hand-written kernel of
-``csrc/fused_linreg.cu``: one persistent thread block keeps G in shared
-memory and the state in registers and runs all ``steps`` steps.  On a CPU
-tensor it runs the plain version below (``reference_train``) over the same
-Philox streams (``_kernel_common.hier_streams``: lane 1 + p is the noise of
-parameter p).  Nothing falls back: on a CUDA tensor the kernel runs or the
-call raises.
+``csrc/fused_linreg.cu``: one persistent thread block runs all ``steps``
+steps, its consumer warps holding G in registers and the state of
+parameter p in the lanes of row p, its producer warps making each step's
+noise and schedule ahead into a ring.  On a CPU tensor it runs the plain
+version below (``reference_train``) over the same Philox streams
+(``_kernel_common.hier_streams``: lane 1 + p is the noise of parameter p).
+Nothing falls back: on a CUDA tensor the kernel runs or the call raises.
+``probe_cycles`` runs the kernel's probe instance, which reads the clock at
+the phase boundaries of a step.
 
 Layout: the guide's ``loc``/``log_scale`` and the Adam moments are flat
 ``(D+1,)`` vectors in ``unraveler`` order (w[0..D-1], b), which is the JAX
@@ -38,10 +41,12 @@ from . import _build
 from ._kernel_common import adam_leaf, hier_streams, loss_thin, thin_losses
 
 __all__ = ["gram", "init_params", "fused_train", "fused_train_injected",
-           "reference_train", "MAX_DIM"]
+           "reference_train", "probe_cycles", "MAX_DIM"]
 
 _C = 0.5 * math.log(2.0 * math.pi)
-MAX_DIM = 126           # the JAX cap D + 2 <= 128 (MAXP of the kernel)
+MAX_DIM = 126           # the JAX cap D + 2 <= 128 (MAXD2 of the kernel)
+PROBE_PHASES = ("ring wait", "z and u exchange", "matvec and butterfly",
+                "loss, gradient and Adam")
 
 # launches of the kernel, through either entry point: one launch runs
 # every step of the call
@@ -130,7 +135,7 @@ def _check(g, loc, ls, opt_state):
 
 
 def _launch(g, n, noise, loc, ls, opt_state, *, steps, lr0, lr_total, t0,
-            thin, seed, eps):
+            thin, seed, eps, probe=None):
     global LAUNCHES
     d = _check(g, loc, ls, opt_state)
     lib = _build.load()
@@ -139,18 +144,22 @@ def _launch(g, n, noise, loc, ls, opt_state, *, steps, lr0, lr_total, t0,
                          device=g.device)
     ptr = lambda t: ctypes.c_void_p(None if t is None  # noqa: E731
                                     else t.data_ptr())
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = lib.fused_linreg_train(
-            ptr(g.contiguous()), *map(ptr, state), ptr(losses), ptr(eps), d,
+    args = (ptr(g.contiguous()), *map(ptr, state), ptr(losses), ptr(eps), d,
             int(steps), int(t0), int(thin), float(lr0), int(lr_total),
-            float(1.0 / (noise * noise)),
-            float(n * (math.log(noise) + _C)),
-            int(seed) & 0xFFFFFFFFFFFFFFFF, ctypes.c_void_p(stream))
+            float(1.0 / (noise * noise)), float(n * (math.log(noise) + _C)),
+            int(seed) & 0xFFFFFFFFFFFFFFFF)
+    with torch.cuda.device(g.device):
+        stream = ctypes.c_void_p(
+            torch.cuda.current_stream(g.device).cuda_stream)
+        if probe is None:
+            err = lib.fused_linreg_train(*args, stream)
+        else:
+            err = lib.fused_linreg_probe(*args, ptr(probe), stream)
     if err != 0:
         raise RuntimeError(f"fused_linreg kernel launch failed: CUDA error "
                            f"{err} ({_build.error_string(err)})")
-    LAUNCHES += 1
+    if probe is None:
+        LAUNCHES += 1
     return state[0], state[1], tuple(state[2:]), losses
 
 
@@ -200,3 +209,28 @@ def fused_train_injected(g, n, noise, loc, ls, opt_state, *, eps_stream,
     return reference_train(g, n, noise, loc, ls, opt_state,
                            eps_stream=eps_stream, lr0=lr0, lr_total=lr_total,
                            t0=t0)
+
+
+def probe_cycles(g, n, noise, loc, ls, opt_state=None, *, steps, lr0,
+                 lr_total=None, seed=0, t0=0):
+    """Run ``fused_train``'s work through the kernel's probe instance (CUDA
+    tensors only; not counted in ``LAUNCHES``) and return the clock cycles
+    of one step on consumer thread 0: ``{"phases": {name: mean cycles}
+    (PROBE_PHASES), "sampled": steps sampled (every 16th from step 32
+    on), "loop": mean cycles a step over the whole loop}``.  The stamps
+    wait for the value each phase ends on, so the sampled steps run
+    slower than the others."""
+    if g.device.type != "cuda":
+        raise ValueError("probe_cycles reads the card's clock: it needs "
+                         "CUDA tensors")
+    steps = int(steps)
+    if opt_state is None:
+        opt_state = tuple(torch.zeros_like(loc) for _ in range(4))
+    probe = torch.zeros(6, dtype=torch.int64, device=g.device)
+    _launch(g, n, noise, loc, ls, opt_state, steps=steps, lr0=lr0,
+            lr_total=int(lr_total if lr_total is not None else steps), t0=t0,
+            thin=loss_thin(steps), seed=seed, eps=None, probe=probe)
+    c = probe.cpu().tolist()
+    k = max(c[4], 1)
+    return {"phases": {name: c[i] / k for i, name in enumerate(PROBE_PHASES)},
+            "sampled": c[4], "loop": c[5] / steps}

@@ -160,6 +160,10 @@ LINREG_TRAJ, LINREG_PLAIN_STEPS = 200, 100
 LINREG_STEPS, LINREG_FULLRANK_LR = 2000, 0.01
 LINREG_FUSED_STEPS, LINREG_TRACE_STEPS, LINREG_GENERIC_TIMED = \
     200_000, 2_000, 200
+# phase 21's edges of the trainer's layout (one consumer warp at D 1 and 2,
+# a ragged last warp at D 63, the widest D) and phase 22's probe steps
+LINREG_EDGE_DIMS, LINREG_PROBE_STEPS = (1, 2, 63, 126), 20_000
+LINREG_EDGE_TIMED = 50_000          # steps timed at each edge D
 # the dense MF bench (JAX benchmarks/harness.py:430-510): Config(), 3,000
 # users x 1,500 items, K 16, 1M ratings; phase 23's ragged shape (also
 # run at the widest K the kernel takes, MAX_FACTORS = 30) and limits (loss
@@ -260,10 +264,16 @@ def _trace(torch, fn, steps, unit="step"):
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
     total = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
-    return (f"busy {busy / 1e3 / steps:.4f} ms/{unit}, idle "
+    return (f"busy {_num(busy / 1e3 / steps)} ms/{unit}, idle "
             f"{100 * (1 - busy / window):.1f}%, "
-            f"{len(kern) / steps:.1f} kernels/{unit} ("
+            f"{_num(len(kern) / steps, 1)} kernels/{unit} ("
             + ", ".join(f"{k} {100 * t / total:.1f}%" for k, t in top) + ")")
+
+
+def _num(x, places=4):
+    """``x`` with ``places`` decimals, or 4 significant digits below 0.01
+    (a whole-run trainer's ms and kernels a step)."""
+    return f"{x:.{places}f}" if abs(x) >= 0.01 else f"{x:.4g}"
 
 
 def _bound(ops, nbytes, peak=PEAK_FP32):
@@ -329,6 +339,10 @@ def _ptxas_summary(log):
                 # template arguments: K, D, exact [, mode]
                 name += "<" + ",".join(re.findall(
                     r"L[ib](\d+)E", mangled.split("kernelI")[1])) + ">"
+            if name == "linreg_train_kernel":
+                # template arguments: float4 chunks a lane, probe
+                nc, probe = re.findall(r"L[ib](\d+)E", mangled)[:2]
+                name += f"<{nc},{'probe' if probe == '1' else 'main'}>"
             stats[name] = {}
         elif name and "spill stores" in line:
             stats[name]["spill"] = (line.split("bytes spill stores")[0]
@@ -336,6 +350,18 @@ def _ptxas_summary(log):
         elif name and "Used" in line and "registers" in line:
             stats[name]["regs"] = (line.split("Used")[1]
                                    .split("registers")[0].strip())
+    # the linreg trainer's instances (one per chunk count) in two entries
+    for kind in ("main", "probe"):
+        inst = {k: v for k, v in stats.items()
+                if k.startswith("linreg_train_kernel<") and kind in k}
+        if inst:
+            for k in inst:
+                del stats[k]
+            regs = [int(v.get("regs", 0)) for v in inst.values()]
+            stats[f"linreg_train_kernel {kind} x{len(inst)}"] = {
+                "regs": f"{min(regs)}-{max(regs)}",
+                "spill": str(max(int(v.get("spill", 0))
+                                 for v in inst.values()))}
     return "; ".join(
         f"{k} {v.get('regs', '?')} regs, {v.get('spill', '?')} B spill"
         for k, v in stats.items()) or "library already built"
@@ -1722,12 +1748,30 @@ def _linreg_phases(torch, np, card, dev):
             f"phase 21: {LINREG_TRAJ}-step trajectory loss rel err "
             f"{traj_rel}, param err / max {par_rel}; Philox twin {bits_rel} "
             f"(limit {LINREG_TOL['trajectory']})")
+    again = fl.fused_train(g, n, noise, loc0, ls0, zeros, steps=LINREG_TRAJ,
+                           lr0=cfg.lr, seed=seed)
+    if not all(torch.equal(a, b) for a, b in zip(
+            (got[0], got[1], *got[2], got[3]),
+            (again[0], again[1], *again[2], again[3]))):
+        raise AssertionError("phase 21: two launches differ")
+    edges = {dd: _linreg_edge(torch, kc, fl, lr, dataclasses.replace(
+        cfg, dim=dd), rnd, seed + dd) for dd in LINREG_EDGE_DIMS}
+    for dd, (errs_d, _) in edges.items():
+        if max(errs_d) > LINREG_TOL["trajectory"]:
+            raise AssertionError(
+                f"phase 21: D {dd}: {LINREG_TRAJ}-step trajectory loss rel "
+                f"err, param err / max and Philox twin loss rel err "
+                f"{errs_d} (limit {LINREG_TOL['trajectory']})")
     print(f"phase 21 fused linreg trainer ok (N {n}, D {d}): one step: "
           + "; ".join(f"{k} elbo rel err {v[0]:.2e}, gradient err/tol "
                       f"{v[1]:.3f}" for k, v in errs.items())
           + f"; {LINREG_TRAJ}-step trajectory loss max rel err "
           f"{traj_rel:.2e}, param max err / max {par_rel:.2e}; Philox twin "
-          f"loss rel err {bits_rel:.2e} (limits {LINREG_TOL})", flush=True)
+          f"loss rel err {bits_rel:.2e}; two launches bit for bit; at D "
+          + ", ".join(f"{dd}: {e[0]:.2e} / {e[1]:.2e} / {e[2]:.2e} "
+                      f"({us:.6f} us a step)"
+                      for dd, (e, us) in edges.items())
+          + f" (limits {LINREG_TOL})", flush=True)
 
     # -- 22. the linreg path through the user's entry points --------------
     fits, walls = {}, {}
@@ -1782,15 +1826,35 @@ def _linreg_phases(torch, np, card, dev):
     gen = torch.Generator(device=dev).manual_seed(1)
     g_ms, _ = _cuda_ms(torch, lambda: svi_g.run(gen, LINREG_GENERIC_TIMED,
                                                 state=res_g.state))
-    trace = _trace(torch, lambda: fl.fused_train(
-        g, n, noise, *state, steps=LINREG_TRACE_STEPS, lr0=cfg.lr, seed=8),
-        LINREG_TRACE_STEPS)
+    # the trace in a process of its own: in one that has run the earlier
+    # phases, CUPTI hands the profiler a kernel's record only seconds
+    # after the kernel, so this call's window comes out empty (PERF.md §7)
+    child = subprocess.run(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke._linreg_trace()"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if child.returncode:
+        raise AssertionError(f"phase 22: the trace's process failed:\n"
+                             f"{child.stdout[-2000:]}{child.stderr[-2000:]}")
+    trace = child.stdout.strip().splitlines()[-1]
+    probe = fl.probe_cycles(g, n, noise, *state, steps=LINREG_PROBE_STEPS,
+                            lr0=cfg.lr, seed=9)
+    clock = _sm_clock_during(torch, lambda: fl.fused_train(
+        g, n, noise, *state, steps=10 * LINREG_FUSED_STEPS, lr0=cfg.lr,
+        seed=10))
     print(f"phase 22 linreg main path ok [{card}]: " + "; ".join(lines)
           + f" (gates: mean 0.02, fused sd 0.3); fused trainer "
           f"{1e3 * lin_step_ms:.4f} us/step, plain reference_train "
           f"{lin_plain_ms:.4f} ms/step, generic run (mean-field) "
           f"{1e3 * LINREG_GENERIC_TIMED / g_ms:.1f} steps/s; fused_train "
-          f"{trace}; kernel launches {lin_launches}", flush=True)
+          f"(traced in a new process) {trace}; kernel launches "
+          f"{lin_launches}", flush=True)
+    print(f"phase 22 linreg trainer probe [{card}], SM clock {clock} under "
+          f"the kernel: cycles a step on consumer thread 0, mean of "
+          f"{probe['sampled']} sampled steps of {LINREG_PROBE_STEPS}: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in probe["phases"].items())
+          + f"; the probe instance's whole loop {probe['loop']:.1f} "
+          f"cycles a step", flush=True)
 
     # bound per step: the (D+2)^2 FMAs of G u and ~60 operations per
     # parameter (Philox, Box-Muller, z, gradient, two Adam updates); bytes:
@@ -1802,6 +1866,75 @@ def _linreg_phases(torch, np, card, dev):
     return [_record("fused_linreg_train", "fused_linreg.cu",
                     "bayesic_tpu/ops/fused_linreg.py:102", lin_launches,
                     lin_err, lin_step_ms, lin_plain_ms, bound)]
+
+
+def _linreg_edge(torch, kc, fl, lr, cfg, rnd, seed):
+    """Phase 21 at D = ``cfg.dim``: the trainer against the plain version
+    on a 200-step injected stream and on its Philox streams, from a random
+    state; ((loss rel err, param err / max, Philox loss rel err), the
+    kernel's us a step)."""
+    dev = torch.device(cfg.device)
+    xn, yn, _, _ = lr.make_data(cfg)
+    g = fl.gram(torch.as_tensor(xn, device=dev),
+                torch.as_tensor(yn, device=dev))
+    p = cfg.dim + 1
+    loc, ls = rnd(p, scale=0.5), rnd(p, loc=-2.0, scale=0.3)
+    zeros = tuple(torch.zeros(p, device=dev) for _ in range(4))
+    kw = dict(eps_stream=rnd(LINREG_TRAJ, p), lr0=cfg.lr,
+              lr_total=LINREG_TRAJ)
+    got = fl.fused_train_injected(g, cfg.n, cfg.noise, loc, ls, zeros, **kw)
+    want = fl.reference_train(g, cfg.n, cfg.noise, loc, ls, zeros, **kw)
+    traj = float(((got[3] - want[3]).abs() / want[3].abs()).max())
+    par = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in ((got[0], want[0]), (got[1], want[1])))
+    got = fl.fused_train(g, cfg.n, cfg.noise, loc, ls, zeros,
+                         steps=LINREG_TRAJ, lr0=cfg.lr, seed=seed)
+    want = fl.reference_train(
+        g, cfg.n, cfg.noise, loc, ls, zeros,
+        eps_stream=kc.hier_streams(seed, 0, LINREG_TRAJ, 1, p, device=dev)[1],
+        lr0=cfg.lr, lr_total=LINREG_TRAJ)
+    bits = float(((got[3] - want[3]).abs() / want[3].abs()).max())
+    fl.fused_train(g, cfg.n, cfg.noise, loc, ls, zeros, steps=1000,
+                   lr0=cfg.lr)
+    ms, _ = _cuda_ms(torch, lambda: fl.fused_train(
+        g, cfg.n, cfg.noise, loc, ls, zeros, steps=LINREG_EDGE_TIMED,
+        lr0=cfg.lr))
+    return (traj, par, bits), 1e3 * ms / LINREG_EDGE_TIMED
+
+
+def _linreg_trace():
+    """Phase 22's trace of ``fused_train`` (``LINREG_TRACE_STEPS`` steps at
+    the bench shape), for a process of its own: prints ``_trace``'s line."""
+    import torch
+
+    from bayesic_tpu_torch.models import linreg as lr
+    from bayesic_tpu_torch.ops import fused_linreg as fl
+
+    dev = torch.device("cuda", 0)
+    cfg = lr.Config(**LINREG, device=str(dev))
+    xn, yn, _, _ = lr.make_data(cfg)
+    g = fl.gram(torch.as_tensor(xn, device=dev),
+                torch.as_tensor(yn, device=dev))
+    state = fl.init_params(cfg.dim, device=dev)
+
+    def run():
+        return fl.fused_train(g, cfg.n, cfg.noise, *state,
+                              steps=LINREG_TRACE_STEPS, lr0=cfg.lr, seed=8)
+    run()
+    print(_trace(torch, run, LINREG_TRACE_STEPS), flush=True)
+
+
+def _sm_clock_during(torch, fn):
+    """The SM clock nvidia-smi reads while ``fn``'s kernels (queued, and
+    running for most of a second) occupy the card."""
+    torch.cuda.synchronize()
+    fn()
+    time.sleep(0.2)
+    res = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    torch.cuda.synchronize()
+    return res.stdout.strip()
 
 
 def _mf_phases(torch, np, card, dev):

@@ -1,0 +1,47 @@
+"""Build variants of one kernel source, each with a few textual edits.
+
+Shared by the ablation tools: ``build`` writes each variant of
+``bayesic_tpu_torch/csrc/<source>`` (with the headers it includes) into its
+own directory and compiles it alone into a shared library with the port's
+nvcc flags, all nvcc processes at once.  An edit whose text is not in the
+source raises, so a tool that has fallen behind the kernel says so.
+"""
+
+from __future__ import annotations
+
+import subprocess
+from pathlib import Path
+
+
+def build(source, headers, variants, tmp):
+    """``variants``: {name: {old text: new text}}; returns {name: (library
+    path, ``chip_smoke._ptxas_summary`` of its nvcc output: registers and
+    spills by kernel)}."""
+    from bayesic_tpu_torch.ops import _build
+    from chip_smoke import _ptxas_summary
+
+    src = (_build.CSRC / source).read_text()
+    procs = {}
+    for i, (name, edits) in enumerate(variants.items()):
+        d = Path(tmp) / f"v{i}"
+        d.mkdir()
+        text = src
+        for old, new in edits.items():
+            if old not in text:
+                raise RuntimeError(f"{name}: '{old[:80]}' not in {source}")
+            text = text.replace(old, new)
+        (d / source).write_text(text)
+        for h in headers:
+            (d / h).write_text((_build.CSRC / h).read_text())
+        so = d / "lib.so"
+        procs[name] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so),
+             str(d / source)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    out = {}
+    for name, (so, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"{name}: nvcc failed\n{log}")
+        out[name] = (so, _ptxas_summary(log))
+    return out

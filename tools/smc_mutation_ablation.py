@@ -28,7 +28,7 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+sys.path[:0] = [str(ROOT), str(ROOT / "tools")]
 
 APPROX = {
     'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));': "r = exp2f(v);",
@@ -57,38 +57,17 @@ VARIANTS = {
 
 
 def _build_all(tmp):
-    """One library per variant, all nvcc processes at once; returns
-    {name: (library path, the instances' registers and spills)}."""
-    from bayesic_tpu_torch.ops import _build
-    from chip_smoke import _ptxas_summary
+    """{name: (library path, the mutation kernel's registers and spills)}
+    of every variant."""
+    from _variants import build
 
-    src = (_build.CSRC / "fused_smc_gmm.cu").read_text()
-    procs = {}
-    for i, (name, edits) in enumerate(VARIANTS.items()):
-        d = tmp / f"v{i}"
-        d.mkdir()
-        text = src
-        for old, new in edits.items():
-            if old not in text:
-                raise RuntimeError(f"{name}: '{old}' not in the source")
-            text = text.replace(old, new)
-        (d / "fused_smc_gmm.cu").write_text(text)
-        (d / "gmm_lik.cuh").write_text(
-            (_build.CSRC / "gmm_lik.cuh").read_text())
-        so = d / "lib.so"
-        procs[name] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so),
-             str(d / "fused_smc_gmm.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
     out = {}
-    for name, (so, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"{name}: nvcc failed\n{log}")
-        stats = [part for part in _ptxas_summary(log).split("; ")
+    for name, (so, summary) in build("fused_smc_gmm.cu", ["gmm_lik.cuh"],
+                                     VARIANTS, tmp).items():
+        stats = [part for part in summary.split("; ")
                  if part.startswith("smc_gmm_mutate_kernel")]
         out[name] = (so, ", ".join(stats) if stats else
-                     f"no ptxas summary (log: {log[-300:]!r})")
+                     f"no ptxas summary ({summary[-300:]!r})")
     return out
 
 
