@@ -49,19 +49,13 @@
 //   warp's rows of shared memory.  The K 3, D 2 instance runs 32 warps of
 //   two particles at 64 registers a thread; the generic one 16 warps of
 //   four, at 128 (its arrays spill at 64).
-// * The per-point loop (mutate_points) works in the log2 domain: log2 e is
-//   folded into each component's constants once per evaluation, so each
-//   component's exp is one ex2.approx of a non-positive argument (the
-//   largest is exactly 1), one rcp.approx gives the responsibilities, and
-//   the log of the sum is taken once per kChunk points, of their product
-//   (each sum lies in [1, K], so the product stays below 8^16 < 2^48), with
-//   the maxes summed apart.  gmm_lik.cuh's accumulate, which the likelihood
-//   kernels use, is not changed.  The PTX ISA's bounds (ex2 2 ulp, lg2
-//   2^-22 absolute, rcp 1 ulp) are held against float64 by
-//   tests/test_torch_fused_smc_gmm.py:test_mutation_arithmetic_precision.
-//   The loop can carry W particles through each point a lane loads; W = 1
-//   in both instances, as two particles a group at 16 warps was slower than
-//   one at 32 (tools/smc_mutation_ablation.py times the alternatives).
+// * The per-point loop is gmm_lik.cuh's points_log2, shared with the
+//   value+grad likelihood kernel: log2 e folded into each component's
+//   constants once per evaluation, one ex2.approx a component, one
+//   rcp.approx a point and one lg2.approx per kChunk points.  It can carry
+//   W particles through each point a lane loads; W = 1 in both instances,
+//   as two particles a group at 16 warps was slower than one at 32
+//   (tools/smc_mutation_ablation.py times the alternatives).
 // * No tensor cores: D <= 4 gives no product worth an mma, and the expanded
 //   |x|^2 - 2 mu.x + |mu|^2 cancels when a component sits on the data.
 
@@ -84,9 +78,6 @@ constexpr int PPC = PB / CL;          // particles per block
 // generic one's K <= 8, D <= 4 arrays need 128
 constexpr int NW_EXACT = 32;
 constexpr int NW_GENERIC = 16;
-constexpr int kChunk = 16;            // points a lane multiplies before a log
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.69314718055994531f;
 
 struct MutateArgs {
   const float *q, *mom, *log_u, *m_inv, *x, *beta, *eps0;
@@ -95,44 +86,9 @@ struct MutateArgs {
   float target, cst;
 };
 
-__device__ __forceinline__ float ex2_approx(float v) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-
-__device__ __forceinline__ float lg2_approx(float v) {
-  float r;
-  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-
-__device__ __forceinline__ float rcp_approx(float v) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-
 __device__ __forceinline__ float softplus(float t) {
   return fmaxf(t, 0.f) + log1pf(expf(-fabsf(t)));
 }
-
-// W particles' mixtures in the log2 domain: log2 of component k's weighted
-// density at x is c_k - h_k |x - mu_k|^2.
-template <int MK, int MD, int W>
-struct Mix2 {
-  float mu[W][MK][MD];
-  float c[W][MK];   // log2 e (log w_k - D log s_k - D/2 log 2pi)
-  float h[W][MK];   // log2 e / (2 s_k^2)
-};
-
-// W particles' per-lane sums over the points; ll in log2 units (the maxes
-// plus the logs of the chunk products).
-template <int MK, int MD, int W>
-struct Acc2 {
-  float ll[W];
-  float r[W][MK], rq[W][MK], rdx[W][MK][MD];
-};
 
 // One particle's transformed parameters: the stick-breaking z_j and log
 // weights, its log-Jacobian, and the scales.
@@ -171,76 +127,6 @@ __device__ __forceinline__ Terms<MK> particle_terms(const float* qi, int k,
   return t;
 }
 
-// Add the points lane, lane + 32, ... < n of the row-major (n, d) array xs
-// to the W particles' sums.
-template <int MK, int MD, bool EXACT, int W>
-__device__ __forceinline__ void mutate_points(const Mix2<MK, MD, W>& m,
-                                              const float* __restrict__ xs,
-                                              int lane, int n, int k, int d,
-                                              Acc2<MK, MD, W>& s) {
-  for (int n0 = lane; n0 < n; n0 += 32 * kChunk) {
-    const int n1 = min(n, n0 + 32 * kChunk);
-    float prod[W];
-#pragma unroll
-    for (int w = 0; w < W; ++w) prod[w] = 1.f;
-#pragma unroll 1
-    for (int i = n0; i < n1; i += 32) {
-      float xv[MD];
-      if constexpr (EXACT && MD == 2) {
-        const float2 v = reinterpret_cast<const float2*>(xs)[i];
-        xv[0] = v.x;
-        xv[1] = v.y;
-      } else {
-#pragma unroll
-        for (int j = 0; j < MD; ++j) xv[j] = j < d ? xs[i * d + j] : 0.f;
-      }
-#pragma unroll
-      for (int w = 0; w < W; ++w) {
-        float dx[MK][MD], qd[MK], e[MK];
-        float mx = -INFINITY;
-#pragma unroll
-        for (int kk = 0; kk < MK; ++kk) {
-          if (kk < k) {
-            float qq = 0.f;
-#pragma unroll
-            for (int j = 0; j < MD; ++j) {
-              dx[kk][j] = xv[j] - m.mu[w][kk][j];
-              if (j < d) qq = fmaf(dx[kk][j], dx[kk][j], qq);
-            }
-            qd[kk] = qq;
-            e[kk] = fmaf(-qq, m.h[w][kk], m.c[w][kk]);
-            mx = fmaxf(mx, e[kk]);
-          }
-        }
-        float se = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < MK; ++kk) {
-          if (kk < k) {
-            e[kk] = ex2_approx(e[kk] - mx);
-            se += e[kk];
-          }
-        }
-        prod[w] *= se;
-        s.ll[w] += mx;
-        const float inv = rcp_approx(se);
-#pragma unroll
-        for (int kk = 0; kk < MK; ++kk) {
-          if (kk < k) {
-            const float rr = e[kk] * inv;
-            s.r[w][kk] += rr;
-            s.rq[w][kk] = fmaf(rr, qd[kk], s.rq[w][kk]);
-#pragma unroll
-            for (int j = 0; j < MD; ++j)
-              if (j < d) s.rdx[w][kk][j] = fmaf(rr, dx[kk][j], s.rdx[w][kk][j]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int w = 0; w < W; ++w) s.ll[w] += lg2_approx(prod[w]);
-  }
-}
-
 // pe, grad and ll of the W particles at qs (W rows of dim floats in shared
 // memory): every lane computes the sums' totals and pe; lane j writes
 // gradient coordinate j (and j + 32, ...); lane 0 writes pe and ll.
@@ -253,6 +139,7 @@ __device__ __forceinline__ void eval_group(const float* qs, float* gs,
   const int dim = (k - 1) + k * d + k, off_mu = k - 1, off_us = off_mu + k * d;
   Mix2<MK, MD, W> m;
   Acc2<MK, MD, W> s;
+  s.zero();
 #pragma unroll
   for (int w = 0; w < W; ++w) {
     const float* qi = qs + w * dim;
@@ -267,27 +154,10 @@ __device__ __forceinline__ void eval_group(const float* qs, float* gs,
 #pragma unroll
       for (int j = 0; j < MD; ++j)
         m.mu[w][kk][j] = kk < k && j < d ? qi[off_mu + kk * d + j] : 0.f;
-      s.r[w][kk] = s.rq[w][kk] = 0.f;
-#pragma unroll
-      for (int j = 0; j < MD; ++j) s.rdx[w][kk][j] = 0.f;
-    }
-    s.ll[w] = 0.f;
-  }
-  mutate_points<MK, MD, EXACT, W>(m, xs, lane, A.n, k, d, s);
-#pragma unroll
-  for (int w = 0; w < W; ++w) {
-    s.ll[w] = warp_sum(s.ll[w]);
-#pragma unroll
-    for (int kk = 0; kk < MK; ++kk) {
-      if (kk < k) {
-        s.r[w][kk] = warp_sum(s.r[w][kk]);
-        s.rq[w][kk] = warp_sum(s.rq[w][kk]);
-#pragma unroll
-        for (int j = 0; j < MD; ++j)
-          if (j < d) s.rdx[w][kk][j] = warp_sum(s.rdx[w][kk][j]);
-      }
     }
   }
+  points_log2<MK, MD, EXACT, W>(m, xs, lane, A.n, k, d, s);
+  s.butterfly(k, d);
 #pragma unroll
   for (int w = 0; w < W; ++w) {
     const float* qi = qs + w * dim;

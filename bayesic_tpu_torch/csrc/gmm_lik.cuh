@@ -24,9 +24,23 @@
 // sum r l (gmm_logprob.py:416-419), which cancels when ll is large.  Every
 // product is an fp32 FFMA; D is 1-4, no matrix product.
 //
-// What bounds it: per (particle, point) K exps, one log (value) and one
-// reciprocal (gradient) on the SFU, 16 per SM per clock, and ~6 K + 6 K D
-// fp32 operations besides; the data (N D floats) sits in shared memory.
+// Two point loops.  accumulate (the forward and backward kernels) takes per
+// (particle, point) K accurate exps, one log (value) and one reciprocal
+// (gradient).  points_log2 (the value+grad kernel and the SMC mutation)
+// works in the log2 domain: log2 e is folded into each component's
+// constants once per particle, so each component's exp is one ex2.approx
+// of a non-positive argument (the largest is exactly 1), one rcp.approx
+// gives the responsibilities, and the log of the sum is taken once per
+// kChunk points, of their product (each sum lies in [1, K], so the product
+// stays below 8^16 < 2^48), with the maxes summed apart: ~50 SASS
+// instructions a (particle, point) at K = 3, D = 2 against ~118.  The PTX
+// ISA's bounds (ex2 2 ulp, lg2 2^-22 absolute, rcp 1 ulp) are held against
+// float64 by tests/test_torch_fused_smc_gmm.py and
+// tests/test_torch_gmm_logprob.py, which emulate the loop in its order.
+//
+// What bounds it: per (particle, point) the SFU's exps, logs and
+// reciprocals (16 per SM per clock) and the issue of the ~6 K + 6 K D fp32
+// operations around them; the data (N D floats) sits in shared memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -40,6 +54,9 @@ constexpr float kHalfLog2Pi = 0.91893853320467274f;   // 0.5 ln 2pi
 constexpr size_t kGmmMaxSmem = 232448;   // 227 KB, the per-block maximum
 constexpr int GMM_MAXK = 8;              // most components
 constexpr int GMM_MAXD = 4;              // most data dims
+constexpr int kChunk = 16;            // points a lane multiplies before a log
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.69314718055994531f;
 
 // One particle's mixture, in registers of every lane of its warp.
 template <int MK, int MD>
@@ -141,6 +158,144 @@ __device__ __forceinline__ void reduce(Sums<MK, MD>& s, int k, int d) {
           if (j < d) s.rdx[kk][j] = warp_sum(s.rdx[kk][j]);
       }
     }
+  }
+}
+
+__device__ __forceinline__ float ex2_approx(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ float lg2_approx(float v) {
+  float r;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ float rcp_approx(float v) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// W particles' mixtures in the log2 domain: log2 of component k's weighted
+// density at x is c_k - h_k |x - mu_k|^2.
+template <int MK, int MD, int W>
+struct Mix2 {
+  float mu[W][MK][MD];
+  float c[W][MK];   // log2 e (log w_k - D log s_k - D/2 log 2pi)
+  float h[W][MK];   // log2 e / (2 s_k^2)
+};
+
+// W particles' per-lane sums over the points; ll in log2 units (the maxes
+// plus the logs of the chunk products).
+template <int MK, int MD, int W>
+struct Acc2 {
+  float ll[W];
+  float r[W][MK], rq[W][MK], rdx[W][MK][MD];
+
+  __device__ void zero() {
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      ll[w] = 0.f;
+#pragma unroll
+      for (int k = 0; k < MK; ++k) {
+        r[w][k] = rq[w][k] = 0.f;
+#pragma unroll
+        for (int j = 0; j < MD; ++j) rdx[w][k][j] = 0.f;
+      }
+    }
+  }
+
+  // Add the sums across the warp: afterwards every lane holds the
+  // particles' totals.
+  __device__ void butterfly(int k, int d) {
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      ll[w] = warp_sum(ll[w]);
+#pragma unroll
+      for (int kk = 0; kk < MK; ++kk) {
+        if (kk < k) {
+          r[w][kk] = warp_sum(r[w][kk]);
+          rq[w][kk] = warp_sum(rq[w][kk]);
+#pragma unroll
+          for (int j = 0; j < MD; ++j)
+            if (j < d) rdx[w][kk][j] = warp_sum(rdx[w][kk][j]);
+        }
+      }
+    }
+  }
+};
+
+// Add the points lane, lane + 32, ... < n of the row-major (n, d) array xs
+// to the W particles' sums (k <= MK, d <= MD; EXACT: k = MK, d = MD), each
+// lane's chunks of kChunk points closed by one lg2 of their sums' product.
+template <int MK, int MD, bool EXACT, int W>
+__device__ __forceinline__ void points_log2(const Mix2<MK, MD, W>& m,
+                                            const float* __restrict__ xs,
+                                            int lane, int n, int k, int d,
+                                            Acc2<MK, MD, W>& s) {
+  for (int n0 = lane; n0 < n; n0 += 32 * kChunk) {
+    const int n1 = min(n, n0 + 32 * kChunk);
+    float prod[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) prod[w] = 1.f;
+#pragma unroll 1
+    for (int i = n0; i < n1; i += 32) {
+      float xv[MD];
+      if constexpr (EXACT && MD == 2) {
+        const float2 v = reinterpret_cast<const float2*>(xs)[i];
+        xv[0] = v.x;
+        xv[1] = v.y;
+      } else {
+#pragma unroll
+        for (int j = 0; j < MD; ++j) xv[j] = j < d ? xs[i * d + j] : 0.f;
+      }
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        float dx[MK][MD], qd[MK], e[MK];
+        float mx = -INFINITY;
+#pragma unroll
+        for (int kk = 0; kk < MK; ++kk) {
+          if (kk < k) {
+            float qq = 0.f;
+#pragma unroll
+            for (int j = 0; j < MD; ++j) {
+              dx[kk][j] = xv[j] - m.mu[w][kk][j];
+              if (j < d) qq = fmaf(dx[kk][j], dx[kk][j], qq);
+            }
+            qd[kk] = qq;
+            e[kk] = fmaf(-qq, m.h[w][kk], m.c[w][kk]);
+            mx = fmaxf(mx, e[kk]);
+          }
+        }
+        float se = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < MK; ++kk) {
+          if (kk < k) {
+            e[kk] = ex2_approx(e[kk] - mx);
+            se += e[kk];
+          }
+        }
+        prod[w] *= se;
+        s.ll[w] += mx;
+        const float inv = rcp_approx(se);
+#pragma unroll
+        for (int kk = 0; kk < MK; ++kk) {
+          if (kk < k) {
+            const float rr = e[kk] * inv;
+            s.r[w][kk] += rr;
+            s.rq[w][kk] = fmaf(rr, qd[kk], s.rq[w][kk]);
+#pragma unroll
+            for (int j = 0; j < MD; ++j)
+              if (j < d) s.rdx[w][kk][j] = fmaf(rr, dx[kk][j], s.rdx[w][kk][j]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < W; ++w) s.ll[w] += lg2_approx(prod[w]);
   }
 }
 

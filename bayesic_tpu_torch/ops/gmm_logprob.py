@@ -12,7 +12,9 @@ scales (P, K)), over a shared data set x (N, D):
   backward kernel; the gradient for x is NaN (not implemented; the SMC path
   never asks for it, and NaN fails loudly where zeros would mislead).
 * ``gmm_loglik_grad`` returns the value and the three gradients from one
-  launch of the value+grad kernel.
+  launch of the value+grad kernel.  ``vg_geometry`` gives that launch's
+  shape and ``device_vg_geometry`` the library's own, with the blocks an
+  SM of the current card can hold at once.
 
 On a CPU tensor each runs its plain version, ``gmm_loglik_reference`` and
 ``gmm_loglik_grad_reference``; on a CUDA tensor each launches its kernel or
@@ -32,11 +34,17 @@ from . import _build
 from .fused_nuts import _ptr, _raise, _stream
 
 __all__ = ["gmm_loglik_reference", "gmm_loglik_grad_reference",
-           "gmm_loglik", "gmm_loglik_grad", "LAUNCHES", "MAX_COMPONENTS",
-           "MAX_DATA_DIM"]
+           "gmm_loglik", "gmm_loglik_grad", "vg_geometry",
+           "device_vg_geometry", "LAUNCHES", "MAX_COMPONENTS",
+           "MAX_DATA_DIM", "THREADS", "VG_THREADS_EXACT",
+           "VG_TILE_FLOATS"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 MAX_COMPONENTS, MAX_DATA_DIM = 8, 4      # GMM_MAXK, GMM_MAXD of gmm_lik.cuh
+# csrc/gmm_logprob.cu: threads a block, one warp per particle (GL_NT; the
+# value+grad kernel's K 3, D 2 instance VG_NT), and the most x floats the
+# value+grad kernel holds in shared memory at once
+THREADS, VG_THREADS_EXACT, VG_TILE_FLOATS = 256, 1024, 12288
 
 # launches of each kernel: "fwd", "bwd" (gmm_loglik's backward) and "vg"
 # (gmm_loglik_grad)
@@ -173,6 +181,36 @@ def gmm_loglik(x, log_w, mus, sigmas):
     sigmas (P, K) -> (P,), differentiable in log_w, mus and sigmas (the
     backward kernel on a CUDA tensor)."""
     return _GmmLoglik.apply(x, log_w, mus, sigmas)
+
+
+def vg_geometry(p, n, k, d):
+    """The value+grad kernel's launch for ``p`` particles of a (K, D)
+    mixture over ``n`` points: threads and particles a block (32 warps at
+    K 3, D 2, 8 at the generic instance), blocks, dynamic shared bytes (x,
+    up to ``VG_TILE_FLOATS`` floats) and the x tiles each block walks."""
+    if not (p >= 1 and n >= 1 and 1 <= k <= MAX_COMPONENTS
+            and 1 <= d <= MAX_DATA_DIM):
+        raise ValueError(f"no launch for P={p}, N={n}, K={k}, D={d}")
+    tile = VG_TILE_FLOATS // d
+    threads = VG_THREADS_EXACT if (k, d) == (3, 2) else THREADS
+    return dict(threads=threads, particles_per_block=threads // 32,
+                blocks=-(-p // (threads // 32)),
+                smem_bytes=4 * min(n, tile) * d, tiles=-(-n // tile))
+
+
+def device_vg_geometry(p, n, k, d):
+    """The library's value+grad launch at (P, N, K, D), as ``vg_geometry``
+    names it, and ``resident_blocks``: the blocks of it an SM of the
+    current card can hold at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).  Needs a CUDA
+    card."""
+    import ctypes
+
+    out = (ctypes.c_int * 6)()
+    _raise(_build.load().gmm_loglik_vg_geometry(p, n, k, d, out),
+           "gmm_loglik_vg_geometry")
+    return dict(zip(("threads", "particles_per_block", "blocks",
+                     "smem_bytes", "tiles", "resident_blocks"), out))
 
 
 def gmm_loglik_grad(x, log_w, mus, sigmas):

@@ -139,6 +139,12 @@ GMM_SEEDS = (100, 101, 102, 103, 104)
 # accepted (the posterior narrows as beta grows, so the step shrinks)
 GMM_BETA_EPS = ((0.05, 0.1), (0.5, 0.04), (1.0, 0.03))
 GMM_ODD = dict(p=1001, n=1999)      # phase 17's odd shape
+# phase 17's further value+grad shapes: P by N at the bench's K 3, D 2
+# (lone and ragged blocks, lanes with no points) and the generic instance
+# at its largest K 8, D 4; phase 20's launches a timed kernel
+GMM_VG_PN = [(p, n) for p in (1, 7, 1001, 8192) for n in (20, 1999, 2000)]
+GMM_VG_GENERIC = ((8, 4, 1001, 1999), (8, 4, 7, 20))
+GMM_TIMED = 50
 GMM_GENERIC = (4, 3)    # phase 18's (K, D) of the generic kernel instance
 # phase 18 at K = 5: limits on the adaptation's outcome against the plain
 # core (per-block and pooled step rel err, mean accept abs err, share of
@@ -227,6 +233,18 @@ def _device_ms(torch, fn, reps):
         raise AssertionError(f"_device_ms: the host took {host_ms:.1f} ms "
                              f"to queue {reps} calls, past the spin")
     return start.elapsed_time(end) / reps
+
+
+def _host_ms(torch, fn, reps):
+    """Milliseconds of host time per call of ``fn`` (caller warms up): the
+    wrapper's own cost, the calls queued without a wait."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - t) / reps
+    torch.cuda.synchronize()
+    return host_ms
 
 
 def _trace(torch, fn, steps, unit="step"):
@@ -1325,13 +1343,39 @@ def _gmm_phases(torch, np, card, dev):
     def t32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
-    def lik_inputs(p, n):
-        xx = x if n == n_b else t32(gmm.make_data(
-            gmm.Config(num_data=n, seed=1))[0])
+    def lik_inputs(p, n, k=k, d=d, rng=rng):
+        xx, tr = (xn, truth) if (n, k, d) == (n_b, cfg.num_components,
+                                             cfg.data_dim) \
+            else gmm.make_data(gmm.Config(num_components=k, data_dim=d,
+                                          num_data=n, seed=1))
         lw = np.log(rng.dirichlet(np.full(k, 2.0), p))
-        mus = truth["centers"][None] + rng.normal(0.0, 1.0, (p, k, d))
+        mus = tr["centers"][None] + rng.normal(0.0, 1.0, (p, k, d))
         sig = np.exp(rng.normal(np.log(0.7), 0.3, (p, k)))
-        return xx, t32(lw), t32(mus), t32(sig), t32(rng.normal(size=p))
+        return t32(xx), t32(lw), t32(mus), t32(sig), t32(rng.normal(size=p))
+
+    def lik_errs(got, want):
+        """ll rel err and gradient err / max|g| by name; the worst abs err
+        into lik_err."""
+        errs = {}
+        for name, (got_ll, ll_ref) in got.items():
+            err = (got_ll - ll_ref).abs()
+            errs[f"{name} ll"] = float((err / ll_ref.abs()).max())
+            lik_err[name] = max(lik_err[name], float(err.max()))
+        for name, (gots, refs) in want.items():
+            for gname, got_, ref in zip(("dlogw", "dmus", "dsig"), gots,
+                                        refs):
+                err = (got_ - ref).abs()
+                errs[f"{name} {gname}"] = float(err.max()
+                                                / ref.abs().max())
+                lik_err[name] = max(lik_err[name], float(err.max()))
+        return errs
+
+    def lik_check(errs, tag):
+        bad = {kk: v for kk, v in errs.items()
+               if v > (1e-5 if kk.endswith(" ll") else 1e-4)}
+        if bad:
+            raise AssertionError(f"phase 17: {tag}: {bad} (limits: ll 1e-5 "
+                                 f"relative, gradients 1e-4 of max|g|)")
 
     # -- 17. the likelihood kernels against their plain versions ----------
     lik_err, lines = {"fwd": 0.0, "bwd": 0.0, "vg": 0.0}, []
@@ -1345,26 +1389,30 @@ def _gmm_phases(torch, np, card, dev):
         want = glp.gmm_loglik_grad_reference(xx, lw, mus, sig)
         want_ct = glp.gmm_loglik_grad_reference(xx, lw, mus, sig, ct)
         ll_ref = glp.gmm_loglik_reference(xx, lw, mus, sig)
-        errs = {}
-        for name, got_, ref in (("fwd", ll, ll_ref), ("vg", vg[0], want[0])):
-            err = (got_ - ref).abs()
-            errs[f"{name} ll"] = float((err / ref.abs()).max())
-            lik_err[name] = max(lik_err[name], float(err.max()))
-        for name, gots, refs in (("bwd", g_bwd, want_ct[1:]),
-                                 ("vg", vg[1:], want[1:])):
-            for gname, got_, ref in zip(("dlogw", "dmus", "dsig"), gots,
-                                        refs):
-                err = (got_ - ref).abs()
-                errs[f"{name} {gname}"] = float(err.max()
-                                                / ref.abs().max())
-                lik_err[name] = max(lik_err[name], float(err.max()))
-        bad = {kk: v for kk, v in errs.items()
-               if v > (1e-5 if kk.endswith(" ll") else 1e-4)}
-        if bad:
-            raise AssertionError(f"phase 17: P {p} N {n}: {bad} (limits: ll "
-                                 f"1e-5 relative, gradients 1e-4 of max|g|)")
+        errs = lik_errs({"fwd": (ll, ll_ref), "vg": (vg[0], want[0])},
+                        {"bwd": (g_bwd, want_ct[1:]), "vg": (vg[1:],
+                                                             want[1:])})
+        lik_check(errs, f"P {p} N {n}")
         lines.append(f"P {p} N {n}: " + ", ".join(
             f"{kk} {v:.2e}" for kk, v in errs.items()))
+    # the value+grad kernel alone at the other shapes, its worst errors
+    rng_vg = np.random.default_rng(170)
+    vg_worst = {}
+    vg_shapes = [(k, d, p, n) for p, n in GMM_VG_PN
+                 if (p, n) not in ((p_b, n_b), (GMM_ODD["p"],
+                                                GMM_ODD["n"]))]
+    for kk_, dd, p, n in vg_shapes + list(GMM_VG_GENERIC):
+        xx, lw, mus, sig, _ = lik_inputs(p, n, kk_, dd, rng_vg)
+        vg = glp.gmm_loglik_grad(xx, lw, mus, sig)
+        torch.cuda.synchronize()
+        want = glp.gmm_loglik_grad_reference(xx, lw, mus, sig)
+        errs = lik_errs({"vg": (vg[0], want[0])}, {"vg": (vg[1:], want[1:])})
+        lik_check(errs, f"K {kk_} D {dd} P {p} N {n}")
+        for kk, v in errs.items():
+            vg_worst[kk] = max(vg_worst.get(kk, 0.0), v)
+    lines.append(f"vg at {len(vg_shapes)} more P x N at K {k}, D {d} and "
+                 f"{len(GMM_VG_GENERIC)} at K 8, D 4 (worst): " + ", ".join(
+                     f"{kk} {v:.2e}" for kk, v in vg_worst.items()))
     print("phase 17 GMM likelihood kernels ok (worst ll rel err; worst "
           "gradient err / max|g|): " + "; ".join(lines), flush=True)
 
@@ -1576,11 +1624,25 @@ def _gmm_phases(torch, np, card, dev):
         "vg": (lambda: glp.gmm_loglik_grad(xx, lw, mus, sig),
                lambda: glp.gmm_loglik_grad_reference(xx, lw, mus, sig)),
     }
-    ms = {}
+    # per call: the kernel's device time (queued behind a spin), the
+    # plain version's time, the wrapper's host time
+    ms, host_ms = {}, {}
     for name, (kern, plain) in timed.items():
         kern()
         plain()
-        ms[name] = (_cuda_ms(torch, kern, 20)[0], _cuda_ms(torch, plain, 3)[0])
+        ms[name] = (_device_ms(torch, kern, GMM_TIMED),
+                    _cuda_ms(torch, plain, 3)[0])
+        host_ms[name] = _host_ms(torch, kern, GMM_TIMED)
+    vg_geo = glp.device_vg_geometry(p_b, n_b, k, d)
+    resident = vg_geo.pop("resident_blocks")
+    if vg_geo != glp.vg_geometry(p_b, n_b, k, d):
+        raise AssertionError(f"phase 20: the library's value+grad launch "
+                             f"{vg_geo} is not vg_geometry's "
+                             f"{glp.vg_geometry(p_b, n_b, k, d)}")
+    slots = resident * torch.cuda.get_device_properties(dev) \
+        .multi_processor_count
+    waves = vg_geo["blocks"] / slots
+    last_wave = vg_geo["blocks"] - (-(-vg_geo["blocks"] // slots) - 1) * slots
     mom = t32(rng.normal(size=(kmut, p_b, dim)))
     log_u = t32(np.log(rng.uniform(size=(p_b, kmut))))
     margs = (q0, mom, log_u, 1.0, 0.03, m_inv, x)
@@ -1644,7 +1706,15 @@ def _gmm_phases(torch, np, card, dev):
         f"{kk} kernel {ms[kk][0]:.4f} ms, plain {ms[kk][1]:.4f} ms, bound "
         f"{bounds[kk][0]:.4f} ms ({bounds[kk][1]}), SFU "
         f"{_sfu_ms(cost[kk][2]):.4f} ms" for kk in ms)
-        + f" (mutate per stage, the others per call); mutate at P "
+        + f" (mutate per stage, the others per call, the likelihood "
+        f"kernels' device time queued behind a spin; the wrappers' host time "
+        f"a call: " + ", ".join(f"{kk} {v:.4f} ms" for kk, v in
+                                host_ms.items())
+        + f"); vg launch at P {p_b}: {vg_geo['blocks']} blocks of "
+        f"{vg_geo['threads']} threads ({vg_geo['particles_per_block']} "
+        f"particles), {vg_geo['smem_bytes']} B of x in {vg_geo['tiles']} "
+        f"tile(s), {resident} resident an SM, {slots} in all: {waves:.2f} "
+        f"waves, the last {last_wave} blocks; mutate at P "
         f"{fsg.PB} (one adaptation block) {ms_block:.4f} ms; clusters of "
         f"{geo['cluster']} blocks x {geo['threads']} threads, "
         f"{want_geo['ctas']} blocks at P {p_b}, "
@@ -2134,7 +2204,8 @@ def main():
     build_s = time.perf_counter() - t
     print(f"phase 1 build ok in {build_s:.1f} s: "
           f"{_ptxas_summary(_build.build_log())}; SASS: "
-          f"{_sass_loops(_build.load()._name, 'smc_gmm_mutate_kernel')}",
+          f"{_sass_loops(_build.load()._name, 'smc_gmm_mutate_kernel')}; "
+          f"{_sass_loops(_build.load()._name, 'gmm_lik_kernel')}",
           flush=True)
 
     records = [_svi_phases(torch, np, card, dev),

@@ -21,8 +21,10 @@ marked ``gpu`` and skip here.  What the CPU can check of it:
 ``test_mutation_arithmetic_precision`` emulates its per-point arithmetic
 (log2-domain constants, ex2/lg2/rcp at the PTX ISA's error bounds, the
 chunked product of sums under one log, the lanes' order and the
-butterfly) in numpy float32 against float64, and the launch geometry and
-the chunk length are checked against the source.
+butterfly; the point loop through ``tests/gmm_log2_emulation.py``, which
+the value+grad likelihood kernel's test shares) in numpy float32 against
+float64, and the launch geometry and the chunk length are checked against
+the sources.
 """
 
 import re
@@ -33,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+import gmm_log2_emulation as emu
 from bayesic_tpu.ops import fused_smc_gmm as jfsg
 from bayesic_tpu_torch import interop
 from bayesic_tpu_torch.dist import StickBreaking
@@ -197,40 +200,25 @@ def test_wrapper_checks():
         tfsg.fused_gmm_mutate(*meta, 0.5, 0.1, torch.ones(DIM), x, **kw)
 
 
-# the PTX ISA's documented bounds of the kernel's approximate functions:
-# ex2.approx.ftz.f32 within 2 ulp (relative 2^-22), lg2.approx.ftz.f32
-# within 2^-22 absolute, rcp.approx.ftz.f32 within 1 ulp (relative 2^-23)
-EX2_REL, LG2_ABS, RCP_REL = 2.0 ** -22, 2.0 ** -22, 2.0 ** -23
 _F32 = np.float32
 _CU = Path(tfsg.__file__).resolve().parents[1] / "csrc" / "fused_smc_gmm.cu"
-
-
-def _fma(a, b, c):
-    """fmaf: the float32 product is exact in float64, one rounding (twice,
-    float64 then float32, a half-ulp apart at worst)."""
-    return (np.asarray(a, np.float64) * b + c).astype(_F32)
+# the point loop and its chunk length live in the header it shares with the
+# value+grad likelihood kernel
+_CUH = _CU.with_name("gmm_lik.cuh")
 
 
 def _softplus(v):
     return np.maximum(v, _F32(0)) + np.log1p(np.exp(-np.abs(v)))
 
 
-def _butterfly(v):
-    """warp_sum over the last axis (32 lanes): xor shuffles 16 .. 1."""
-    lanes = np.arange(32)
-    for o in (16, 8, 4, 2, 1):
-        v = (v + v[..., lanes ^ o]).astype(_F32)
-    return v
-
-
 def _emulated_potential(q, x, beta, sign):
     """pe, grad and ll of the particles q (P, dim) as the kernel computes
-    them at K = 3, D = 2 (particle_terms, mutate_points, eval_group) in
+    them at K = 3, D = 2 (particle_terms, points_log2, eval_group) in
     float32, every ex2, lg2 and rcp moved by ``sign`` times its bound."""
     k, d = K, D
     off_mu, off_us = k - 1, k - 1 + k * d
     q, x = q.astype(_F32), x.astype(_F32)
-    p, n = q.shape[0], x.shape[0]
+    p = q.shape[0]
     # particle_terms
     t = q[:, :k - 1] - np.log(np.arange(k - 1, 0, -1)).astype(_F32)
     z = _F32(1) / (_F32(1) + np.exp(-t))
@@ -247,46 +235,11 @@ def _emulated_potential(q, x, beta, sign):
     sg = np.exp(us)
     inv_s2 = _F32(1) / (sg * sg)
     mu = q[:, off_mu:off_us].reshape(p, k, d)
-    c2 = _F32(np.log2(np.e)) * (logw - _F32(d) * us
-                                 - _F32(d) * _F32(0.5 * np.log(2 * np.pi)))
+    c2 = emu.LOG2E * (logw - _F32(d) * us - _F32(d) * emu.HALF_LOG_2PI)
     h2 = _F32(0.5 * np.log2(np.e)) * inv_s2
-    # mutate_points: lane l takes the points l, l + 32, ...; a lane's sums
-    # run in that order, its chunks of CHUNK points end in one lg2
-    iters = -(-n // 32)
-    last = (n - 1 - np.arange(32)) // 32          # a lane's last iteration
-    ll2 = np.zeros((p, 32), _F32)
-    prod = np.ones((p, 32), _F32)
-    r = np.zeros((p, 32, k), _F32)
-    rq = np.zeros((p, 32, k), _F32)
-    rdx = np.zeros((p, 32, k, d), _F32)
-    for it in range(iters):
-        idx = np.minimum(np.arange(32) + 32 * it, n - 1)
-        live = (it <= last)[None, :, None]
-        dx = (x[idx][None, :, None, :] - mu[:, None]).astype(_F32)
-        qd = _fma(dx[..., 1], dx[..., 1], dx[..., 0] * dx[..., 0])
-        lk = _fma(-qd, h2[:, None], c2[:, None])
-        mx = lk.max(-1)
-        e = (np.exp2(np.asarray(lk - mx[..., None], np.float64))
-             * (1 + sign * EX2_REL)).astype(_F32)
-        se = ((e[..., 0] + e[..., 1]).astype(_F32) + e[..., 2]).astype(_F32)
-        inv = (1.0 / np.asarray(se, np.float64)
-               * (1 + sign * RCP_REL)).astype(_F32)
-        rr = (e * inv[..., None]).astype(_F32)
-        prod = np.where(live[..., 0], prod * se, prod).astype(_F32)
-        ll2 = np.where(live[..., 0], ll2 + mx, ll2).astype(_F32)
-        r = np.where(live, r + rr, r).astype(_F32)
-        rq = np.where(live, _fma(rr, qd, rq), rq)
-        rdx = np.where(live[..., None], _fma(rr[..., None], dx, rdx), rdx)
-        end = live[..., 0] & ((it % tfsg.CHUNK == tfsg.CHUNK - 1)
-                              | (it == last)[None])
-        lg = (np.log2(np.asarray(prod, np.float64))
-              + sign * LG2_ABS).astype(_F32)
-        ll2 = np.where(end, ll2 + lg, ll2).astype(_F32)
-        prod = np.where(end, _F32(1), prod)
-    ll = _F32(np.log(2.0)) * _butterfly(ll2)[:, 0]
-    r = _butterfly(np.moveaxis(r, 1, -1))[..., 0]
-    rq = _butterfly(np.moveaxis(rq, 1, -1))[..., 0]
-    rdx = _butterfly(np.moveaxis(rdx, 1, -1))[..., 0]
+    # points_log2 (tests/gmm_log2_emulation.py), then eval_group's butterfly
+    ll2, r, rq, rdx = emu.points_log2(c2, h2, mu, x, sign, tfsg.CHUNK)
+    ll = emu.LN2 * ll2
     # eval_group's epilogue
     beta = _F32(beta)
     pe = _F32(tfsg.potential_constant(k, d)) - ldj - beta * ll
@@ -347,14 +300,14 @@ def test_chunk_product_cannot_overflow():
     = 1), so a lane's product over CHUNK points lies in [1, K^CHUNK]: at
     K = 8, the most the kernel takes, with every ex2 at its bound and
     every product rounded up, it stays finite and below 2^64 in float32,
-    and the kernel's chunk is this one."""
+    and the kernels' chunk (``kChunk`` of gmm_lik.cuh) is this one."""
     assert MAX_COMPONENTS == 8
-    se = _F32(MAX_COMPONENTS * (1 + EX2_REL) * (1 + 2.0 ** -23))
+    se = _F32(MAX_COMPONENTS * (1 + emu.EX2_REL) * (1 + 2.0 ** -23))
     prod = _F32(1)
     for _ in range(tfsg.CHUNK):
         prod = _F32(np.float64(prod) * se * (1 + 2.0 ** -23))
     assert np.isfinite(prod) and 1.0 <= prod < 2.0 ** 64
-    src = _CU.read_text()
+    src = _CUH.read_text()
     assert int(re.search(r"kChunk = (\d+);", src).group(1)) == tfsg.CHUNK
 
 

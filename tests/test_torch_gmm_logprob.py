@@ -12,18 +12,32 @@ kernel, whose gradient products run one bf16 pass by design and whose
 d/dsigma comes through a cancelling identity (its own test allows 5e-3).
 
 The kernels themselves run only on a CUDA card: ``test_kernels_match_plain``
-is marked ``gpu`` and skips here.
+is marked ``gpu`` and skips here.  What the CPU can check of the
+value+grad kernel: ``test_vg_arithmetic_precision`` emulates its
+log2-domain point loop (``tests/gmm_log2_emulation.py``, shared with the
+SMC mutation's test) with ex2, lg2 and rcp at the PTX ISA's bounds against
+float64, and ``test_vg_geometry`` checks its launch against the source.
 """
+
+import re
+from pathlib import Path
 
 import jax
 import numpy as np
 import pytest
 import torch
 
+import gmm_log2_emulation as emu
 from bayesic_tpu.ops import gmm_logprob as jgl
+from bayesic_tpu_torch.dist import StickBreaking
+from bayesic_tpu_torch.models import gmm as tgmm
 from bayesic_tpu_torch.ops import gmm_logprob as tgl
 
 torch.set_num_threads(2)
+
+_CU = Path(tgl.__file__).resolve().parents[1] / "csrc" / "gmm_logprob.cu"
+_CHUNK = int(re.search(r"kChunk = (\d+);",
+                       _CU.with_name("gmm_lik.cuh").read_text()).group(1))
 
 
 @pytest.fixture
@@ -123,12 +137,107 @@ def test_wrapper_checks():
         tgl._check(x, lw, mus[:, :2], sig)
 
 
+def _particles(k, d, num_data, kind, count=8):
+    """x (N, D) and ``count`` float32 particles (log w, mus, sigmas) of a
+    (K, D) mixture, made as the SMC mutation's precision test makes its
+    flat particles: near the data's truth, from a unit-scale prior, or far
+    away (log-scales ~ N(0, 3)), mapped through the model's transforms."""
+    x, truth = tgmm.make_data(tgmm.Config(num_components=k, data_dim=d,
+                                          num_data=num_data))
+    rng = np.random.default_rng(11)
+    dim = (k - 1) + k * d + k
+    base = np.concatenate([
+        StickBreaking().inverse(torch.as_tensor(truth["weights"],
+                                                dtype=torch.float64)).numpy(),
+        truth["centers"].reshape(-1), np.log(truth["scales"])])
+    q = {"near": base + rng.normal(0.0, 0.03, (count, dim)),
+         "prior": rng.normal(0.0, 0.5, (count, dim)),
+         "far": rng.normal(0.0, 3.0, (count, dim))}[kind]
+    w = StickBreaking().forward(torch.as_tensor(q[:, :k - 1])).numpy()
+    lw = np.log(w).astype(np.float32)
+    mus = q[:, k - 1:k - 1 + k * d].reshape(count, k, d).astype(np.float32)
+    sig = np.exp(q[:, k - 1 + k * d:]).astype(np.float32)
+    return x, lw, mus, sig
+
+
+def _emulated_vg(x, lw, mus, sig, sign):
+    """ll and its three gradients as the value+grad kernel computes them
+    (``value_grad`` of csrc/gmm_logprob.cu) in float32, every ex2, lg2 and
+    rcp moved by ``sign`` times its bound."""
+    f32 = np.float32
+    d = x.shape[1]
+    c2 = emu.LOG2E * (lw - f32(d) * np.log(sig) - f32(d) * emu.HALF_LOG_2PI)
+    h2 = f32(0.5 * np.log2(np.e)) / (sig * sig)
+    ll2, r, rq, rdx = emu.points_log2(c2, h2, mus, x, sign, _CHUNK,
+                                      tgl.VG_TILE_FLOATS // d)
+    inv_s2 = f32(1) / (sig * sig)
+    return (emu.LN2 * ll2, r, rdx * inv_s2[..., None],
+            (rq * inv_s2 - f32(d) * r) / sig)
+
+
+@pytest.mark.parametrize("k, d, n", [(3, 2, 2000), (8, 4, 1999), (8, 4, 20)])
+@pytest.mark.parametrize("kind", ["near", "prior", "far"])
+def test_vg_arithmetic_precision(k, d, n, kind):
+    """The value+grad kernel's arithmetic (log2-domain constants, one ex2
+    per component, one rcp, the sums of kChunk points multiplied under one
+    lg2 with the maxes summed apart, lanes striding over the points, the
+    butterfly, the ln 2 epilogue), emulated in float32 with every
+    approximate function at its PTX ISA bound in either direction: ll
+    within rel 1e-5 and each gradient within 1e-4 of its max|g| of float64
+    (chip_smoke phase 17's limits), at the bench's K 3, D 2, N 2,000 and at
+    the generic instance's largest K 8, D 4 with N 1,999 and N 20 (lanes
+    with no points)."""
+    x, lw, mus, sig = _particles(k, d, n, kind)
+    want = [a.numpy() for a in tgl.gmm_loglik_grad_reference(
+        *(torch.as_tensor(a, dtype=torch.float64)
+          for a in (x, lw, mus, sig)))]
+    for sign in (1.0, -1.0):
+        got = _emulated_vg(x, lw, mus, sig, sign)
+        ll_err = np.abs(got[0] - want[0]) / np.abs(want[0])
+        assert ll_err.max() < 1e-5, (sign, ll_err.max())
+        for name, g, w in zip(("dlogw", "dmus", "dsig"), got[1:], want[1:]):
+            err = np.abs(g - w).max() / np.abs(w).max()
+            assert err < 1e-4, (sign, name, err)
+
+
+@pytest.mark.parametrize("p, blocks", [(1, (1, 1)), (7, (1, 1)),
+                                       (1001, (32, 126)),
+                                       (8192, (256, 1024))])
+def test_vg_geometry(p, blocks):
+    """One warp per particle, 32 a block at K 3, D 2 and 8 at the generic
+    instance: P 1 and 7 fill one block, P 1,001 a ragged last one, P 8,192
+    256 blocks at K 3, D 2; x in shared memory at its own size (16,000
+    bytes at the bench's N 2,000, D 2), in 48 KB tiles past
+    VG_TILE_FLOATS; the constants are the kernel's."""
+    src = _CU.read_text()
+    consts = {name: int(re.search(rf"int {name} = (\d+);", src).group(1))
+              for name in ("GL_NT", "VG_NT", "VG_TILE_FLOATS")}
+    assert consts == dict(GL_NT=tgl.THREADS, VG_NT=tgl.VG_THREADS_EXACT,
+                          VG_TILE_FLOATS=tgl.VG_TILE_FLOATS)
+    for (n, k, d), (smem, tiles) in (((2000, 3, 2), (16000, 1)),
+                                     ((20, 8, 4), (320, 1)),
+                                     ((20000, 3, 2), (49152, 4)),
+                                     ((5000, 8, 3), (49152, 2))):
+        threads = 1024 if (k, d) == (3, 2) else 256
+        g = tgl.vg_geometry(p, n, k, d)
+        assert g == dict(threads=threads, particles_per_block=threads // 32,
+                         blocks=blocks[threads == 256], smem_bytes=smem,
+                         tiles=tiles)
+    with pytest.raises(ValueError, match="no launch"):
+        tgl.vg_geometry(p, 2000, 9, 2)
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain():
     """On a CUDA card: forward, backward (autograd with a random
     cotangent) and value+grad kernels against their plain versions, at the
     compile-time K = 3, D = 2 instantiation and the general one; ll within
-    1e-5 relative, gradients within 1e-4 of max|g|."""
+    1e-5 relative, gradients within 1e-4 of max|g|.  The value+grad kernel
+    also at P 1, 7, 1,001 and 8,192 by N 20, 1,999 and 2,000, at K 8, D 4,
+    and past one x tile (N 20,000 at D 2, 5,000 at D 4); two launches bit
+    for bit; and the library's launch equal to ``vg_geometry``, with at
+    least the one resident block an SM its K 3, D 2 instance is built
+    for."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -155,3 +264,26 @@ def test_kernels_match_plain():
                                                            want_ct[1:])):
             torch.testing.assert_close(
                 g, w, rtol=0, atol=1e-4 * float(w.abs().max()))
+    vg_shapes = [dict(n=n, d=2, p=p, k=3, seed=p + n)
+                 for p in (1, 7, 1001, 8192) for n in (20, 1999, 2000)]
+    vg_shapes += [dict(n=1999, d=4, p=1001, k=8), dict(n=20, d=4, p=7, k=8),
+                  dict(n=20000, d=2, p=40, k=3), dict(n=5000, d=4, p=9, k=8)]
+    for shape in vg_shapes:
+        x, lw, mus, sig = (a.to(dev) for a in _t(*_inputs(**shape)))
+        before = tgl.LAUNCHES["vg"]
+        vg = tgl.gmm_loglik_grad(x, lw, mus, sig)
+        again = tgl.gmm_loglik_grad(x, lw, mus, sig)
+        torch.cuda.synchronize()
+        assert tgl.LAUNCHES["vg"] == before + 2
+        for a, b in zip(vg, again):
+            assert torch.equal(a, b), shape
+        want = tgl.gmm_loglik_grad_reference(x, lw, mus, sig)
+        torch.testing.assert_close(vg[0], want[0], rtol=1e-5, atol=0)
+        for g, w in zip(vg[1:], want[1:]):
+            torch.testing.assert_close(
+                g, w, rtol=0, atol=1e-4 * float(w.abs().max()))
+        p, k = lw.shape
+        n, d = x.shape
+        geo = tgl.device_vg_geometry(p, n, k, d)
+        assert geo.pop("resident_blocks") >= 1
+        assert geo == tgl.vg_geometry(p, n, k, d)

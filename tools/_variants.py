@@ -3,8 +3,9 @@
 Shared by the ablation tools: ``build`` writes each variant of
 ``bayesic_tpu_torch/csrc/<source>`` (with the headers it includes) into its
 own directory and compiles it alone into a shared library with the port's
-nvcc flags, all nvcc processes at once.  An edit whose text is not in the
-source raises, so a tool that has fallen behind the kernel says so.
+nvcc flags, all nvcc processes at once.  An edit applies to the source and
+to each header that holds its text; one whose text is in none of them
+raises, so a tool that has fallen behind the kernel says so.
 """
 
 from __future__ import annotations
@@ -20,19 +21,21 @@ def build(source, headers, variants, tmp):
     from bayesic_tpu_torch.ops import _build
     from chip_smoke import _ptxas_summary
 
-    src = (_build.CSRC / source).read_text()
+    files = {f: (_build.CSRC / f).read_text() for f in [source, *headers]}
     procs = {}
     for i, (name, edits) in enumerate(variants.items()):
         d = Path(tmp) / f"v{i}"
         d.mkdir()
-        text = src
+        texts = dict(files)
         for old, new in edits.items():
-            if old not in text:
-                raise RuntimeError(f"{name}: '{old[:80]}' not in {source}")
-            text = text.replace(old, new)
-        (d / source).write_text(text)
-        for h in headers:
-            (d / h).write_text((_build.CSRC / h).read_text())
+            hit = [f for f, text in texts.items() if old in text]
+            if not hit:
+                raise RuntimeError(f"{name}: '{old[:80]}' not in {source} "
+                                   f"or its headers")
+            for f in hit:
+                texts[f] = texts[f].replace(old, new)
+        for f, text in texts.items():
+            (d / f).write_text(text)
         so = d / "lib.so"
         procs[name] = (so, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so),
