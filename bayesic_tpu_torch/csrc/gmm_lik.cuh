@@ -1,6 +1,7 @@
 // The isotropic Gaussian-mixture likelihood shared by the GMM kernels
 // (gmm_logprob.cu: forward, backward, value+grad; fused_smc_gmm.cu: the SMC
-// mutation stage), fp32 SIMT on Hopper (sm_90a).
+// mutation stage), fp32 SIMT on Hopper (sm_90a).  fused_nuts_hier.cu takes
+// its SFU helpers and kChunk for its own log2-domain row loop.
 //
 // One particle holds K components: log-weights, means mu_k (D,) and scales
 // s_k.  Over the points x_n (N, D) the likelihood and its parameter-space
@@ -48,6 +49,8 @@
 #include <cmath>
 #include <cstddef>
 
+#include "warp_sum.cuh"
+
 namespace {
 
 constexpr float kHalfLog2Pi = 0.91893853320467274f;   // 0.5 ln 2pi
@@ -82,12 +85,6 @@ struct Sums {
     }
   }
 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // Add the points n0, n0 + 32, ... < n1 of the row-major (., d) array xs to
 // the sums.  LL: the value's sums; GRAD: the gradient's.  k <= MK, d <= MD

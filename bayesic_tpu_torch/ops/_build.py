@@ -82,15 +82,15 @@ def _declare(lib):
         [vp] * 12 + [i32] * 5 + [ctypes.c_longlong, i32, f32, i32, f32,
                                  ctypes.c_ulonglong, vp])
     lib.fused_hier_train.restype = i32
-    lib.fused_hier_nuts_smem_bytes.argtypes = [i32] * 3
-    lib.fused_hier_nuts_smem_bytes.restype = ctypes.c_size_t
-    lib.fused_hier_nuts_transition.argtypes = [vp] * 20 + [i32] * 4 + [f32,
+    lib.fused_hier_nuts_geometry.argtypes = [i32] * 5 + [vp]
+    lib.fused_hier_nuts_geometry.restype = i32
+    lib.fused_hier_nuts_transition.argtypes = [vp] * 21 + [i32] * 6 + [f32,
                                                                        vp]
     lib.fused_hier_nuts_transition.restype = i32
     lib.fused_hier_nuts_transition_keyed.argtypes = (
-        [vp] * 16 + [i32] * 4 + [f32] + key + [vp])
+        [vp] * 17 + [i32] * 6 + [f32] + key + [vp])
     lib.fused_hier_nuts_transition_keyed.restype = i32
-    lib.fused_hier_nuts_potential.argtypes = [vp] * 6 + [i32] * 3 + [vp]
+    lib.fused_hier_nuts_potential.argtypes = [vp] * 7 + [i32] * 5 + [vp]
     lib.fused_hier_nuts_potential.restype = i32
     lib.gmm_loglik_fwd.argtypes = [vp] * 5 + [i32] * 4 + [vp]
     lib.gmm_loglik_fwd.restype = i32

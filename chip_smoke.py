@@ -33,10 +33,12 @@ Phases 12-16, the hierarchical-logistic path at its bench shape
 B=1024, 3,000 SVI steps; NUTS on the centered model with 128 chains, 500
 warmup + 300 samples, pooled adaptation): check the fused hier trainer and
 the hier NUTS kernel against their plain versions (and the potential
-against autograd of the DSL model), drive ``run_svi`` and
-``run_svi_fused``, then ``fused_nuts_mcmc`` and ``MCMC`` on the centered
-model, gate their posteriors, time both kernels against their plain
-versions and trace both sampling loops.
+against autograd of the DSL model; the NUTS kernel also at 20,000 rows,
+too many for its shared memory, through its instance that reads them from
+L2), drive ``run_svi`` and ``run_svi_fused``, then ``fused_nuts_mcmc`` and
+``MCMC`` on the centered model, gate their posteriors, time both kernels
+against their plain versions, print the NUTS kernel's launch geometry,
+depths, row loop and critical path, and trace both sampling loops.
 
 Phases 17-20, the GMM tempered-SMC path at its bench shape
 (``gmm.Config(num_particles=8192, num_data=2000)``: K=3, D=2, 5 mutation
@@ -78,8 +80,9 @@ and the bound: the least time the card could take for the same work, the
 larger of the bytes over the memory rate and the operations over the FP32
 peak, or for the two kernels whose products run on the tensor cores
 (``fused_vae_train``, ``fused_nuts_transition``) their three TF32 passes
-over the TF32 peak (phases 5 and 11 print both; phase 20 also prints
-the GMM kernels' exp/log/rcp count at the SFU rate; phase 25 the MF cell
+over the TF32 peak, and for the hier NUTS kernel the larger of its FP32
+and SFU figures (phases 5 and 11 print both; phases 16 and 20 also print
+the exp/log/rcp count at the SFU rate; phase 25 the MF cell
 pass's bf16-mode bound at the bf16 tensor-core rate and its scratch
 bytes).  The last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device, or outside a checkout, it exits non-zero
@@ -128,6 +131,9 @@ HIER_K, HIER_DEPTH = 6, 10          # max_doublings (fused), max_depth
 # first, most chains diverge at the second; the third runs K = 10
 HIER_EPS_SMALL, HIER_EPS_DIVERGE, HIER_EPS_K10 = 0.02, 0.08, 0.005
 HIER_TRAJ, HIER_PLAIN_STEPS = 50, 100
+# phase 14's second shape: twice the bench's rows (J 50, F 5), too many for
+# shared memory, through the NUTS kernel's instance that reads them from L2
+HIER_L2_ROWS = 20_000
 # the GMM tempered-SMC bench (JAX benchmarks/harness.py:522-594):
 # gmm.Config(num_particles=8192, num_data=2000), K 3, D 2, 5 mutation steps
 # of 5 leapfrogs; generic, kernels and fused run on GMM_SEEDS (paired: one
@@ -185,7 +191,8 @@ MF_FUSED_LR, MF_TRACE_STEPS = 5e-3, 20
 # exp/log/rcp per SM per clock, at the 1.98 GHz boost clock on 132 SMs
 PEAK_FP32, PEAK_BF16, PEAK_TF32 = 67e12, 989e12, 494.7e12
 PEAK_BYTES = 3.35e12
-PEAK_SFU = 16 * 132 * 1.98e9
+SM_CLOCK = 1.98e9
+PEAK_SFU = 16 * 132 * SM_CLOCK
 
 
 def _fail(msg):
@@ -344,9 +351,14 @@ def _ptxas_summary(log):
                 name += "<" + ",".join(
                     ["bf16" if "ILb1E" in mangled else "f32"]
                     + re.findall(r"ELi(\d+)E", mangled)) + ">"
-            for pot in ("Dlgm", "Hier"):
-                if f"{pot}Potential" in mangled:
-                    name += f"<{pot}>"
+            if "DlgmPotential" in mangled:
+                name += "<Dlgm>"
+            hier = re.search(r"HierPotentialILi\d+ELi(\d+)ELb([01])E",
+                             mangled)
+            if hier:
+                # template arguments: F, the rows resident or read from L2
+                name += (f"<Hier,F{hier.group(1)},"
+                         f"{('l2', 'smem')[int(hier.group(2))]}>")
             if name == "dlgm_nuts_kernel":
                 # template arguments: the whole tree or the potential
                 # alone, element groups a lane, mode
@@ -368,15 +380,19 @@ def _ptxas_summary(log):
         elif name and "Used" in line and "registers" in line:
             stats[name]["regs"] = (line.split("Used")[1]
                                    .split("registers")[0].strip())
-    # the linreg trainer's instances (one per chunk count) in two entries
-    for kind in ("main", "probe"):
-        inst = {k: v for k, v in stats.items()
-                if k.startswith("linreg_train_kernel<") and kind in k}
+    # the linreg trainer's instances (one per chunk count) in two entries,
+    # the hier NUTS kernels' off-bench F in one each
+    for prefix, kind in (("linreg_train_kernel<", "main"),
+                         ("linreg_train_kernel<", "probe"),
+                         ("nuts_kernel<Hier,", ""),
+                         ("potential_kernel<Hier,", "")):
+        inst = {k: v for k, v in stats.items() if k.startswith(prefix)
+                and kind in k and ",F5," not in k}
         if inst:
             for k in inst:
                 del stats[k]
             regs = [int(v.get("regs", 0)) for v in inst.values()]
-            stats[f"linreg_train_kernel {kind} x{len(inst)}"] = {
+            stats[f"{prefix[:-1]} {kind or 'F != 5'} x{len(inst)}"] = {
                 "regs": f"{min(regs)}-{max(regs)}",
                 "spill": str(max(int(v.get("spill", 0))
                                  for v in inst.values()))}
@@ -385,13 +401,15 @@ def _ptxas_summary(log):
         for k, v in stats.items()) or "library already built"
 
 
-def _sass_loops(so, kernel):
+def _sass_loop_stats(so, kernel, per=None):
     """The innermost loops that hold exps (MUFU.EX2) in each instance of
     ``kernel`` in the library ``so``, read from ``cuobjdump -sass``: per
-    loop, the (particle, point) pairs an iteration covers (its EX2 count
-    over the instance's component count, its first template argument) and
-    the SASS instructions per pair: all, FP32 (FFMA, FADD, FMUL, FMNMX),
-    MUFU, and the rest."""
+    loop, (the instance's template arguments, its instructions, the items
+    an iteration covers, its FP32 (FFMA, FADD, FMUL, FMNMX) and MUFU
+    instructions).  An iteration covers its EX2 count over ``per``, the
+    exps of one item; by default the instance's first template argument,
+    the GMM kernels' component count, whose items are (particle, point)
+    pairs."""
     from bayesic_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -401,7 +419,8 @@ def _sass_loops(so, kernel):
     for line in sass.splitlines():
         fn = re.match(r"\s*Function : (\S+)", line)
         if fn:
-            name = fn.group(1) if kernel in fn.group(1) else None
+            name = fn.group(1) if re.search(rf"\d{kernel}I", fn.group(1)) \
+                else None
             if name:
                 funcs[name], labels[name] = [], {}
             continue
@@ -439,15 +458,22 @@ def _sass_loops(so, kernel):
         tmpl = re.findall(r"L[ib](\d+)E", fname.split("kernelI")[1])
         for lp in inner:
             v = ops[lp]
-            pairs = ex2[lp] / int(tmpl[0])
+            pairs = ex2[lp] / (per or int(tmpl[0]))
             fp32 = sum(op.split(".")[0] in ("FFMA", "FADD", "FMUL", "FMNMX")
                        for op in v)
             mufu = sum(op.startswith("MUFU") for op in v)
-            out.append(f"{kernel}<{','.join(tmpl)}> loop of {len(v)} "
-                       f"instructions, {pairs:g} pairs: "
-                       f"{len(v) / pairs:.1f} a pair (FP32 "
-                       f"{fp32 / pairs:.1f}, MUFU {mufu / pairs:.2f}, other "
-                       f"{(len(v) - fp32 - mufu) / pairs:.1f})")
+            out.append((",".join(tmpl), len(v), pairs, fp32, mufu))
+    return out
+
+
+def _sass_loops(so, kernel, per=None, unit="pairs"):
+    """``_sass_loop_stats`` as text: per loop the SASS instructions per
+    item (``unit``), all, FP32, MUFU and the rest."""
+    out = [f"{kernel}<{tmpl}> loop of {n} instructions, {items:g} {unit}: "
+           f"{n / items:.1f} a {unit[:-1]} (FP32 {fp32 / items:.1f}, MUFU "
+           f"{mufu / items:.2f}, other {(n - fp32 - mufu) / items:.1f})"
+           for tmpl, n, items, fp32, mufu in _sass_loop_stats(so, kernel,
+                                                               per)]
     return "; ".join(out) or f"no {kernel} loop with MUFU.EX2 found"
 
 
@@ -976,6 +1002,7 @@ def _hier_phases(torch, np, card, dev):
     from bayesic_tpu_torch.infer.mcmc import (MCMC, IntegratorState,
                                               StreamKey, nuts_streams)
     from bayesic_tpu_torch.models import hier_logistic as hl
+    from bayesic_tpu_torch.ops import _build
     from bayesic_tpu_torch.ops import _kernel_common as kc
     from bayesic_tpu_torch.ops import fused_hier as fh
     from bayesic_tpu_torch.ops import fused_nuts_hier as fnh
@@ -1110,78 +1137,27 @@ def _hier_phases(torch, np, card, dev):
     # -- 14. the hier NUTS kernel against its plain version ---------------
     data = fnh.hier_data(x, y, group, j)
     model = hl.make_model(j, f, None, centered=True)
-    start = np.zeros((HIER_CHAINS, p), np.float32)
-    start[:, 0] = truth["mu"]
-    start[:, 2:2 + j] = truth["theta"]
-    start[:, 2 + j:] = truth["beta"]
-    q0 = torch.as_tensor(start, device=dev) + rnd(HIER_CHAINS, p, scale=0.1)
-    pe_k, g_k = fnh.fused_hier_nuts_potential(q0, data)
-    refs = {"plain": fnh.hier_potential(data)(q0),
-            "autograd": MCMC(model, num_chains=HIER_CHAINS,
-                             model_args=(x, y, group))
-            ._potential_and_grad(q0)}
-    errs = []
-    for name, (pe_r, g_r) in refs.items():
-        pe_rel = float(((pe_k[:, 0] - pe_r).abs() / pe_r.abs()).max())
-        g_rel = float((g_k - g_r).abs().max() / g_r.abs().max())
-        if pe_rel > 1e-5 or g_rel > 1e-5:
-            raise AssertionError(f"phase 14: potential vs {name}: pe rel "
-                                 f"err {pe_rel}, grad err / max|g| {g_rel}")
-        errs.append(f"vs {name} pe max rel err {pe_rel:.2e}, grad max err "
-                    f"/ max|g| {g_rel:.2e}")
-    ones = torch.ones(p, device=dev)
-    hier_nuts_err, lines = 0.0, []
-    for kk, eps in ((HIER_K, HIER_EPS_SMALL), (HIER_K, HIER_EPS_DIVERGE),
-                    (HIER_DEPTH, HIER_EPS_K10)):
-        s = nuts_streams(StreamKey(14, 2, 0), HIER_CHAINS, p, kk, dev)
-        args = (q0, pe_k, g_k, *s, eps, ones, data)
-        got = fnh.fused_hier_nuts_transition(*args, max_doublings=kk)
-        want = fnh.reference_transition(*args, max_doublings=kk)
-        torch.cuda.synchronize()
-        same = ((got[4] == want[4]) & (got[5] == want[5])
-                & (got[6] == want[6]))[:, 0]
-        n_diff = HIER_CHAINS - int(same.sum())
-        if n_diff:
-            raise AssertionError(f"phase 14: K {kk} eps {eps}: {n_diff} "
-                                 f"chains differ in depth/steps/divergence")
-        rel = {}
-        for i, name in ((0, "q"), (1, "pe"), (7, "h0")):
-            err = (got[i] - want[i]).abs()
-            if bool((err > 1e-4 * want[i].abs()
-                     + (1e-4 if i == 0 else 0)).any()):
-                raise AssertionError(f"phase 14: K {kk} eps {eps}: {name} "
-                                     f"max abs err {float(err.max())}")
-            rel[name] = float((err / want[i].abs().clamp(min=1e-3)).max())
-            if i == 0:
-                hier_nuts_err = max(hier_nuts_err, float(err.max()))
-        pe_chk = fnh.fused_hier_nuts_potential(got[0], data)[0]
-        inv = float(((got[1] - pe_chk).abs() / pe_chk.abs()).max())
-        if inv > 1e-5:
-            raise AssertionError(f"phase 14: pe' != pe(q'), rel err {inv}")
-        n_div = int(got[4].sum())
-        if eps == HIER_EPS_DIVERGE and n_div == 0:
-            raise AssertionError(f"phase 14: no chain diverged at eps {eps}")
-        depth = torch.bincount(got[5][:, 0].long(), minlength=kk + 1)
-        lines.append(
-            f"K {kk} eps {eps}: 0 chains differ, {n_div} diverged, depths "
-            f"{depth.tolist()}, max rel err q {rel['q']:.2e} pe "
-            f"{rel['pe']:.2e} h0 {rel['h0']:.2e}, pe'=pe(q') rel err "
-            f"{inv:.2e}")
-    # the keyed entry (the main path's) against the injected kernel fed
-    # nuts_streams on the card, bit for bit
-    key = StreamKey(14, 2, 1)
-    s = nuts_streams(key, HIER_CHAINS, p, HIER_K, dev)
-    injected = fnh.fused_hier_nuts_transition(
-        q0, pe_k, g_k, *s, HIER_EPS_SMALL, ones, data, max_doublings=HIER_K)
-    keyed = fnh.fused_hier_nuts_transition_keyed(
-        q0, pe_k, g_k, key, HIER_EPS_SMALL, ones, data, max_doublings=HIER_K)
-    for i, (k_out, i_out) in enumerate(zip(keyed, injected)):
-        if not torch.equal(k_out, i_out):
-            raise AssertionError(f"phase 14: keyed output {i} differs from "
-                                 f"the injected kernel's on nuts_streams")
-    lines.append("keyed = injected bit for bit")
-    print(f"phase 14 hier NUTS kernel ok ({HIER_CHAINS} chains x D {p}, "
-          f"N {n}): " + "; ".join(errs + lines), flush=True)
+    q0 = _hier_start(torch, truth, j, p, rnd, dev)
+    hier_nuts_err, lines = _hier_nuts_check(torch, fnh, data, model, q0,
+                                            (x, y, group))
+    # the same gates at a shape whose rows do not fit in shared memory
+    cfg_l2 = hl.Config(obs_per_group=HIER_L2_ROWS // j)
+    xl, yl, gl, truth_l2 = hl.make_data(cfg_l2)
+    xl, yl, gl = (torch.as_tensor(a, device=dev) for a in (xl, yl, gl))
+    data_l2 = fnh.hier_data(xl, yl, gl, j)
+    err_l2, lines_l2 = _hier_nuts_check(
+        torch, fnh, data_l2, model, _hier_start(torch, truth_l2, j, p, rnd,
+                                                dev), (xl, yl, gl))
+    geo = {name: fnh.hier_geometry(d_, HIER_K)
+           for name, d_ in (("bench", data), ("l2", data_l2))}
+    if geo["bench"]["instance"] != "resident" or \
+            geo["l2"]["instance"] != "l2":
+        raise AssertionError(f"phase 14: instances {geo}")
+    hier_nuts_err = max(hier_nuts_err, err_l2)
+    print(f"phase 14 hier NUTS kernel ok ({HIER_CHAINS} chains x D {p}): "
+          f"N {n}, rows resident in shared memory: " + "; ".join(lines)
+          + f"; N {xl.shape[0]}, rows read from L2: " + "; ".join(lines_l2),
+          flush=True)
 
     # -- 15. the hier NUTS path through the user's entry points -----------
     fnh.LAUNCHES = 0
@@ -1289,11 +1265,38 @@ def _hier_phases(torch, np, card, dev):
             TRACE_NUTS_GENERIC, "transition"),
     }
     leaves = float(tr_out[6].sum())
+    deepest = int(tr_out[6].max())
+    depths = torch.bincount(tr_out[5][:, 0].long(),
+                            minlength=HIER_K + 1).tolist()
+    geo = fnh.hier_geometry(data, HIER_K)
+    # one SM's floor a leaf of one chain: the N rows' SASS instructions at
+    # 4 warp-instructions a clock, or their MUFU ops at 16 lanes a clock,
+    # of the bench instance
+    loop = [st for st in _sass_loop_stats(_build.load()._name,
+                                          "nuts_kernel", per=1)
+            if st[0] == f"{geo['threads']},{geo['threads']},{f},1"]
+    if not loop:
+        raise AssertionError("phase 16: no row loop in nuts_kernel<Hier>")
+    _, n_ins, items, _, n_mufu = loop[0]
+    leaf_floor = {"issue": 1e3 * n * n_ins / items / (128 * SM_CLOCK),
+                  "MUFU": 1e3 * n * n_mufu / items / (16 * SM_CLOCK)}
+    floor_by = max(leaf_floor, key=leaf_floor.get)
     print(f"phase 16 hier times ok [{card}]: one transition at the adapted "
-          f"state ({leaves / HIER_CHAINS:.2f} leapfrogs per chain): kernel, "
+          f"state ({leaves / HIER_CHAINS:.2f} leapfrogs per chain, depths "
+          f"{depths}, the deepest chain {deepest} leaves): kernel, "
           f"keyed {tr_ms:.4f} ms, injected {tr_inj_ms:.4f} ms; plain "
-          f"reference_transition {tr_plain_ms:.4f} ms; fused trainer {hier_step_ms:.5f} ms/step, plain "
-          f"reference_train {plain_step_ms:.4f} ms/step; "
+          f"reference_transition {tr_plain_ms:.4f} ms; launch "
+          f"{HIER_CHAINS} blocks of {geo['threads']} threads, "
+          f"{geo['smem_bytes']} B of shared memory, {geo['chunks']} chunks "
+          f"of at most {geo['depth']} rows, rows {geo['instance']}; row "
+          f"loop {n_ins / items:.1f} SASS instructions a row, MUFU "
+          f"{n_mufu / items:.2f}; one SM's floor a leaf: issue "
+          f"{1e3 * leaf_floor['issue']:.3f} us, MUFU "
+          f"{1e3 * leaf_floor['MUFU']:.3f} us; critical path {deepest} "
+          f"leaves x {floor_by} floor = "
+          f"{deepest * leaf_floor[floor_by]:.4f} ms; fused trainer "
+          f"{hier_step_ms:.5f} ms/step, plain reference_train "
+          f"{plain_step_ms:.4f} ms/step; "
           + "; ".join(f"{k} {v}" for k, v in traces.items()), flush=True)
 
     # bounds.  Per row of the likelihood: the logit (F FMAs and the
@@ -1303,15 +1306,27 @@ def _hier_phases(torch, np, card, dev):
     # (noise, z, gradient, two Adam updates); bytes: the data set read
     # once per call, the parameters and both moment pairs read and written
     # once, the losses written, over the call's steps.  NUTS transition:
-    # N rows per chain-leaf over the leaves this transition took; bytes:
-    # every input read once, every output written once (the keyed entry
-    # reads no streams).
+    # N rows per chain-leaf over the leaves this transition took, and the
+    # larger of that at the FP32 peak and the SFU ops the function needs at
+    # the SFU rate: a row's exp and its sigmoid's reciprocal, and one log
+    # per kChunk rows (log1p as the log of their 1 + e's product,
+    # gmm_lik.cuh); bytes: every input read once (the rows as hier_data
+    # lays them out), every output written once (the keyed entry reads no
+    # streams).
     row_ops = 4 * f + 14
     svi_bound = _bound(b * row_ops + 40 * p,
                        4 * (n * (f + 2) + 12 * p + steps) / steps)
-    nuts_bound = _bound(
-        leaves * (n * row_ops + 10 * p),
-        4 * (n * (f + 2) + j + 1 + p + HIER_CHAINS * (4 * p + 7)))
+    rows_bytes = sum(t.numel() * t.element_size() for t in
+                     (data.xc, data.ybits, data.chunks, data.chunk_off))
+    nuts_bound = _bound(leaves * (n * row_ops + 10 * p),
+                        rows_bytes + 4 * (p + HIER_CHAINS * (4 * p + 7)))
+    k_chunk = int(re.search(r"kChunk = (\d+);", (
+        _build.CSRC / "gmm_lik.cuh").read_text()).group(1))
+    sfu_ms = _sfu_ms((2 + 1 / k_chunk) * leaves * n)
+    print(f"phase 16 hier NUTS bounds: FP32 {nuts_bound[0]:.4f} ms "
+          f"({nuts_bound[1]}), SFU {sfu_ms:.4f} ms; critical path "
+          f"{deepest * leaf_floor[floor_by]:.4f} ms", flush=True)
+    nuts_bound = max(nuts_bound, (sfu_ms, "operations"))
     return [
         _record("fused_hier_train", "fused_hier.cu",
                 "bayesic_tpu/ops/fused_hier.py:185", svi_launches, svi_err,
@@ -1320,6 +1335,92 @@ def _hier_phases(torch, np, card, dev):
                 "bayesic_tpu/ops/fused_nuts_hier.py:175", nuts_launches,
                 hier_nuts_err, tr_ms, tr_plain_ms, nuts_bound),
     ]
+
+
+def _hier_start(torch, truth, j, p, rnd, dev):
+    """Phase 14's chains: the truth plus N(0, 0.1) noise."""
+    start = torch.zeros((HIER_CHAINS, p), device=dev)
+    start[:, 0] = truth["mu"]
+    start[:, 2:2 + j] = torch.as_tensor(truth["theta"], device=dev)
+    start[:, 2 + j:] = torch.as_tensor(truth["beta"], device=dev)
+    return start + rnd(HIER_CHAINS, p, scale=0.1)
+
+
+def _hier_nuts_check(torch, fnh, data, model, q0, model_args):
+    """Phase 14 at one shape: the kernel's potential against the plain
+    version and autograd of the DSL model, one injected transition at three
+    (K, eps) against the plain version (every chain's depth, steps and
+    divergence equal; q, pe and h0 within 1e-4; pe' = pe(q')), and the
+    keyed entry against the injected one bit for bit.  Returns (the largest
+    |q'| error, the lines)."""
+    from bayesic_tpu_torch.infer.mcmc import MCMC, StreamKey, nuts_streams
+
+    dev, p = q0.device, q0.shape[1]
+    pe_k, g_k = fnh.fused_hier_nuts_potential(q0, data)
+    refs = {"plain": fnh.hier_potential(data)(q0),
+            "autograd": MCMC(model, num_chains=HIER_CHAINS,
+                             model_args=model_args)._potential_and_grad(q0)}
+    lines = []
+    for name, (pe_r, g_r) in refs.items():
+        pe_rel = float(((pe_k[:, 0] - pe_r).abs() / pe_r.abs()).max())
+        g_rel = float((g_k - g_r).abs().max() / g_r.abs().max())
+        if pe_rel > 1e-5 or g_rel > 1e-5:
+            raise AssertionError(f"phase 14: potential vs {name}: pe rel "
+                                 f"err {pe_rel}, grad err / max|g| {g_rel}")
+        lines.append(f"vs {name} pe max rel err {pe_rel:.2e}, grad max err "
+                     f"/ max|g| {g_rel:.2e}")
+    ones = torch.ones(p, device=dev)
+    q_err = 0.0
+    for kk, eps in ((HIER_K, HIER_EPS_SMALL), (HIER_K, HIER_EPS_DIVERGE),
+                    (HIER_DEPTH, HIER_EPS_K10)):
+        s = nuts_streams(StreamKey(14, 2, 0), HIER_CHAINS, p, kk, dev)
+        args = (q0, pe_k, g_k, *s, eps, ones, data)
+        got = fnh.fused_hier_nuts_transition(*args, max_doublings=kk)
+        want = fnh.reference_transition(*args, max_doublings=kk)
+        torch.cuda.synchronize()
+        same = ((got[4] == want[4]) & (got[5] == want[5])
+                & (got[6] == want[6]))[:, 0]
+        n_diff = HIER_CHAINS - int(same.sum())
+        if n_diff:
+            raise AssertionError(f"phase 14: K {kk} eps {eps}: {n_diff} "
+                                 f"chains differ in depth/steps/divergence")
+        rel = {}
+        for i, name in ((0, "q"), (1, "pe"), (7, "h0")):
+            err = (got[i] - want[i]).abs()
+            if bool((err > 1e-4 * want[i].abs()
+                     + (1e-4 if i == 0 else 0)).any()):
+                raise AssertionError(f"phase 14: K {kk} eps {eps}: {name} "
+                                     f"max abs err {float(err.max())}")
+            rel[name] = float((err / want[i].abs().clamp(min=1e-3)).max())
+            if i == 0:
+                q_err = max(q_err, float(err.max()))
+        pe_chk = fnh.fused_hier_nuts_potential(got[0], data)[0]
+        inv = float(((got[1] - pe_chk).abs() / pe_chk.abs()).max())
+        if inv > 1e-5:
+            raise AssertionError(f"phase 14: pe' != pe(q'), rel err {inv}")
+        n_div = int(got[4].sum())
+        if eps == HIER_EPS_DIVERGE and n_div == 0:
+            raise AssertionError(f"phase 14: no chain diverged at eps {eps}")
+        depth = torch.bincount(got[5][:, 0].long(), minlength=kk + 1)
+        lines.append(
+            f"K {kk} eps {eps}: 0 chains differ, {n_div} diverged, depths "
+            f"{depth.tolist()}, max rel err q {rel['q']:.2e} pe "
+            f"{rel['pe']:.2e} h0 {rel['h0']:.2e}, pe'=pe(q') rel err "
+            f"{inv:.2e}")
+    # the keyed entry (the main path's) against the injected kernel fed
+    # nuts_streams on the card, bit for bit
+    key = StreamKey(14, 2, 1)
+    s = nuts_streams(key, HIER_CHAINS, p, HIER_K, dev)
+    injected = fnh.fused_hier_nuts_transition(
+        q0, pe_k, g_k, *s, HIER_EPS_SMALL, ones, data, max_doublings=HIER_K)
+    keyed = fnh.fused_hier_nuts_transition_keyed(
+        q0, pe_k, g_k, key, HIER_EPS_SMALL, ones, data, max_doublings=HIER_K)
+    for i, (k_out, i_out) in enumerate(zip(keyed, injected)):
+        if not torch.equal(k_out, i_out):
+            raise AssertionError(f"phase 14: keyed output {i} differs from "
+                                 f"the injected kernel's on nuts_streams")
+    lines.append("keyed = injected bit for bit")
+    return q_err, lines
 
 
 def _gmm_phases(torch, np, card, dev):

@@ -134,8 +134,9 @@ def _build_all(tmp):
     from _variants import build
 
     out = {}
-    for name, (so, summary) in build("gmm_logprob.cu", ["gmm_lik.cuh"],
-                                     VARIANTS, tmp).items():
+    headers = ["gmm_lik.cuh", "warp_sum.cuh"]
+    for name, (so, summary) in build("gmm_logprob.cu", headers, VARIANTS,
+                                     tmp).items():
         stats = [part for part in summary.split("; ")
                  if part.startswith("gmm_lik_kernel<3,2,1,2>")]
         out[name] = (so, ", ".join(stats) if stats else

@@ -62,8 +62,9 @@ def _build_all(tmp):
     from _variants import build
 
     out = {}
-    for name, (so, summary) in build("fused_smc_gmm.cu", ["gmm_lik.cuh"],
-                                     VARIANTS, tmp).items():
+    headers = ["gmm_lik.cuh", "warp_sum.cuh"]
+    for name, (so, summary) in build("fused_smc_gmm.cu", headers, VARIANTS,
+                                     tmp).items():
         stats = [part for part in summary.split("; ")
                  if part.startswith("smc_gmm_mutate_kernel")]
         out[name] = (so, ", ".join(stats) if stats else
