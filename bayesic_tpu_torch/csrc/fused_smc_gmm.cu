@@ -50,7 +50,8 @@
 //   two particles at 64 registers a thread; the generic one 16 warps of
 //   four, at 128 (its arrays spill at 64).
 // * The per-point loop is gmm_lik.cuh's points_log2, shared with the
-//   value+grad likelihood kernel: log2 e folded into each component's
+//   likelihood kernels of gmm_logprob.cu, here with the value's and the
+//   gradient's sums both on: log2 e folded into each component's
 //   constants once per evaluation, one ex2.approx a component, one
 //   rcp.approx a point and one lg2.approx per kChunk points.  It can carry
 //   W particles through each point a lane loads; W = 1 in both instances,
@@ -138,7 +139,7 @@ __device__ __forceinline__ void eval_group(const float* qs, float* gs,
                                            int lane) {
   const int dim = (k - 1) + k * d + k, off_mu = k - 1, off_us = off_mu + k * d;
   Mix2<MK, MD, W> m;
-  Acc2<MK, MD, W> s;
+  Acc2<MK, MD, W, true, true> s;   // value and gradient
   s.zero();
 #pragma unroll
   for (int w = 0; w < W; ++w) {

@@ -98,8 +98,8 @@ def _declare(lib):
     lib.gmm_loglik_bwd.restype = i32
     lib.gmm_loglik_vg.argtypes = [vp] * 8 + [i32] * 4 + [vp]
     lib.gmm_loglik_vg.restype = i32
-    lib.gmm_loglik_vg_geometry.argtypes = [i32] * 4 + [vp]
-    lib.gmm_loglik_vg_geometry.restype = i32
+    lib.gmm_loglik_geometry.argtypes = [i32] * 5 + [vp]
+    lib.gmm_loglik_geometry.restype = i32
     lib.smc_gmm_mutate_smem_bytes.argtypes = [i32] * 3
     lib.smc_gmm_mutate_smem_bytes.restype = ctypes.c_size_t
     lib.smc_gmm_mutate_geometry.argtypes = [i32] * 3 + [vp]

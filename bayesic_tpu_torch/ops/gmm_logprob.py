@@ -12,9 +12,10 @@ scales (P, K)), over a shared data set x (N, D):
   backward kernel; the gradient for x is NaN (not implemented; the SMC path
   never asks for it, and NaN fails loudly where zeros would mislead).
 * ``gmm_loglik_grad`` returns the value and the three gradients from one
-  launch of the value+grad kernel.  ``vg_geometry`` gives that launch's
-  shape and ``device_vg_geometry`` the library's own, with the blocks an
-  SM of the current card can hold at once.
+  launch of the value+grad kernel.
+* ``launch_geometry`` gives the launch of each kernel, named as
+  ``LAUNCHES`` names it, and ``device_geometry`` the library's own, with
+  the blocks an SM of the current card can hold at once.
 
 On a CPU tensor each runs its plain version, ``gmm_loglik_reference`` and
 ``gmm_loglik_grad_reference``; on a CUDA tensor each launches its kernel or
@@ -34,20 +35,21 @@ from . import _build
 from .fused_nuts import _ptr, _raise, _stream
 
 __all__ = ["gmm_loglik_reference", "gmm_loglik_grad_reference",
-           "gmm_loglik", "gmm_loglik_grad", "vg_geometry",
-           "device_vg_geometry", "LAUNCHES", "MAX_COMPONENTS",
-           "MAX_DATA_DIM", "THREADS", "VG_THREADS_EXACT",
-           "VG_TILE_FLOATS"]
+           "gmm_loglik", "gmm_loglik_grad", "launch_geometry",
+           "device_geometry", "LAUNCHES", "MAX_COMPONENTS",
+           "MAX_DATA_DIM", "THREADS", "EXACT_SHAPES", "TILE_FLOATS"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 MAX_COMPONENTS, MAX_DATA_DIM = 8, 4      # GMM_MAXK, GMM_MAXD of gmm_lik.cuh
-# csrc/gmm_logprob.cu: threads a block, one warp per particle (GL_NT; the
-# value+grad kernel's K 3, D 2 instance VG_NT), and the most x floats the
-# value+grad kernel holds in shared memory at once
-THREADS, VG_THREADS_EXACT, VG_TILE_FLOATS = 256, 1024, 12288
+# csrc/gmm_logprob.cu: the generic instances' threads a block, one warp a
+# particle (GL_NT); the most x floats a block holds in shared memory at
+# once (TILE_FLOATS); each kernel's K 3, D 2 instance's threads a block and
+# particles a warp (FWD_NT, FWD_W, BWD_NT, VG_NT)
+THREADS, TILE_FLOATS = 256, 12288
+EXACT_SHAPES = {"fwd": (1024, 1), "bwd": (1024, 1), "vg": (1024, 1)}
 
 # launches of each kernel: "fwd", "bwd" (gmm_loglik's backward) and "vg"
-# (gmm_loglik_grad)
+# (gmm_loglik_grad), in the order of csrc/gmm_logprob.cu's Mode
 LAUNCHES = {"fwd": 0, "bwd": 0, "vg": 0}
 
 
@@ -183,34 +185,44 @@ def gmm_loglik(x, log_w, mus, sigmas):
     return _GmmLoglik.apply(x, log_w, mus, sigmas)
 
 
-def vg_geometry(p, n, k, d):
-    """The value+grad kernel's launch for ``p`` particles of a (K, D)
-    mixture over ``n`` points: threads and particles a block (32 warps at
-    K 3, D 2, 8 at the generic instance), blocks, dynamic shared bytes (x,
-    up to ``VG_TILE_FLOATS`` floats) and the x tiles each block walks."""
+def launch_geometry(kernel, p, n, k, d):
+    """The launch of ``kernel`` ("fwd", "bwd" or "vg", as ``LAUNCHES``
+    names them) for ``p`` particles of a (K, D) mixture over ``n`` points:
+    threads a block, particles a warp and a block (``EXACT_SHAPES`` at K 3,
+    D 2; 8 warps of one particle at the generic instances), blocks,
+    dynamic shared bytes (x, up to ``TILE_FLOATS`` floats) and the x tiles
+    each block walks."""
+    if kernel not in LAUNCHES:
+        raise ValueError(f"no kernel {kernel!r}: one of {list(LAUNCHES)}")
     if not (p >= 1 and n >= 1 and 1 <= k <= MAX_COMPONENTS
             and 1 <= d <= MAX_DATA_DIM):
         raise ValueError(f"no launch for P={p}, N={n}, K={k}, D={d}")
-    tile = VG_TILE_FLOATS // d
-    threads = VG_THREADS_EXACT if (k, d) == (3, 2) else THREADS
-    return dict(threads=threads, particles_per_block=threads // 32,
-                blocks=-(-p // (threads // 32)),
+    tile = TILE_FLOATS // d
+    threads, per_warp = EXACT_SHAPES[kernel] if (k, d) == (3, 2) \
+        else (THREADS, 1)
+    per_block = threads // 32 * per_warp
+    return dict(threads=threads, particles_per_warp=per_warp,
+                particles_per_block=per_block, blocks=-(-p // per_block),
                 smem_bytes=4 * min(n, tile) * d, tiles=-(-n // tile))
 
 
-def device_vg_geometry(p, n, k, d):
-    """The library's value+grad launch at (P, N, K, D), as ``vg_geometry``
-    names it, and ``resident_blocks``: the blocks of it an SM of the
-    current card can hold at once
+def device_geometry(kernel, p, n, k, d):
+    """The library's launch of ``kernel`` at (P, N, K, D), as
+    ``launch_geometry`` names it, and ``resident_blocks``: the blocks of it
+    an SM of the current card can hold at once
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).  Needs a CUDA
     card."""
     import ctypes
 
-    out = (ctypes.c_int * 6)()
-    _raise(_build.load().gmm_loglik_vg_geometry(p, n, k, d, out),
-           "gmm_loglik_vg_geometry")
-    return dict(zip(("threads", "particles_per_block", "blocks",
-                     "smem_bytes", "tiles", "resident_blocks"), out))
+    if kernel not in LAUNCHES:
+        raise ValueError(f"no kernel {kernel!r}: one of {list(LAUNCHES)}")
+    out = (ctypes.c_int * 7)()
+    _raise(_build.load().gmm_loglik_geometry(list(LAUNCHES).index(kernel),
+                                             p, n, k, d, out),
+           "gmm_loglik_geometry")
+    return dict(zip(("threads", "particles_per_warp", "particles_per_block",
+                     "blocks", "smem_bytes", "tiles", "resident_blocks"),
+                    out))
 
 
 def gmm_loglik_grad(x, log_w, mus, sigmas):

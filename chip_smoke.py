@@ -43,14 +43,20 @@ depths, row loop and critical path, and trace both sampling loops.
 Phases 17-20, the GMM tempered-SMC path at its bench shape
 (``gmm.Config(num_particles=8192, num_data=2000)``: K=3, D=2, 5 mutation
 steps of 5 leapfrogs): check the three likelihood kernels (forward,
-backward, value+grad) against their plain versions at the bench shape and
-an odd one, and the fused mutation kernel against ``mutation_core`` on the
+backward, value+grad) against their plain versions at the bench shape, an
+odd one and the further shapes the value+grad kernel runs, and count the
+shapes where the forward's ll and the backward's gradients equal the
+value+grad kernel's (times the cotangent) bit for bit, and the fused
+mutation kernel against ``mutation_core`` on the
 same draws at three temperatures (and its generic instance at K 4, D 3),
 with a second launch bit for bit; run ``SMC`` in its four modes (generic,
 kernels, fused on five paired seeds, split on one) and gate the posterior
 predictive and the paired log-evidence; time every kernel against its
 plain version (the mutation also on one 128-particle adaptation block,
-with its cluster launch's geometry) and trace one stage of each mode.
+with its cluster launch's geometry), print each likelihood launch's
+geometry and the SASS instructions a particle-point of every likelihood
+instance's and the mutation's point loop, and trace one stage of each
+mode.
 
 Phases 21-22, the linear-regression path at its bench shape
 (``linreg.Config(n=16384, dim=64)``): check the fused linreg trainer's
@@ -80,10 +86,11 @@ and the bound: the least time the card could take for the same work, the
 larger of the bytes over the memory rate and the operations over the FP32
 peak, or for the two kernels whose products run on the tensor cores
 (``fused_vae_train``, ``fused_nuts_transition``) their three TF32 passes
-over the TF32 peak, and for the hier NUTS kernel the larger of its FP32
-and SFU figures (phases 5 and 11 print both; phases 16 and 20 also print
-the exp/log/rcp count at the SFU rate; phase 25 the MF cell
-pass's bf16-mode bound at the bf16 tensor-core rate and its scratch
+over the TF32 peak, and for the hier NUTS kernel and the four GMM
+kernels the larger of their FP32 and SFU figures (the exp, log and rcp
+count their functions need at the SFU rate; phases 5 and 11 print both
+of theirs; phases 16 and 20 print the FP32 and SFU figures; phase 25 the
+MF cell pass's bf16-mode bound at the bf16 tensor-core rate and its scratch
 bytes).  The last line is ``{"ok": true, "device":
 {...}}``.  Without a CUDA device, or outside a checkout, it exits non-zero
 and prints no result.
@@ -1429,6 +1436,7 @@ def _gmm_phases(torch, np, card, dev):
     from bayesic_tpu_torch.dist import StickBreaking
     from bayesic_tpu_torch.infer.smc import stage_draws
     from bayesic_tpu_torch.models import gmm
+    from bayesic_tpu_torch.ops import _build
     from bayesic_tpu_torch.ops import fused_smc_gmm as fsg
     from bayesic_tpu_torch.ops import gmm_logprob as glp
 
@@ -1479,9 +1487,18 @@ def _gmm_phases(torch, np, card, dev):
                                  f"relative, gradients 1e-4 of max|g|)")
 
     # -- 17. the likelihood kernels against their plain versions ----------
+    # every kernel at every shape: the bench's and the odd one in full, the
+    # others' worst; the forward's ll against the value+grad kernel's and
+    # the backward's gradients against ct times its, bit for bit
     lik_err, lines = {"fwd": 0.0, "bwd": 0.0, "vg": 0.0}, []
-    for p, n in ((p_b, n_b), (GMM_ODD["p"], GMM_ODD["n"])):
-        xx, lw, mus, sig, ct = lik_inputs(p, n)
+    rng_vg = np.random.default_rng(170)
+    worst, same = {}, {"fwd": [], "bwd": []}
+    shapes = [(k, d, p_b, n_b), (k, d, GMM_ODD["p"], GMM_ODD["n"])]
+    shapes += [(k, d, p, n) for p, n in GMM_VG_PN
+               if (k, d, p, n) not in shapes] + list(GMM_VG_GENERIC)
+    for i, (kk_, dd, p, n) in enumerate(shapes):
+        xx, lw, mus, sig, ct = lik_inputs(p, n, kk_, dd,
+                                          rng if i < 2 else rng_vg)
         ll = glp.gmm_loglik(xx, lw, mus, sig)
         params = [t.clone().requires_grad_() for t in (lw, mus, sig)]
         g_bwd = torch.autograd.grad(glp.gmm_loglik(xx, *params), params, ct)
@@ -1493,27 +1510,30 @@ def _gmm_phases(torch, np, card, dev):
         errs = lik_errs({"fwd": (ll, ll_ref), "vg": (vg[0], want[0])},
                         {"bwd": (g_bwd, want_ct[1:]), "vg": (vg[1:],
                                                              want[1:])})
-        lik_check(errs, f"P {p} N {n}")
-        lines.append(f"P {p} N {n}: " + ", ".join(
-            f"{kk} {v:.2e}" for kk, v in errs.items()))
-    # the value+grad kernel alone at the other shapes, its worst errors
-    rng_vg = np.random.default_rng(170)
-    vg_worst = {}
-    vg_shapes = [(k, d, p, n) for p, n in GMM_VG_PN
-                 if (p, n) not in ((p_b, n_b), (GMM_ODD["p"],
-                                                GMM_ODD["n"]))]
-    for kk_, dd, p, n in vg_shapes + list(GMM_VG_GENERIC):
-        xx, lw, mus, sig, _ = lik_inputs(p, n, kk_, dd, rng_vg)
-        vg = glp.gmm_loglik_grad(xx, lw, mus, sig)
-        torch.cuda.synchronize()
-        want = glp.gmm_loglik_grad_reference(xx, lw, mus, sig)
-        errs = lik_errs({"vg": (vg[0], want[0])}, {"vg": (vg[1:], want[1:])})
-        lik_check(errs, f"K {kk_} D {dd} P {p} N {n}")
+        tag = f"K {kk_} D {dd} P {p} N {n}"
+        lik_check(errs, tag)
+        same["fwd"].append(bool(torch.equal(ll, vg[0])))
+        same["bwd"].append(all(
+            torch.equal(g, c * v) for g, v, c in zip(
+                g_bwd, vg[1:], (ct[:, None], ct[:, None, None],
+                                ct[:, None]))))
+        if i < 2:
+            lines.append(f"{tag}: " + ", ".join(
+                f"{kk} {v:.2e}" for kk, v in errs.items()))
         for kk, v in errs.items():
-            vg_worst[kk] = max(vg_worst.get(kk, 0.0), v)
-    lines.append(f"vg at {len(vg_shapes)} more P x N at K {k}, D {d} and "
-                 f"{len(GMM_VG_GENERIC)} at K 8, D 4 (worst): " + ", ".join(
-                     f"{kk} {v:.2e}" for kk, v in vg_worst.items()))
+            worst[kk] = max(worst.get(kk, 0.0), v)
+    n_pn = len(shapes) - 2 - len(GMM_VG_GENERIC)
+    lines.append(f"all {len(shapes)} shapes ({n_pn} more P x N at K {k}, "
+                 f"D {d}, {len(GMM_VG_GENERIC)} at K 8, D 4), worst: "
+                 + ", ".join(f"{kk} {v:.2e}" for kk, v in worst.items()))
+    lines.append(
+        f"fwd ll = vg ll bit for bit at {sum(same['fwd'])} of "
+        f"{len(shapes)} shapes, bwd = ct x vg gradients at "
+        f"{sum(same['bwd'])} of {len(shapes)}" + "".join(
+            f" ({kk} differs at " + ", ".join(
+                "K {} D {} P {} N {}".format(*shapes[j])
+                for j, ok in enumerate(v) if not ok) + ")"
+            for kk, v in same.items() if not all(v)))
     print("phase 17 GMM likelihood kernels ok (worst ll rel err; worst "
           "gradient err / max|g|): " + "; ".join(lines), flush=True)
 
@@ -1734,16 +1754,27 @@ def _gmm_phases(torch, np, card, dev):
         ms[name] = (_device_ms(torch, kern, GMM_TIMED),
                     _cuda_ms(torch, plain, 3)[0])
         host_ms[name] = _host_ms(torch, kern, GMM_TIMED)
-    vg_geo = glp.device_vg_geometry(p_b, n_b, k, d)
-    resident = vg_geo.pop("resident_blocks")
-    if vg_geo != glp.vg_geometry(p_b, n_b, k, d):
-        raise AssertionError(f"phase 20: the library's value+grad launch "
-                             f"{vg_geo} is not vg_geometry's "
-                             f"{glp.vg_geometry(p_b, n_b, k, d)}")
-    slots = resident * torch.cuda.get_device_properties(dev) \
-        .multi_processor_count
-    waves = vg_geo["blocks"] / slots
-    last_wave = vg_geo["blocks"] - (-(-vg_geo["blocks"] // slots) - 1) * slots
+    # each likelihood launch at the bench: the library's against
+    # launch_geometry, its resident blocks an SM and its waves
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lik_geo = []
+    for name in glp.LAUNCHES:
+        geo_ = glp.device_geometry(name, p_b, n_b, k, d)
+        resident = geo_.pop("resident_blocks")
+        if geo_ != glp.launch_geometry(name, p_b, n_b, k, d):
+            raise AssertionError(
+                f"phase 20: the library's {name} launch {geo_} is not "
+                f"launch_geometry's "
+                f"{glp.launch_geometry(name, p_b, n_b, k, d)}")
+        slots = resident * sms
+        nb = geo_["blocks"]
+        last_wave = nb - (-(-nb // slots) - 1) * slots
+        lik_geo.append(
+            f"{name} {nb} blocks of {geo_['threads']} threads "
+            f"({geo_['particles_per_warp']} particle(s) a warp, "
+            f"{geo_['particles_per_block']} a block), {geo_['smem_bytes']} B "
+            f"of x in {geo_['tiles']} tile(s), {resident} resident an SM: "
+            f"{nb / slots:.2f} waves, the last {last_wave} blocks")
     mom = t32(rng.normal(size=(kmut, p_b, dim)))
     log_u = t32(np.log(rng.uniform(size=(p_b, kmut))))
     margs = (q0, mom, log_u, 1.0, 0.03, m_inv, x)
@@ -1782,18 +1813,26 @@ def _gmm_phases(torch, np, card, dev):
     # bounds.  Per (particle, point): K (3D + 5) operations for the
     # component densities and the max-shifted exps, 3 for the log and the
     # sums (value), K (3 + 2D) + 1 for the responsibilities and the
-    # gradient sums; exp/log/rcp counted apart for the SFU.  Bytes: every
-    # input read once, every output written once.  The mutation: K L + 1
-    # value+grad evaluations of its padded population per stage.
+    # gradient sums.  The SFU ops the function needs, at the SFU rate: K
+    # exps, one log per kChunk points (the log of their sums' product,
+    # gmm_lik.cuh) for the value, one reciprocal for the gradient.  Bytes:
+    # every input read once, every output written once.  The mutation: K L
+    # + 1 value+grad evaluations of its padded population per stage.  The
+    # bound is the larger of the FP32 (or bytes) and the SFU figures.
+    k_chunk = int(re.search(r"kChunk = (\d+);", (
+        _build.CSRC / "gmm_lik.cuh").read_text()).group(1))
     pts = p_b * n_b
     per_val, per_grad = k * (3 * d + 5) + 3, k * (3 + 2 * d) + 1
+    sfu_pair = {"fwd": k + 1 / k_chunk, "bwd": k + 1,
+                "vg": k + 1 + 1 / k_chunk, "mutate": k + 1 + 1 / k_chunk}
     par = p_b * (2 * k + k * d)
     cost = {
-        "fwd": (pts * per_val, 4 * (n_b * d + par + p_b), pts * (k + 1)),
+        "fwd": (pts * per_val, 4 * (n_b * d + par + p_b),
+                pts * sfu_pair["fwd"]),
         "bwd": (pts * (k * (3 * d + 5) + per_grad),
-                4 * (n_b * d + 2 * par + p_b), pts * (k + 1)),
+                4 * (n_b * d + 2 * par + p_b), pts * sfu_pair["bwd"]),
         "vg": (pts * (per_val + per_grad), 4 * (n_b * d + 2 * par + p_b),
-               pts * (k + 2)),
+               pts * sfu_pair["vg"]),
     }
     evals = kmut * lsteps + 1
     p_pad = -(-p_b // fsg.PB) * fsg.PB
@@ -1801,21 +1840,23 @@ def _gmm_phases(torch, np, card, dev):
         evals * p_pad * n_b * (per_val + per_grad),
         4 * (n_b * d + (2 + kmut) * p_b * dim + p_b * kmut + dim + 2 * p_b
              + p_pad // fsg.PB),
-        evals * p_pad * n_b * (k + 2))
-    bounds = {kk: _bound(o, b) for kk, (o, b, _) in cost.items()}
+        evals * p_pad * n_b * sfu_pair["mutate"])
+    fp32 = {kk: _bound(o, b) for kk, (o, b, _) in cost.items()}
+    bounds = {kk: max(fp32[kk], (_sfu_ms(cost[kk][2]), "operations"))
+              for kk in cost}
+    so = _build.load()._name
     print(f"phase 20 GMM times ok [{card}]: " + "; ".join(
-        f"{kk} kernel {ms[kk][0]:.4f} ms, plain {ms[kk][1]:.4f} ms, bound "
-        f"{bounds[kk][0]:.4f} ms ({bounds[kk][1]}), SFU "
-        f"{_sfu_ms(cost[kk][2]):.4f} ms" for kk in ms)
+        f"{kk} kernel {ms[kk][0]:.4f} ms, plain {ms[kk][1]:.4f} ms, FP32 "
+        f"bound {fp32[kk][0]:.4f} ms ({fp32[kk][1]}), SFU "
+        f"{_sfu_ms(cost[kk][2]):.4f} ms ({sfu_pair[kk]:g} a pair)"
+        for kk in ms)
         + f" (mutate per stage, the others per call, the likelihood "
         f"kernels' device time queued behind a spin; the wrappers' host time "
         f"a call: " + ", ".join(f"{kk} {v:.4f} ms" for kk, v in
                                 host_ms.items())
-        + f"); vg launch at P {p_b}: {vg_geo['blocks']} blocks of "
-        f"{vg_geo['threads']} threads ({vg_geo['particles_per_block']} "
-        f"particles), {vg_geo['smem_bytes']} B of x in {vg_geo['tiles']} "
-        f"tile(s), {resident} resident an SM, {slots} in all: {waves:.2f} "
-        f"waves, the last {last_wave} blocks; mutate at P "
+        + f"); launches at P {p_b}: " + "; ".join(lik_geo)
+        + f"; SASS: {_sass_loops(so, 'gmm_lik_kernel')}; "
+        f"{_sass_loops(so, 'smc_gmm_mutate_kernel')}; mutate at P "
         f"{fsg.PB} (one adaptation block) {ms_block:.4f} ms; clusters of "
         f"{geo['cluster']} blocks x {geo['threads']} threads, "
         f"{want_geo['ctas']} blocks at P {p_b}, "
@@ -2304,10 +2345,7 @@ def main():
     _build.load()
     build_s = time.perf_counter() - t
     print(f"phase 1 build ok in {build_s:.1f} s: "
-          f"{_ptxas_summary(_build.build_log())}; SASS: "
-          f"{_sass_loops(_build.load()._name, 'smc_gmm_mutate_kernel')}; "
-          f"{_sass_loops(_build.load()._name, 'gmm_lik_kernel')}",
-          flush=True)
+          f"{_ptxas_summary(_build.build_log())}", flush=True)
 
     records = [_svi_phases(torch, np, card, dev),
                _nuts_phases(torch, np, card, dev)]

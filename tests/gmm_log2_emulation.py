@@ -1,6 +1,6 @@
 """The GMM kernels' log2-domain point loop (``csrc/gmm_lik.cuh``
-``points_log2``, run by the SMC mutation kernel and the value+grad
-likelihood kernel), emulated in numpy float32 in the kernels' order.
+``points_log2``, run by the SMC mutation kernel and the three likelihood
+kernels), emulated in numpy float32 in the kernels' order.
 
 A CUDA kernel cannot run on the CPU, and its ``.approx`` functions have no
 CPU counterpart, so the tests hold this emulation against float64 with
@@ -8,7 +8,9 @@ every ex2, lg2 and rcp moved to its PTX ISA bound in one direction or the
 other.  The order is the kernels': x in tiles of shared memory; in each,
 lane l takes the points l, l + 32, ...; a lane's chunks of ``chunk``
 points each end in one lg2 of the product of their sums, the maxes summed
-apart; a butterfly of xor shuffles adds the lanes.
+apart; a butterfly of xor shuffles adds the lanes.  As in the kernels, the
+value's sums (``value``) and the gradient's (``grad``) can each be left
+out; the sums kept do not depend on which are.
 """
 
 import numpy as np
@@ -37,10 +39,12 @@ def butterfly(v):
     return v
 
 
-def points_log2(c2, h2, mu, x, sign, chunk, tile_points=None):
+def points_log2(c2, h2, mu, x, sign, chunk, tile_points=None, value=True,
+                grad=True):
     """The per-particle sums of ``points_log2`` over the points x (N, D),
     summed across the lanes: ``(ll2 (P,), r (P, K), rq (P, K), rdx (P, K,
-    D))``, ll2 the log-likelihood in log2 units.  c2, h2 (P, K) are the
+    D))``, ll2 the log-likelihood in log2 units (None without ``value``),
+    the other three None without ``grad``.  c2, h2 (P, K) are the
     components' log2-domain constants, mu (P, K, D) their means; every ex2,
     lg2 and rcp is moved by ``sign`` times its bound.  ``tile_points``: the
     points of one shared-memory tile (all of x if None)."""
@@ -71,21 +75,26 @@ def points_log2(c2, h2, mu, x, sign, chunk, tile_points=None):
             se = np.zeros((p, 32), F32)
             for kk in range(k):
                 se = (se + e[..., kk]).astype(F32)
-            inv = (1.0 / np.asarray(se, np.float64)
-                   * (1 + sign * RCP_REL)).astype(F32)
-            rr = (e * inv[..., None]).astype(F32)
-            prod = np.where(live, prod * se, prod).astype(F32)
-            ll2 = np.where(live, ll2 + mx, ll2).astype(F32)
-            r = np.where(live[..., None], r + rr, r).astype(F32)
-            rq = np.where(live[..., None], fma(rr, qd, rq), rq)
-            rdx = np.where(live[..., None, None], fma(rr[..., None], dx, rdx),
-                           rdx)
-            end = live & ((it % chunk == chunk - 1) | (it == last))
-            lg = (np.log2(np.asarray(prod, np.float64))
-                  + sign * LG2_ABS).astype(F32)
-            ll2 = np.where(end, ll2 + lg, ll2).astype(F32)
-            prod = np.where(end, F32(1), prod)
-    return (butterfly(ll2)[:, 0],
+            if value:
+                prod = np.where(live, prod * se, prod).astype(F32)
+                ll2 = np.where(live, ll2 + mx, ll2).astype(F32)
+            if grad:
+                inv = (1.0 / np.asarray(se, np.float64)
+                       * (1 + sign * RCP_REL)).astype(F32)
+                rr = (e * inv[..., None]).astype(F32)
+                r = np.where(live[..., None], r + rr, r).astype(F32)
+                rq = np.where(live[..., None], fma(rr, qd, rq), rq)
+                rdx = np.where(live[..., None, None],
+                               fma(rr[..., None], dx, rdx), rdx)
+            if value:
+                end = live & ((it % chunk == chunk - 1) | (it == last))
+                lg = (np.log2(np.asarray(prod, np.float64))
+                      + sign * LG2_ABS).astype(F32)
+                ll2 = np.where(end, ll2 + lg, ll2).astype(F32)
+                prod = np.where(end, F32(1), prod)
+    sums = (butterfly(ll2)[:, 0],
             butterfly(np.moveaxis(r, 1, -1))[..., 0],
             butterfly(np.moveaxis(rq, 1, -1))[..., 0],
             butterfly(np.moveaxis(rdx, 1, -1))[..., 0])
+    return (sums[0] if value else None,) + (sums[1:] if grad
+                                            else (None,) * 3)

@@ -12,11 +12,12 @@ kernel, whose gradient products run one bf16 pass by design and whose
 d/dsigma comes through a cancelling identity (its own test allows 5e-3).
 
 The kernels themselves run only on a CUDA card: ``test_kernels_match_plain``
-is marked ``gpu`` and skips here.  What the CPU can check of the
-value+grad kernel: ``test_vg_arithmetic_precision`` emulates its
-log2-domain point loop (``tests/gmm_log2_emulation.py``, shared with the
-SMC mutation's test) with ex2, lg2 and rcp at the PTX ISA's bounds against
-float64, and ``test_vg_geometry`` checks its launch against the source.
+is marked ``gpu`` and skips here.  What the CPU can check of the three
+kernels (forward, backward, value+grad), which run one log2-domain point
+loop: ``test_vg_arithmetic_precision`` emulates it
+(``tests/gmm_log2_emulation.py``, shared with the SMC mutation's test)
+with ex2, lg2 and rcp at the PTX ISA's bounds against float64, and
+``test_vg_geometry`` checks their launches against the source.
 """
 
 import re
@@ -160,130 +161,168 @@ def _particles(k, d, num_data, kind, count=8):
     return x, lw, mus, sig
 
 
-def _emulated_vg(x, lw, mus, sig, sign):
-    """ll and its three gradients as the value+grad kernel computes them
-    (``value_grad`` of csrc/gmm_logprob.cu) in float32, every ex2, lg2 and
-    rcp moved by ``sign`` times its bound."""
+def _emulated(x, lw, mus, sig, sign, kernel, ct):
+    """What ``kernel`` ("fwd", "bwd" or "vg") of csrc/gmm_logprob.cu
+    computes, in float32 in its order, every ex2, lg2 and rcp moved by
+    ``sign`` times its bound: (ll,), the three gradients times the
+    cotangent ``ct`` (P,), the product last, or ll and the three
+    gradients."""
     f32 = np.float32
     d = x.shape[1]
     c2 = emu.LOG2E * (lw - f32(d) * np.log(sig) - f32(d) * emu.HALF_LOG_2PI)
     h2 = f32(0.5 * np.log2(np.e)) / (sig * sig)
     ll2, r, rq, rdx = emu.points_log2(c2, h2, mus, x, sign, _CHUNK,
-                                      tgl.VG_TILE_FLOATS // d)
+                                      tgl.TILE_FLOATS // d,
+                                      value=kernel != "bwd",
+                                      grad=kernel != "fwd")
+    if kernel == "fwd":
+        return (emu.LN2 * ll2,)
     inv_s2 = f32(1) / (sig * sig)
-    return (emu.LN2 * ll2, r, rdx * inv_s2[..., None],
-            (rq * inv_s2 - f32(d) * r) / sig)
+    grads = (r, rdx * inv_s2[..., None], (rq * inv_s2 - f32(d) * r) / sig)
+    if kernel == "bwd":
+        return tuple(ct.reshape((-1,) + (1,) * (g.ndim - 1)) * g
+                     for g in grads)
+    return (emu.LN2 * ll2,) + grads
 
 
 @pytest.mark.parametrize("k, d, n", [(3, 2, 2000), (8, 4, 1999), (8, 4, 20)])
 @pytest.mark.parametrize("kind", ["near", "prior", "far"])
 def test_vg_arithmetic_precision(k, d, n, kind):
-    """The value+grad kernel's arithmetic (log2-domain constants, one ex2
+    """The likelihood kernels' arithmetic (log2-domain constants, one ex2
     per component, one rcp, the sums of kChunk points multiplied under one
     lg2 with the maxes summed apart, lanes striding over the points, the
-    butterfly, the ln 2 epilogue), emulated in float32 with every
+    butterfly, the ln 2 epilogue; the forward without the gradient's sums,
+    the backward without the value's and its gradients times a random
+    cotangent, the product last), emulated in float32 with every
     approximate function at its PTX ISA bound in either direction: ll
     within rel 1e-5 and each gradient within 1e-4 of its max|g| of float64
-    (chip_smoke phase 17's limits), at the bench's K 3, D 2, N 2,000 and at
-    the generic instance's largest K 8, D 4 with N 1,999 and N 20 (lanes
-    with no points)."""
+    (chip_smoke phase 17's limits), for the value+grad kernel, the forward
+    and the backward, at the bench's K 3, D 2, N 2,000 and at the generic
+    instance's largest K 8, D 4 with N 1,999 and N 20 (lanes with no
+    points)."""
     x, lw, mus, sig = _particles(k, d, n, kind)
-    want = [a.numpy() for a in tgl.gmm_loglik_grad_reference(
-        *(torch.as_tensor(a, dtype=torch.float64)
-          for a in (x, lw, mus, sig)))]
-    for sign in (1.0, -1.0):
-        got = _emulated_vg(x, lw, mus, sig, sign)
-        ll_err = np.abs(got[0] - want[0]) / np.abs(want[0])
-        assert ll_err.max() < 1e-5, (sign, ll_err.max())
-        for name, g, w in zip(("dlogw", "dmus", "dsig"), got[1:], want[1:]):
-            err = np.abs(g - w).max() / np.abs(w).max()
-            assert err < 1e-4, (sign, name, err)
+    ct = np.random.default_rng(5).normal(size=lw.shape[0]).astype(np.float32)
+    args64 = [torch.as_tensor(a, dtype=torch.float64)
+              for a in (x, lw, mus, sig)]
+    vg = [a.numpy() for a in tgl.gmm_loglik_grad_reference(*args64)]
+    want = {"vg": vg, "fwd": vg[:1], "bwd": [
+        a.numpy() for a in tgl.gmm_loglik_grad_reference(
+            *args64, torch.as_tensor(ct, dtype=torch.float64))[1:]]}
+    for kernel, wants in want.items():
+        for sign in (1.0, -1.0):
+            got = _emulated(x, lw, mus, sig, sign, kernel, ct)
+            grads = zip(("dlogw", "dmus", "dsig"), got, wants)
+            if kernel != "bwd":
+                ll_err = np.abs(got[0] - wants[0]) / np.abs(wants[0])
+                assert ll_err.max() < 1e-5, (kernel, sign, ll_err.max())
+                grads = zip(("dlogw", "dmus", "dsig"), got[1:], wants[1:])
+            for name, g, w in grads:
+                err = np.abs(g - w).max() / np.abs(w).max()
+                assert err < 1e-4, (kernel, sign, name, err)
 
 
 @pytest.mark.parametrize("p, blocks", [(1, (1, 1)), (7, (1, 1)),
                                        (1001, (32, 126)),
                                        (8192, (256, 1024))])
 def test_vg_geometry(p, blocks):
-    """One warp per particle, 32 a block at K 3, D 2 and 8 at the generic
-    instance: P 1 and 7 fill one block, P 1,001 a ragged last one, P 8,192
-    256 blocks at K 3, D 2; x in shared memory at its own size (16,000
-    bytes at the bench's N 2,000, D 2), in 48 KB tiles past
-    VG_TILE_FLOATS; the constants are the kernel's."""
+    """The three kernels' launches: one warp per particle, 32 a block at K
+    3, D 2 and 8 at the generic instance for the value+grad kernel and the
+    backward: P 1 and 7 fill one block, P 1,001 a ragged last one, P 8,192
+    256 blocks at K 3, D 2; the forward's K 3, D 2 instance at its own
+    threads and particles a warp; x in shared memory at its own size
+    (16,000 bytes at the bench's N 2,000, D 2), in 48 KB tiles past
+    TILE_FLOATS; the constants are the kernel's."""
     src = _CU.read_text()
     consts = {name: int(re.search(rf"int {name} = (\d+);", src).group(1))
-              for name in ("GL_NT", "VG_NT", "VG_TILE_FLOATS")}
-    assert consts == dict(GL_NT=tgl.THREADS, VG_NT=tgl.VG_THREADS_EXACT,
-                          VG_TILE_FLOATS=tgl.VG_TILE_FLOATS)
-    for (n, k, d), (smem, tiles) in (((2000, 3, 2), (16000, 1)),
-                                     ((20, 8, 4), (320, 1)),
-                                     ((20000, 3, 2), (49152, 4)),
-                                     ((5000, 8, 3), (49152, 2))):
-        threads = 1024 if (k, d) == (3, 2) else 256
-        g = tgl.vg_geometry(p, n, k, d)
-        assert g == dict(threads=threads, particles_per_block=threads // 32,
-                         blocks=blocks[threads == 256], smem_bytes=smem,
-                         tiles=tiles)
-    with pytest.raises(ValueError, match="no launch"):
-        tgl.vg_geometry(p, 2000, 9, 2)
+              for name in ("GL_NT", "TILE_FLOATS", "FWD_NT", "FWD_W",
+                           "BWD_NT", "VG_NT")}
+    assert consts == dict(
+        GL_NT=tgl.THREADS, TILE_FLOATS=tgl.TILE_FLOATS,
+        FWD_NT=tgl.EXACT_SHAPES["fwd"][0], FWD_W=tgl.EXACT_SHAPES["fwd"][1],
+        BWD_NT=tgl.EXACT_SHAPES["bwd"][0], VG_NT=tgl.EXACT_SHAPES["vg"][0])
+    assert tgl.EXACT_SHAPES["bwd"][1] == tgl.EXACT_SHAPES["vg"][1] == 1
+    fwd_per_block = consts["FWD_NT"] // 32 * consts["FWD_W"]
+    for kernel in ("vg", "bwd", "fwd"):
+        for (n, k, d), (smem, tiles) in (((2000, 3, 2), (16000, 1)),
+                                         ((20, 8, 4), (320, 1)),
+                                         ((20000, 3, 2), (49152, 4)),
+                                         ((5000, 8, 3), (49152, 2))):
+            exact = (k, d) == (3, 2)
+            if kernel == "fwd" and exact:
+                want = dict(threads=consts["FWD_NT"],
+                            particles_per_warp=consts["FWD_W"],
+                            particles_per_block=fwd_per_block,
+                            blocks=-(-p // fwd_per_block))
+            else:
+                threads = 1024 if exact else 256
+                want = dict(threads=threads, particles_per_warp=1,
+                            particles_per_block=threads // 32,
+                            blocks=blocks[not exact])
+            g = tgl.launch_geometry(kernel, p, n, k, d)
+            assert g == dict(want, smem_bytes=smem, tiles=tiles), kernel
+        with pytest.raises(ValueError, match="no launch"):
+            tgl.launch_geometry(kernel, p, 2000, 9, 2)
+    with pytest.raises(ValueError, match="no kernel"):
+        tgl.launch_geometry("mutate", p, 2000, 3, 2)
 
 
 @pytest.mark.gpu
 def test_kernels_match_plain():
     """On a CUDA card: forward, backward (autograd with a random
-    cotangent) and value+grad kernels against their plain versions, at the
-    compile-time K = 3, D = 2 instantiation and the general one; ll within
-    1e-5 relative, gradients within 1e-4 of max|g|.  The value+grad kernel
-    also at P 1, 7, 1,001 and 8,192 by N 20, 1,999 and 2,000, at K 8, D 4,
-    and past one x tile (N 20,000 at D 2, 5,000 at D 4); two launches bit
-    for bit; and the library's launch equal to ``vg_geometry``, with at
-    least the one resident block an SM its K 3, D 2 instance is built
-    for."""
+    cotangent) and value+grad kernels against their plain versions, ll
+    within 1e-5 relative, gradients within 1e-4 of max|g|: at P 1, 7, 1,001
+    and 8,192 by N 20, 1,999 and 2,000 at the compile-time K 3, D 2
+    instances (also P 1,000 and 9 by N 2,000 and 4,097), at K 8, D 4 and K
+    4, D 3 (the generic ones), and past one x tile (N 20,000 at D 2, 5,000
+    at D 4).  At each shape two launches of
+    each kernel agree bit for bit; the forward's ll equals the value+grad
+    kernel's and the backward's gradients equal the cotangent times the
+    value+grad kernel's, bit for bit (one loop in one order); the launch
+    counts add up; and the library's launch of each kernel equals
+    ``launch_geometry``, with at least one resident block an SM."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
-    for shape in (dict(n=2000, d=2, p=1000, k=3), dict(n=777, d=3, p=13,
-                                                       k=4),
-                  dict(n=4097, d=2, p=9, k=3, seed=2)):
+    shapes = [dict(n=n, d=2, p=p, k=3, seed=p + n)
+              for p in (1, 7, 1001, 8192) for n in (20, 1999, 2000)]
+    shapes += [dict(n=1999, d=4, p=1001, k=8), dict(n=20, d=4, p=7, k=8),
+               dict(n=777, d=3, p=13, k=4), dict(n=2000, d=2, p=1000, k=3),
+               dict(n=4097, d=2, p=9, k=3, seed=2),
+               dict(n=20000, d=2, p=40, k=3), dict(n=5000, d=4, p=9, k=8)]
+    for shape in shapes:
         x, lw, mus, sig = (a.to(dev) for a in _t(*_inputs(**shape)))
-        ct = torch.linspace(-1.0, 2.0, lw.shape[0], device=dev)
+        p, k = lw.shape
+        n, d = x.shape
+        ct = torch.linspace(-1.0, 2.0, p, device=dev)
         before = dict(tgl.LAUNCHES)
-        ll = tgl.gmm_loglik(x, lw, mus, sig)
-        ref = tgl.gmm_loglik_reference(x, lw, mus, sig)
-        torch.testing.assert_close(ll, ref, rtol=1e-5, atol=0)
-        params = [t.clone().requires_grad_() for t in (lw, mus, sig)]
-        got = torch.autograd.grad(tgl.gmm_loglik(x, *params), params, ct)
-        vg = tgl.gmm_loglik_grad(x, lw, mus, sig)
+        runs = []
+        for _ in range(2):
+            ll = tgl.gmm_loglik(x, lw, mus, sig)
+            params = [t.clone().requires_grad_() for t in (lw, mus, sig)]
+            bwd = torch.autograd.grad(tgl.gmm_loglik(x, *params), params, ct)
+            vg = tgl.gmm_loglik_grad(x, lw, mus, sig)
+            runs.append((ll, *bwd, *vg))
         torch.cuda.synchronize()
-        assert tgl.LAUNCHES["fwd"] == before["fwd"] + 2
-        assert tgl.LAUNCHES["bwd"] == before["bwd"] + 1
-        assert tgl.LAUNCHES["vg"] == before["vg"] + 1
+        assert tgl.LAUNCHES == dict(fwd=before["fwd"] + 4,
+                                    bwd=before["bwd"] + 2,
+                                    vg=before["vg"] + 2), shape
+        for a, b in zip(*runs):
+            assert torch.equal(a, b), shape
+        ll, bwd, vg = runs[0][0], runs[0][1:4], runs[0][4:]
+        assert torch.equal(ll, vg[0]), shape
+        scale = (ct[:, None], ct[:, None, None], ct[:, None])
+        for g, v, c in zip(bwd, vg[1:], scale):
+            assert torch.equal(g, c * v), shape
         want = tgl.gmm_loglik_grad_reference(x, lw, mus, sig)
         want_ct = tgl.gmm_loglik_grad_reference(x, lw, mus, sig, ct)
+        torch.testing.assert_close(ll, tgl.gmm_loglik_reference(
+            x, lw, mus, sig), rtol=1e-5, atol=0)
         torch.testing.assert_close(vg[0], want[0], rtol=1e-5, atol=0)
-        for g, w in list(zip(vg[1:], want[1:])) + list(zip(got,
+        for g, w in list(zip(vg[1:], want[1:])) + list(zip(bwd,
                                                            want_ct[1:])):
             torch.testing.assert_close(
                 g, w, rtol=0, atol=1e-4 * float(w.abs().max()))
-    vg_shapes = [dict(n=n, d=2, p=p, k=3, seed=p + n)
-                 for p in (1, 7, 1001, 8192) for n in (20, 1999, 2000)]
-    vg_shapes += [dict(n=1999, d=4, p=1001, k=8), dict(n=20, d=4, p=7, k=8),
-                  dict(n=20000, d=2, p=40, k=3), dict(n=5000, d=4, p=9, k=8)]
-    for shape in vg_shapes:
-        x, lw, mus, sig = (a.to(dev) for a in _t(*_inputs(**shape)))
-        before = tgl.LAUNCHES["vg"]
-        vg = tgl.gmm_loglik_grad(x, lw, mus, sig)
-        again = tgl.gmm_loglik_grad(x, lw, mus, sig)
-        torch.cuda.synchronize()
-        assert tgl.LAUNCHES["vg"] == before + 2
-        for a, b in zip(vg, again):
-            assert torch.equal(a, b), shape
-        want = tgl.gmm_loglik_grad_reference(x, lw, mus, sig)
-        torch.testing.assert_close(vg[0], want[0], rtol=1e-5, atol=0)
-        for g, w in zip(vg[1:], want[1:]):
-            torch.testing.assert_close(
-                g, w, rtol=0, atol=1e-4 * float(w.abs().max()))
-        p, k = lw.shape
-        n, d = x.shape
-        geo = tgl.device_vg_geometry(p, n, k, d)
-        assert geo.pop("resident_blocks") >= 1
-        assert geo == tgl.vg_geometry(p, n, k, d)
+        for kernel in tgl.LAUNCHES:
+            geo = tgl.device_geometry(kernel, p, n, k, d)
+            assert geo.pop("resident_blocks") >= 1, (kernel, shape)
+            assert geo == tgl.launch_geometry(kernel, p, n, k, d), kernel

@@ -6,6 +6,8 @@ own directory and compiles it alone into a shared library with the port's
 nvcc flags, all nvcc processes at once.  An edit applies to the source and
 to each header that holds its text; one whose text is in none of them
 raises, so a tool that has fallen behind the kernel says so.
+``build_parent`` compiles the same source of another checkout (the commit
+before a redesign) alone, with its own headers.
 """
 
 from __future__ import annotations
@@ -48,3 +50,20 @@ def build(source, headers, variants, tmp):
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
         out[name] = (so, _ptxas_summary(log))
     return out
+
+
+def build_parent(source, parent, tmp):
+    """``bayesic_tpu_torch/csrc/<source>`` of the checkout ``parent`` (an
+    unpacked ``git archive``) built alone into a library: (path,
+    ``chip_smoke._ptxas_summary`` of its nvcc output)."""
+    from bayesic_tpu_torch.ops import _build
+    from chip_smoke import _ptxas_summary
+
+    src = Path(parent) / "bayesic_tpu_torch" / "csrc" / source
+    so = Path(tmp) / f"parent_{Path(source).stem}.so"
+    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                          "-o", str(so), str(src)], capture_output=True,
+                         text=True)
+    if res.returncode:
+        raise RuntimeError(f"parent: nvcc failed\n{res.stdout}{res.stderr}")
+    return so, _ptxas_summary(res.stdout + res.stderr)

@@ -155,21 +155,6 @@ def _summary(summary, f):
     return ", ".join(parts) or "no ptxas summary"
 
 
-def _build_parent(parent, tmp):
-    """The parent commit's kernel alone in a library: (path, summary)."""
-    from bayesic_tpu_torch.ops import _build
-    from chip_smoke import _ptxas_summary
-
-    src = Path(parent) / "bayesic_tpu_torch" / "csrc" / SOURCE
-    so = Path(tmp) / "parent.so"
-    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
-                          "-o", str(so), str(src)], capture_output=True,
-                         text=True)
-    if res.returncode:
-        raise RuntimeError(f"parent: nvcc failed\n{res.stdout}{res.stderr}")
-    return so, _ptxas_summary(res.stdout + res.stderr)
-
-
 def _timed(fn):
     """(fn(), its wall seconds)."""
     t0 = time.perf_counter()
@@ -277,7 +262,7 @@ def main():
     opt = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
-    from _variants import build
+    from _variants import build, build_parent
     from chip_smoke import _sass_loop_stats
     from bayesic_tpu_torch.infer.mcmc import StreamKey
     from bayesic_tpu_torch.ops import _build
@@ -300,7 +285,8 @@ def main():
             SOURCE, HEADERS, {"shipped": {}}, alone))
         line = f"nvcc alone: {SOURCE} {secs:.1f} s"
         if opt.parent:
-            parent, secs = _timed(lambda: _build_parent(opt.parent, tmp))
+            parent, secs = _timed(lambda: build_parent(SOURCE, opt.parent,
+                                                       tmp))
             line += f", the parent's {secs:.1f} s"
         loops = ", ".join(
             f"F{t.split(',')[2]} {('l2', 'resident')[int(t.split(',')[3])]} "

@@ -13,13 +13,17 @@ generic instance at K 4, D 3 with the same counts.  The variants are timed
 in two rounds, in order and then in reverse, on the same inputs; each
 prints its milliseconds a stage at both instances, the registers and
 spills of both, and how far its output lies from the shipped kernel's.
+With ``--parent DIR`` (an unpacked ``git archive`` of the commit before)
+that commit's ``fused_smc_gmm.cu`` and its headers are built alone and
+timed among them.
 
 Run from the root of a checkout on a machine with an NVIDIA GPU and nvcc:
-``python3 tools/smc_mutation_ablation.py``.
+``python3 tools/smc_mutation_ablation.py [--parent DIR]``.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
 import subprocess
@@ -56,15 +60,18 @@ VARIANTS = {
 }
 
 
-def _build_all(tmp):
+def _build_all(tmp, parent=None):
     """{name: (library path, the mutation kernel's registers and spills)}
-    of every variant."""
-    from _variants import build
+    of every variant [and of the ``parent`` checkout's kernel]."""
+    from _variants import build, build_parent
 
     out = {}
     headers = ["gmm_lik.cuh", "warp_sum.cuh"]
-    for name, (so, summary) in build("fused_smc_gmm.cu", headers, VARIANTS,
-                                     tmp).items():
+    built = build("fused_smc_gmm.cu", headers, VARIANTS, tmp)
+    if parent:
+        built["parent (the commit before)"] = build_parent(
+            "fused_smc_gmm.cu", parent, tmp)
+    for name, (so, summary) in built.items():
         stats = [part for part in summary.split("; ")
                  if part.startswith("smc_gmm_mutate_kernel")]
         out[name] = (so, ", ".join(stats) if stats else
@@ -76,6 +83,10 @@ def main():
     import numpy as np
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="an unpacked checkout of the commit "
+                    "before, timed beside the variants")
+    opt = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     from bayesic_tpu_torch.dist import StickBreaking
@@ -110,7 +121,7 @@ def main():
                 torch.tensor([0.03], **f32)), k, d
 
     with tempfile.TemporaryDirectory() as tmp:
-        built = _build_all(Path(tmp))
+        built = _build_all(Path(tmp), opt.parent)
         cases = {"K 3, D 2": inputs(3, 2), "K 4, D 3": inputs(4, 3)}
         vp, i32, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         runs = {}
