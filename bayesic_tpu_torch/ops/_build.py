@@ -76,12 +76,15 @@ def _declare(lib):
     lib.fused_nuts_potential.restype = i32
     lib.fused_nuts_draws.argtypes = [vp] * 4 + [i32] * 3 + key + [vp]
     lib.fused_nuts_draws.restype = i32
-    lib.fused_hier_smem_bytes.argtypes = [i32] * 2
-    lib.fused_hier_smem_bytes.restype = ctypes.c_size_t
+    lib.fused_hier_geometry.argtypes = [i32] * 3 + [vp]
+    lib.fused_hier_geometry.restype = i32
     lib.fused_hier_train.argtypes = (
-        [vp] * 12 + [i32] * 5 + [ctypes.c_longlong, i32, f32, i32, f32,
+        [vp] * 10 + [i32] * 5 + [ctypes.c_longlong, i32, f32, i32, f32,
                                  ctypes.c_ulonglong, vp])
     lib.fused_hier_train.restype = i32
+    lib.fused_hier_probe.argtypes = (
+        lib.fused_hier_train.argtypes[:-1] + [vp, vp])
+    lib.fused_hier_probe.restype = i32
     lib.fused_hier_nuts_geometry.argtypes = [i32] * 5 + [vp]
     lib.fused_hier_nuts_geometry.restype = i32
     lib.fused_hier_nuts_transition.argtypes = [vp] * 21 + [i32] * 6 + [f32,

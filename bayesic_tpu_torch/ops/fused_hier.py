@@ -3,10 +3,12 @@ launch runs every SVI step.
 
 Counterpart of ``bayesic_tpu/ops/fused_hier.py``.  On a CUDA tensor,
 ``fused_train`` runs the hand-written kernel of ``csrc/fused_hier.cu``: one
-persistent thread block holds the guide's parameters and Adam state in
-registers and runs all ``steps`` steps, reading the mini-batch rows from
-device memory (the whole data set stays in L2).  On a CPU tensor it runs
-the plain version below (``reference_train``) over the same Philox streams
+persistent thread block whose producer warps make each step's offset,
+noise, schedule and rows-by-group lists ahead and stage its rows in shared
+memory, while its consumer warps hold the guide's parameters and Adam state
+in registers and run the steps' dependent chain.  The wrapper lays the rows
+out once a call for the copy (``pack_rows``).  On a CPU tensor it runs the
+plain version below (``reference_train``) over the same Philox streams
 (``_kernel_common.hier_streams``).  Nothing falls back: on a CUDA tensor
 the kernel runs or the call raises.
 
@@ -45,13 +47,18 @@ from ._kernel_common import adam_leaf, hier_streams, thin_losses
 from ._kernel_common import loss_thin as _thin
 
 __all__ = ["fused_train", "fused_train_injected", "reference_train",
-           "init_params", "MAX_FEATURES"]
+           "init_params", "pack_rows", "geometry", "probe_cycles",
+           "MAX_FEATURES", "PROBE_PHASES"]
 
 _C = 0.5 * math.log(2.0 * math.pi)
 # the HalfNormal(2) log density's constant: ln 2 - ln 2 - c
 _TAU_CONST = 0.5 * math.log(2.0 / math.pi) - math.log(2.0)
 MAX_FEATURES = 8        # MAXF of csrc/fused_hier.cu
-_MAX_THREADS = 1024     # NT: one parameter per thread
+_MAX_PARAMS = 1024      # MAXP: 2 + J + F
+TILE = 32               # rows a tile of pack_rows' layout
+# the probe instance's phases of a step (fused_hier_probe)
+PROBE_PHASES = ("z and barrier 1", "row pass", "warp sums", "slot wait",
+                "barrier 2", "group and total sums", "Adam and exps")
 
 # launches of the kernel, through either entry point: one launch runs
 # every step of the call
@@ -155,41 +162,97 @@ def _check(x, y, group, loc, ls, opt_state, batch):
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     if not 1 <= batch <= n:
         raise ValueError(f"batch must be in 1..{n}")
-    if f > MAX_FEATURES or p > _MAX_THREADS:
+    if f > MAX_FEATURES or p > _MAX_PARAMS:
         raise ValueError(f"the kernel takes F <= {MAX_FEATURES} and "
-                         f"2 + J + F <= {_MAX_THREADS}; got F={f}, J={j}")
+                         f"2 + J + F <= {_MAX_PARAMS}; got F={f}, J={j}")
     return n, f, j
 
 
+def pack_rows(x, y, group, batch):
+    """The rows as the kernel copies them: ``(ntile, F + 2, 32)`` float32,
+    tile c holding the rows at positions 32 c .. 32 c + 31 of the data read
+    circularly (position q is row q mod N), as F planes of x, one of
+    ``y + 2 group`` and one of the tile's group order (int32 bits): its
+    rows sorted by group (stable), word l describes position l of that
+    order: the lane of its row (bits 0-4), the first position of its
+    group's segment (bits 5-9), bit 10 set where l ends the segment, its
+    group (bits 11-20) and the scan rounds the tile's longest segment
+    needs, ceil log2 of its length (from bit 21).  A window of ``batch``
+    rows at any offset is one run of whole tiles, with its first row at
+    lane ``offset % 32`` of its first tile; ``ntile`` covers every
+    window."""
+    n, f = x.shape
+    ntile = (n + batch - 2) // TILE + 1
+    idx = torch.arange(ntile * TILE, device=x.device) % n
+    g = group.to(torch.int32)[idx]
+    yg = g * 2 + y.to(torch.int32)[idx]
+    gs, lane = torch.sort(g.view(ntile, TILE), dim=1, stable=True)
+    pos = torch.arange(TILE, device=x.device).expand(ntile, TILE)
+    first = torch.ones_like(gs, dtype=torch.bool)
+    first[:, 1:] = gs[:, 1:] != gs[:, :-1]
+    last = torch.ones_like(first)
+    last[:, :-1] = first[:, 1:]
+    head = torch.cummax(torch.where(first, pos, 0), dim=1).values
+    # the scan rounds of the tile's longest segment: ceil(log2 length)
+    span = (pos - head + 1).max(dim=1, keepdim=True).values
+    rounds = torch.ceil(torch.log2(span.to(torch.float32))).to(torch.int32)
+    order = (lane.to(torch.int32) | (head.to(torch.int32) << 5)
+             | (last.to(torch.int32) << 10) | (gs << 11) | (rounds << 21))
+    cols = torch.cat([x[idx].to(torch.float32),
+                      yg.view(torch.float32)[:, None],
+                      order.reshape(-1).view(torch.float32)[:, None]], 1)
+    return cols.view(ntile, TILE, f + 2).transpose(1, 2).contiguous()
+
+
+def geometry(num_features, num_groups, batch):
+    """The kernel's launch at (F, J, B) (``fused_hier_geometry``):
+    ``{"threads", "smem_bytes", "instance": "staged" (the rows copied into
+    shared memory) or "l2" (read from L2)}`` (CUDA only: it loads the
+    library)."""
+    out = (ctypes.c_longlong * 3)()
+    err = _build.load().fused_hier_geometry(int(num_features),
+                                            int(num_groups), int(batch), out)
+    if err != 0:
+        raise ValueError(f"no fused_hier instance takes F={num_features}, "
+                         f"J={num_groups}, B={batch}")
+    return {"threads": out[0], "smem_bytes": out[1],
+            "instance": "staged" if out[2] else "l2"}
+
+
 def _launch(x, y, group, loc, ls, opt_state, *, steps, lr0, lr_total, batch,
-            t0, n_total, thin, seed, off, eps):
+            t0, n_total, thin, seed, off, eps, probe=None):
     global LAUNCHES
     n, f, j = _check(x, y, group, loc, ls, opt_state, batch)
     lib = _build.load()
-    if lib.fused_hier_smem_bytes(f, j) == 0:
-        raise ValueError(f"J={j} too large for one block's shared memory")
+    geometry(f, j, batch)
     state = [t.clone() for t in (loc, ls, *opt_state)]
-    x = x.contiguous()
-    yf = y.to(torch.float32).contiguous()
-    g32 = group.to(torch.int32).contiguous()
-    if int(g32.min()) < 0 or int(g32.max()) >= j:
+    g32 = group.to(torch.int32)
+    bad_group, bad_y = torch.stack([((g32 < 0) | (g32 >= j)).any(),
+                                    ((y != 0) & (y != 1)).any()]).tolist()
+    if bad_group:
         raise ValueError(f"group ids must lie in 0..{j - 1}")
+    if bad_y:
+        raise ValueError("y must hold 0/1 labels")
+    tiles = pack_rows(x, y, g32, batch)
     losses = torch.empty(-(-steps // thin), dtype=torch.float32,
                          device=x.device)
     ptr = lambda t: ctypes.c_void_p(None if t is None  # noqa: E731
                                     else t.data_ptr())
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fused_hier_train(
-            ptr(x), ptr(yf), ptr(g32), *map(ptr, state), ptr(losses),
-            ptr(off), ptr(eps), n, f, j, int(batch), int(steps), int(t0),
-            int(thin), float(lr0), int(lr_total),
+    args = (ptr(tiles), *map(ptr, state), ptr(losses), ptr(off), ptr(eps),
+            n, f, j, int(batch), int(steps), int(t0), int(thin),
+            float(lr0), int(lr_total),
             float((n_total if n_total is not None else n) / batch),
-            int(seed) & 0xFFFFFFFFFFFFFFFF, ctypes.c_void_p(stream))
+            int(seed) & 0xFFFFFFFFFFFFFFFF)
+    with torch.cuda.device(x.device):
+        stream = ctypes.c_void_p(
+            torch.cuda.current_stream(x.device).cuda_stream)
+        err = (lib.fused_hier_train(*args, stream) if probe is None
+               else lib.fused_hier_probe(*args, ptr(probe), stream))
     if err != 0:
         raise RuntimeError(f"fused_hier kernel launch failed: CUDA error "
                            f"{err} ({_build.error_string(err)})")
-    LAUNCHES += 1
+    if probe is None:
+        LAUNCHES += 1
     return state[0], state[1], tuple(state[2:]), losses
 
 
@@ -252,3 +315,32 @@ def fused_train_injected(x, y, group, loc, ls, opt_state, *, off_stream,
                            off_stream=off_stream, eps_stream=eps_stream,
                            lr0=lr0, lr_total=lr_total, batch=batch, t0=t0,
                            n_total=n_total)
+
+
+def probe_cycles(x, y, group, loc, ls, opt_state=None, *, steps, lr0,
+                 lr_total=None, seed=0, batch=1024, t0=0, n_total=None):
+    """Run ``fused_train``'s work through the kernel's probe instance (CUDA
+    tensors and a shape whose rows are staged; not counted in
+    ``LAUNCHES``) and return the clock cycles of one step on consumer
+    thread 2, theta_0's owner: ``{"phases": {name: mean cycles}
+    (PROBE_PHASES), "sampled": steps sampled (every 16th from step 8 on),
+    "loop": mean cycles a step over the whole loop}``.  The stamps wait for
+    the value each phase ends on, so the sampled steps run slower than the
+    others."""
+    if x.device.type != "cuda":
+        raise ValueError("probe_cycles reads the card's clock: it needs "
+                         "CUDA tensors")
+    steps = int(steps)
+    if opt_state is None:
+        opt_state = tuple(torch.zeros_like(loc) for _ in range(4))
+    probe = torch.zeros(len(PROBE_PHASES) + 2, dtype=torch.int64,
+                        device=x.device)
+    _launch(x, y, group, loc, ls, opt_state, steps=steps, lr0=lr0,
+            lr_total=int(lr_total if lr_total is not None else steps),
+            batch=batch, t0=t0, n_total=n_total, thin=_thin(steps),
+            seed=seed, off=None, eps=None, probe=probe)
+    c = probe.cpu().tolist()
+    k = max(c[len(PROBE_PHASES)], 1)
+    return {"phases": {name: c[i] / k for i, name in enumerate(PROBE_PHASES)},
+            "sampled": c[len(PROBE_PHASES)],
+            "loop": c[len(PROBE_PHASES) + 1] / steps}

@@ -32,13 +32,16 @@ Phases 12-16, the hierarchical-logistic path at its bench shape
 (``hier_logistic.Config()``: N=10,000 rows, J=50 groups, F=5 features,
 B=1024, 3,000 SVI steps; NUTS on the centered model with 128 chains, 500
 warmup + 300 samples, pooled adaptation): check the fused hier trainer and
-the hier NUTS kernel against their plain versions (and the potential
-against autograd of the DSL model; the NUTS kernel also at 20,000 rows,
-too many for its shared memory, through its instance that reads them from
-L2), drive ``run_svi`` and ``run_svi_fused``, then ``fused_nuts_mcmc`` and
-``MCMC`` on the centered model, gate their posteriors, time both kernels
-against their plain versions, print the NUTS kernel's launch geometry,
-depths, row loop and critical path, and trace both sampling loops.
+the hier NUTS kernel against their plain versions (the trainer also at a
+batch of 4,096, too large to stage, through its instance that reads the
+rows from L2; the potential against autograd of the DSL model; the NUTS
+kernel also at 20,000 rows, too many for its shared memory, through its
+instance that reads them from L2), drive ``run_svi`` and ``run_svi_fused``
+(with the trainer's step time, its probe's cycles by phase, its row loop's
+SASS and one SM's floor a step), then ``fused_nuts_mcmc`` and ``MCMC`` on
+the centered model, gate their posteriors, time both kernels against their
+plain versions, print the NUTS kernel's launch geometry, depths, row loop
+and critical path, and trace both sampling loops.
 
 Phases 17-20, the GMM tempered-SMC path at its bench shape
 (``gmm.Config(num_particles=8192, num_data=2000)``: K=3, D=2, 5 mutation
@@ -141,6 +144,10 @@ HIER_TRAJ, HIER_PLAIN_STEPS = 50, 100
 # phase 14's second shape: twice the bench's rows (J 50, F 5), too many for
 # shared memory, through the NUTS kernel's instance that reads them from L2
 HIER_L2_ROWS = 20_000
+# phase 12's second batch: the bench data at a batch whose ring slots do not
+# fit in shared memory, through the trainer's instance that reads its rows
+# from L2
+HIER_L2_BATCH = 4096
 # the GMM tempered-SMC bench (JAX benchmarks/harness.py:522-594):
 # gmm.Config(num_particles=8192, num_data=2000), K 3, D 2, 5 mutation steps
 # of 5 leapfrogs; generic, kernels and fused run on GMM_SEEDS (paired: one
@@ -376,6 +383,13 @@ def _ptxas_summary(log):
                 # template arguments: K, D, exact [, mode]
                 name += "<" + ",".join(re.findall(
                     r"L[ib](\d+)E", mangled.split("kernelI")[1])) + ">"
+            if name == "hier_train_kernel" and "kernelI" in mangled:
+                # template arguments: F, the rows staged or read from L2,
+                # probe
+                f_, res, probe = re.findall(
+                    r"L[ib](\d+)E", mangled.split("kernelI")[1])[:3]
+                name += (f"<F{f_},{('l2', 'smem')[int(res)]},"
+                         f"{('main', 'probe')[int(probe)]}>")
             if name == "linreg_train_kernel":
                 # template arguments: float4 chunks a lane, probe
                 nc, probe = re.findall(r"L[ib](\d+)E", mangled)[:2]
@@ -388,13 +402,15 @@ def _ptxas_summary(log):
             stats[name]["regs"] = (line.split("Used")[1]
                                    .split("registers")[0].strip())
     # the linreg trainer's instances (one per chunk count) in two entries,
-    # the hier NUTS kernels' off-bench F in one each
+    # the hier NUTS kernels' off-bench F in one each, the hier trainer's
+    # off-bench F in one
     for prefix, kind in (("linreg_train_kernel<", "main"),
                          ("linreg_train_kernel<", "probe"),
                          ("nuts_kernel<Hier,", ""),
-                         ("potential_kernel<Hier,", "")):
+                         ("potential_kernel<Hier,", ""),
+                         ("hier_train_kernel<", "")):
         inst = {k: v for k, v in stats.items() if k.startswith(prefix)
-                and kind in k and ",F5," not in k}
+                and kind in k and ",F5," not in k and "<F5," not in k}
         if inst:
             for k in inst:
                 del stats[k]
@@ -1035,60 +1051,32 @@ def _hier_phases(torch, np, card, dev):
     loc0, ls0 = rnd(p, scale=0.5), rnd(p, loc=-2.0, scale=0.3)
     zeros = tuple(torch.zeros(p, device=dev) for _ in range(4))
     kw = dict(lr0=cfg.lr, lr_total=steps, batch=b)
-
-    def streams(k):
-        return torch.as_tensor(rng.integers(0, n, k), device=dev), rnd(k, p)
-
-    off, eps = streams(1)
-    _, _, (m1, m2, _, _), l1 = fh.fused_train_injected(
-        xs, ys, gs, loc0, ls0, zeros, off_stream=off, eps_stream=eps, **kw)
-    torch.cuda.synchronize()
-    elbo, g_loc, g_ls = fh._step_math(
-        loc0, ls0, *fh._block(xs, ys.float(), gs, int(off[0]), b), eps[0],
-        n / b, j)
-    svi_err, worst = 0.0, 0.0
-    # one Adam step from zero moments: m = -0.1 g
-    for name, got, want in (("loc", -m1 / 0.1, g_loc), ("ls", -m2 / 0.1,
-                                                        g_ls)):
-        err = (got - want).abs()
-        tol = 1e-4 * want.abs() + 1e-5 * float(want.abs().max())
-        if bool((err > tol).any()):
-            raise AssertionError(f"phase 12: grad {name} differs, max abs "
-                                 f"err {float(err.max())}")
-        svi_err = max(svi_err, float(err.max()))
-        worst = max(worst, float((err / tol).max()))
-    loss_err = abs(float(l1[0]) + float(elbo)) / abs(float(elbo))
-    off, eps = streams(HIER_TRAJ)
-    got = fh.fused_train_injected(xs, ys, gs, loc0, ls0, zeros,
-                                  off_stream=off, eps_stream=eps, **kw)
-    want = fh.reference_train(xs, ys, gs, loc0, ls0, zeros, off_stream=off,
-                              eps_stream=eps, **kw)
-    traj_rel = float(((got[3] - want[3]).abs() / want[3].abs()).max())
-    par_rel = max(float((g_ - w_).abs().max() / w_.abs().max())
-                  for g_, w_ in ((got[0], want[0]), (got[1], want[1])))
     seed = 12345
-    got = fh.fused_train(xs, ys, gs, loc0, ls0, zeros, steps=HIER_TRAJ,
-                         lr0=cfg.lr, lr_total=steps, seed=seed, batch=b)
-    off, eps = kc.hier_streams(seed, 0, HIER_TRAJ, n, p, device=dev)
-    want = fh.reference_train(xs, ys, gs, loc0, ls0, zeros, off_stream=off,
-                              eps_stream=eps, **kw)
-    bits_rel = float(((got[3] - want[3]).abs() / want[3].abs()).max())
-    if max(loss_err, traj_rel, bits_rel) > 1e-5:
-        raise AssertionError(
-            f"phase 12: loss rel errs one step {loss_err}, {HIER_TRAJ}-step "
-            f"trajectory {traj_rel}, Philox twin {bits_rel} (limit 1e-5)")
+    gates = {}
+    for batch in (b, HIER_L2_BATCH):
+        geo = fh.geometry(f, j, batch)
+        if geo["instance"] != ("staged" if batch == b else "l2"):
+            raise AssertionError(f"phase 12: B {batch} takes the "
+                                 f"{geo['instance']} instance")
+        gates[batch] = (geo, _hier_trainer_gates(
+            torch, fh, kc, (xs, ys, gs), (loc0, ls0, zeros), rng, rnd,
+            dict(kw, batch=batch), seed))
+    svi_err = max(g[1][0] for g in gates.values())
     loc_i, ls_i, _ = fh.init_params(j, f, device=dev)
     lk = fh.fused_train(xs, ys, gs, loc_i, ls_i, steps=steps, lr0=cfg.lr,
                         seed=seed, batch=b)[3].cpu().numpy()
     if not (np.isfinite(lk).all() and lk[-100:].mean() < lk[:50].mean()):
         raise AssertionError(f"phase 12: {steps}-step Philox run: loss did "
                              f"not fall or is not finite")
-    print(f"phase 12 fused hier trainer ok: one step grads max abs err "
-          f"{svi_err:.3e} (worst err/tol {worst:.3f}), loss rel err "
-          f"{loss_err:.2e}; {HIER_TRAJ}-step trajectory loss max rel err "
-          f"{traj_rel:.2e}, param max err / max {par_rel:.2e}; Philox twin "
-          f"loss rel err {bits_rel:.2e}; {steps} Philox steps: loss "
-          f"{lk[:50].mean():.1f} -> {lk[-100:].mean():.1f}", flush=True)
+    print("phase 12 fused hier trainer ok: " + "; ".join(
+        f"B {batch} ({geo['instance']}, {geo['smem_bytes']} B of shared "
+        f"memory): one step grads max abs err {e_:.3e} (worst err/tol "
+        f"{w_:.3f}), loss rel err {l1:.2e}; {HIER_TRAJ}-step trajectory "
+        f"loss max rel err {tr:.2e}, param max err / max {pr:.2e}; Philox "
+        f"twin loss rel err {bt:.2e}"
+        for batch, (geo, (e_, w_, l1, tr, pr, bt)) in gates.items())
+        + f"; {steps} Philox steps: loss {lk[:50].mean():.1f} -> "
+        f"{lk[-100:].mean():.1f}", flush=True)
 
     # -- 13. the hier SVI path through the user's entry points ------------
     t = time.perf_counter()
@@ -1132,6 +1120,39 @@ def _hier_phases(torch, np, card, dev):
         steps=steps, lr0=cfg.lr, lr_total=2 * steps, seed=7, batch=b,
         t0=steps))
     hier_step_ms = f_ms / steps
+    # the call's own cost (packing the rows, the wrapper's checks): a
+    # one-step call; the kernel's step is the difference over the rest
+    one_ms, _ = _cuda_ms(torch, lambda: fh.fused_train(
+        *out_f["data"], out_f["loc"], out_f["ls"], out_f["opt_state"],
+        steps=1, lr0=cfg.lr, lr_total=2 * steps, seed=7, batch=b,
+        t0=steps), 3)
+    kernel_step_ms = (f_ms - one_ms) / (steps - 1)
+    probe = fh.probe_cycles(*out_f["data"], out_f["loc"], out_f["ls"],
+                            out_f["opt_state"], steps=steps, lr0=cfg.lr,
+                            lr_total=2 * steps, seed=7, batch=b, t0=steps)
+    # the row loop of the bench instance (F 5, rows staged, no probe): its
+    # SASS instructions and MUFU ops a row, and one SM's floor a step for
+    # B rows: the instructions at 4 x 32 lanes a clock, the MUFU at 16
+    loop = [st for st in _sass_loop_stats(_build.load()._name,
+                                          "hier_train_kernel", per=1)
+            if st[0] == f"{f},1,0" and st[2] == 1 and st[4] >= 2]
+    if not loop:
+        raise AssertionError("phase 13: no row loop in hier_train_kernel")
+    _, n_ins, _, _, n_mufu = loop[0]
+    step_floor = {"issue": b * n_ins / 128, "MUFU": b * n_mufu / 16}
+    print(f"phase 13 hier trainer [{card}]: {1e3 * hier_step_ms:.4f} us a "
+          f"step ({steps} steps from t0 {steps}, CUDA events over the "
+          f"call), {1e3 * kernel_step_ms:.4f} us without the call's own "
+          f"{one_ms:.4f} ms (a one-step call); probe, "
+          f"cycles a sampled step on theta_0's owner ("
+          f"{probe['sampled']} steps): " + ", ".join(
+              f"{k} {v:.1f}" for k, v in probe["phases"].items())
+          + f"; {probe['loop']:.1f} a step over the loop; row loop "
+          f"{n_ins} SASS instructions a row, MUFU {n_mufu}; one SM's "
+          f"floor a step: issue {step_floor['issue']:.0f} cycles "
+          f"({1e6 * step_floor['issue'] / SM_CLOCK:.4f} us), MUFU "
+          f"{step_floor['MUFU']:.0f} cycles "
+          f"({1e6 * step_floor['MUFU'] / SM_CLOCK:.4f} us)", flush=True)
     print(f"phase 13 hier SVI main path ok [{card}]: run_svi mu "
           f"{mu_g:.3f} beta err {np.abs(beta_g - truth['beta']).max():.3f} "
           f"final-200 loss {last_g:.1f}, wall {wall_g:.2f} s, "
@@ -1244,7 +1265,8 @@ def _hier_phases(torch, np, card, dev):
         *args, max_doublings=HIER_K), 20)
     tr_plain_ms, _ = _cuda_ms(torch, lambda: fnh.reference_transition(
         *args, max_doublings=HIER_K), 3)
-    off, eps = streams(HIER_PLAIN_STEPS)
+    off = torch.as_tensor(rng.integers(0, n, HIER_PLAIN_STEPS), device=dev)
+    eps = rnd(HIER_PLAIN_STEPS, p)
     fh.reference_train(xs, ys, gs, loc0, ls0, zeros, off_stream=off[:10],
                        eps_stream=eps[:10], **kw)
     plain_ms, _ = _cuda_ms(torch, lambda: fh.reference_train(
@@ -1342,6 +1364,64 @@ def _hier_phases(torch, np, card, dev):
                 "bayesic_tpu/ops/fused_nuts_hier.py:175", nuts_launches,
                 hier_nuts_err, tr_ms, tr_plain_ms, nuts_bound),
     ]
+
+
+def _hier_trainer_gates(torch, fh, kc, data, state, rng, rnd, kw, seed):
+    """Phase 12's gates at one batch: one injected step's gradients (read
+    off Adam's first moment) within 1e-4 rel + 1e-5 of the largest, its
+    loss, a HIER_TRAJ-step injected trajectory and its Philox twin within
+    rel 1e-5 of the plain version.  Returns (grad max abs err, worst
+    err/tol, one-step loss rel err, trajectory loss rel err, param max err
+    / max, Philox twin loss rel err)."""
+    xs, ys, gs = data
+    loc0, ls0, zeros = state
+    n, p, b = xs.shape[0], loc0.numel(), kw["batch"]
+    j = p - 2 - xs.shape[1]
+
+    def streams(k):
+        return (torch.as_tensor(rng.integers(0, n, k), device=xs.device),
+                rnd(k, p))
+
+    off, eps = streams(1)
+    _, _, (m1, m2, _, _), l1 = fh.fused_train_injected(
+        xs, ys, gs, loc0, ls0, zeros, off_stream=off, eps_stream=eps, **kw)
+    torch.cuda.synchronize()
+    elbo, g_loc, g_ls = fh._step_math(
+        loc0, ls0, *fh._block(xs, ys.float(), gs, int(off[0]), b), eps[0],
+        n / b, j)
+    err_max, worst = 0.0, 0.0
+    # one Adam step from zero moments: m = -0.1 g
+    for name, got, want in (("loc", -m1 / 0.1, g_loc), ("ls", -m2 / 0.1,
+                                                        g_ls)):
+        err = (got - want).abs()
+        tol = 1e-4 * want.abs() + 1e-5 * float(want.abs().max())
+        if bool((err > tol).any()):
+            raise AssertionError(f"phase 12: B {b}: grad {name} differs, "
+                                 f"max abs err {float(err.max())}")
+        err_max = max(err_max, float(err.max()))
+        worst = max(worst, float((err / tol).max()))
+    loss_err = abs(float(l1[0]) + float(elbo)) / abs(float(elbo))
+    off, eps = streams(HIER_TRAJ)
+    got = fh.fused_train_injected(xs, ys, gs, loc0, ls0, zeros,
+                                  off_stream=off, eps_stream=eps, **kw)
+    want = fh.reference_train(xs, ys, gs, loc0, ls0, zeros, off_stream=off,
+                              eps_stream=eps, **kw)
+    traj_rel = float(((got[3] - want[3]).abs() / want[3].abs()).max())
+    par_rel = max(float((g_ - w_).abs().max() / w_.abs().max())
+                  for g_, w_ in ((got[0], want[0]), (got[1], want[1])))
+    got = fh.fused_train(xs, ys, gs, loc0, ls0, zeros, steps=HIER_TRAJ,
+                         lr0=kw["lr0"], lr_total=kw["lr_total"], seed=seed,
+                         batch=b)
+    off, eps = kc.hier_streams(seed, 0, HIER_TRAJ, n, p, device=xs.device)
+    want = fh.reference_train(xs, ys, gs, loc0, ls0, zeros, off_stream=off,
+                              eps_stream=eps, **kw)
+    bits_rel = float(((got[3] - want[3]).abs() / want[3].abs()).max())
+    if max(loss_err, traj_rel, bits_rel) > 1e-5:
+        raise AssertionError(
+            f"phase 12: B {b}: loss rel errs one step {loss_err}, "
+            f"{HIER_TRAJ}-step trajectory {traj_rel}, Philox twin "
+            f"{bits_rel} (limit 1e-5)")
+    return err_max, worst, loss_err, traj_rel, par_rel, bits_rel
 
 
 def _hier_start(torch, truth, j, p, rnd, dev):
