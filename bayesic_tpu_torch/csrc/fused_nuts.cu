@@ -1004,8 +1004,9 @@ int fused_nuts_transition(const float* q, const float* pe, const float* grad,
 }
 
 // The same transition with its draws made in the kernel from Philox keyed
-// by (seed, phase, t) and the chain index (nuts_draws.cuh): what
-// make_batched_transition runs.
+// by (seed, phase, t) and the chain index chain0 + i of the launch's chain
+// i (nuts_draws.cuh): what make_batched_transition runs, chain0 the first
+// of a chain-sharded rank's chains.
 int fused_nuts_transition_keyed(
     const float* q, const float* pe, const float* grad, const float* eps,
     const float* inv_mass, const float* w1, const float* b1, const float* w2,
@@ -1014,8 +1015,8 @@ int fused_nuts_transition_keyed(
     float* steps_out, float* h0_out, void* ws, size_t ws_bytes, int n,
     int nb, int latent, int hidden, int data, int k, float sigma,
     float div_threshold, unsigned long long seed, unsigned phase, unsigned t,
-    void* stream_ptr) {
-  return transition(q, pe, grad, keyed_draws(seed, phase, t, k), eps,
+    unsigned chain0, void* stream_ptr) {
+  return transition(q, pe, grad, keyed_draws(seed, phase, t, chain0, k), eps,
                     inv_mass, w1, b1, w2, b2, x, q_out, pe_out, g_out,
                     acc_out, div_out, depth_out, steps_out, h0_out, ws,
                     ws_bytes, n, nb, latent, hidden, data, k, sigma,
@@ -1036,19 +1037,19 @@ int fused_nuts_potential(const float* q, const float* w1, const float* b1,
   return run<false>(a, ws, ws_bytes, stream_ptr);
 }
 
-// The keyed draws of chains 0 .. n - 1: mom (n, dim), sign (n, K) of +-1,
-// log_u_acc (n, K), log_u_leaf (n, 2^K), as the keyed transitions make
-// them (the check entry against nuts_streams).
+// The keyed draws of chains chain0 .. chain0 + n - 1: mom (n, dim), sign
+// (n, K) of +-1, log_u_acc (n, K), log_u_leaf (n, 2^K), as the keyed
+// transitions make them (the check entry against nuts_streams).
 int fused_nuts_draws(float* mom, float* sign, float* log_u_acc,
                      float* log_u_leaf, int n, int dim, int k,
                      unsigned long long seed, unsigned phase, unsigned t,
-                     void* stream_ptr) {
+                     unsigned chain0, void* stream_ptr) {
   if (n <= 0 || dim <= 0 || k < 1 || k > MAXK) return cudaErrorInvalidValue;
   const size_t total = (size_t)n * (dim + 2 * k + (1 << k));
   const size_t blocks = (total + 255) / 256;
   nuts_draws_kernel<<<blocks < 8192 ? (int)blocks : 8192, 256, 0,
                       static_cast<cudaStream_t>(stream_ptr)>>>(
-      keyed_draws(seed, phase, t, k), n, dim, mom, sign, log_u_acc,
+      keyed_draws(seed, phase, t, chain0, k), n, dim, mom, sign, log_u_acc,
       log_u_leaf);
   return cudaGetLastError();
 }

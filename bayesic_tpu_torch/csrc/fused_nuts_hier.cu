@@ -454,8 +454,8 @@ int fused_hier_nuts_transition(
 }
 
 // The same transition with its draws made in the kernel from Philox keyed
-// by (seed, phase, t) and the chain index (nuts_draws.cuh): what
-// make_batched_transition_hier runs.
+// by (seed, phase, t) and the chain index chain0 + i of the launch's chain
+// i (nuts_draws.cuh): what make_batched_transition_hier runs.
 int fused_hier_nuts_transition_keyed(
     const float* q, const float* pe, const float* grad, const float* eps,
     const float* inv_mass, const float* x, const uint32_t* y,
@@ -463,9 +463,9 @@ int fused_hier_nuts_transition_keyed(
     float* g_out, float* acc_out, float* div_out, float* depth_out,
     float* steps_out, float* h0_out, int n, int j, int f, int k, int depth,
     int nch, float div_threshold, unsigned long long seed, unsigned phase,
-    unsigned t, void* stream_ptr) {
+    unsigned t, unsigned chain0, void* stream_ptr) {
   return launch_hier_transition(
-      q, pe, grad, keyed_draws(seed, phase, t, k), eps, inv_mass,
+      q, pe, grad, keyed_draws(seed, phase, t, chain0, k), eps, inv_mass,
       HierRows{x, y, chunks, coff, j, depth, nch}, q_out, pe_out, g_out,
       acc_out, div_out, depth_out, steps_out, h0_out, n, f, k, div_threshold,
       stream_ptr);

@@ -10,7 +10,11 @@
 //   kind  = 0 momentum (lane d < D), 1 direction, 2 merge (lane = doubling),
 //           3 leaf (lane = leaf index of the tree, < 2^K),
 //
-// with `chain` the logical chain index.  Lanes count from 0 within each
+// with `chain` the logical chain index: a keyed launch's chain0 plus the
+// chain's index within the launch, so a launch over chains chain0 ..
+// chain0 + n - 1 (one rank's share of a sharded run) draws those chains'
+// streams.  The injected draws index their arrays by the chain's index
+// within the launch (chain0 is 0).  Lanes count from 0 within each
 // kind, so a draw does not depend on D or K, and the kernel draws a leaf's
 // uniform only when it reaches that leaf.  The float recipes are those of
 // streams.py, in the same float32 operations and order (logf, sqrtf, cosf,
@@ -37,7 +41,7 @@ __device__ __forceinline__ float open_uniform(uint32_t bits) {
 struct NutsDraws {
   // injected: (n, D), (n, K), (n, K), (n, 2^K) rows; keyed when mom is null
   const float *mom, *sign_dir, *log_u_acc, *log_u_leaf;
-  uint32_t seed_lo, seed_hi, t, phase;
+  uint32_t seed_lo, seed_hi, t, phase, chain0;
   int k;
 
   __device__ __forceinline__ bool keyed() const { return mom == nullptr; }
@@ -45,7 +49,7 @@ struct NutsDraws {
   __device__ __forceinline__ bt::U4 words(int chain, uint32_t lane,
                                           uint32_t kind) const {
     return bt::philox4x32_10(
-        bt::U4{t, static_cast<uint32_t>(chain), lane,
+        bt::U4{t, chain0 + static_cast<uint32_t>(chain), lane,
                (phase << 8) | kind},
         seed_lo, seed_hi);
   }
@@ -80,18 +84,19 @@ struct NutsDraws {
 NutsDraws injected_draws(const float* mom, const float* sign_dir,
                          const float* log_u_acc, const float* log_u_leaf,
                          int k) {
-  return NutsDraws{mom, sign_dir, log_u_acc, log_u_leaf, 0, 0, 0, 0, k};
+  return NutsDraws{mom, sign_dir, log_u_acc, log_u_leaf, 0, 0, 0, 0, 0, k};
 }
 
 NutsDraws keyed_draws(unsigned long long seed, unsigned phase, unsigned t,
-                      int k) {
+                      unsigned chain0, int k) {
   return NutsDraws{nullptr, nullptr, nullptr, nullptr,
                    static_cast<uint32_t>(seed),
-                   static_cast<uint32_t>(seed >> 32), t, phase, k};
+                   static_cast<uint32_t>(seed >> 32), t, phase, chain0, k};
 }
 
-// Writes the keyed draws of chains 0..n-1 to mom (n, D), sign (n, K),
-// log_u_acc (n, K) and log_u_leaf (n, 2^K): the check entry's kernel.
+// Writes the keyed draws of chains chain0 .. chain0 + n - 1 to mom (n, D),
+// sign (n, K), log_u_acc (n, K) and log_u_leaf (n, 2^K): the check entry's
+// kernel.
 __global__ void nuts_draws_kernel(NutsDraws dr, int n, int dim, float* mom,
                                   float* sign, float* lua, float* lul) {
   const int k = dr.k, per = dim + 2 * k + (1 << k);

@@ -16,13 +16,13 @@ from .adapt import (
 )
 from .hmc import HMCInfo, make_hmc_kernel
 from .integrators import IntegratorState, make_leapfrog
-from .mcmc import MCMC, MCMCResult
+from .mcmc import MCMC, MCMCResult, gather_chains
 from .metrics import kinetic_energy, mass_sqrt, sample_momentum, velocity
 from .nuts import NUTSInfo, make_nuts_kernel, nuts_core
 from .streams import NUTSStreams, StreamKey, nuts_streams
 
 __all__ = [
-    "MCMC", "MCMCResult", "make_nuts_kernel", "nuts_core", "make_hmc_kernel",
+    "MCMC", "MCMCResult", "gather_chains", "make_nuts_kernel", "nuts_core", "make_hmc_kernel",
     "make_leapfrog", "IntegratorState", "NUTSInfo", "HMCInfo",
     "kinetic_energy", "sample_momentum", "velocity", "mass_sqrt",
     "da_init", "da_update", "DualAveragingState",

@@ -6,7 +6,10 @@ over transitions, and each transition advances every chain in one batched
 call (the chain axis is the leading axis of every state tensor).  Every
 per-chain draw comes from a stream keyed by ``(seed, phase, t, chain)``
 (``streams.py``), so a chain's samples do not depend on how many chains
-run beside it.  Chain sharding over a device mesh is not ported.
+run beside it, nor on which rank runs it: with ``chain_sharding`` each rank
+of a mesh axis runs its contiguous share of the chains by their global
+indices, and pooled adaptation gathers every chain's statistics before it
+reduces them as one process would.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import Any, NamedTuple
 import torch
 
 from ...core.logjoint import build_logjoint, default_device, init_to_uniform
+from ...parallel.mesh import all_gather, axis_index, axis_size, local_slice
 from ...utils import diagnostics as diag
 from ..svi.guides import unraveler
 from .adapt import (
@@ -33,13 +37,35 @@ from .nuts import make_nuts_kernel
 from .streams import INIT, SAMPLE, WARMUP, StreamKey, init_uniforms, \
     nuts_streams
 
-__all__ = ["MCMC", "MCMCResult"]
+__all__ = ["MCMC", "MCMCResult", "gather_chains"]
+
+_PER_CHAIN = ("diverging", "accept_prob", "tree_depth", "num_steps")
 
 
 class MCMCResult(NamedTuple):
     samples: dict                # site -> (chains, samples, *event)
     extra: dict                  # diverging, accept_prob, tree_depth, ...
     unconstrained: torch.Tensor  # (chains, samples, dim)
+    chains: Any = None           # (chains,) global indices of the rows
+
+
+def gather_chains(result: MCMCResult, chain_sharding) -> MCMCResult:
+    """Every rank's chains of a chain-sharded run, in global order, on
+    every rank (an all_gather of each per-chain array; the per-chain step
+    sizes and masses too when adaptation was per chain).  For diagnostics
+    and tests: a run at scale keeps its chains where they ran."""
+    mesh, axis = chain_sharding
+
+    def g(x):
+        return all_gather(x, mesh, axis)
+
+    per_chain = set(_PER_CHAIN)
+    if result.extra["step_size"].dim() == 1:     # per-chain adaptation
+        per_chain |= {"step_size", "inv_mass"}
+    extra = {k: g(v) if k in per_chain else v
+             for k, v in result.extra.items()}
+    return MCMCResult({k: g(v) for k, v in result.samples.items()}, extra,
+                      g(result.unconstrained), g(result.chains))
 
 
 class _WarmupCarry(NamedTuple):
@@ -63,6 +89,17 @@ class MCMC:
     ``(key, states, step_size, inv_mass) -> (states, NUTSInfo)`` on all
     chains, where ``key`` is the transition's ``streams.StreamKey`` from
     which it draws its own per-chain streams.
+
+    ``chain_sharding`` (a ``parallel.mesh.Sharding`` or ``(mesh, axis)``)
+    splits the ``num_chains`` chains over a mesh axis of S ranks: this
+    rank runs ``num_chains / S`` of them, global indices ``rank * C / S +
+    i``, and its result holds those (``MCMCResult.chains``;
+    ``gather_chains`` collects every rank's).  Under ``shared_adapt`` each
+    warmup step all-gathers the chains' accept probabilities (and in the
+    slow windows their positions), so the step size and the mass are the
+    unsharded run's bits; per-chain adaptation needs no collective.  A
+    ``batched_transition`` must then run the rank's chains by their global
+    indices (``make_batched_transition(chain0=)``).
     """
 
     def __init__(self, model=None, *, potential_and_grad=None, example_q=None,
@@ -72,7 +109,7 @@ class MCMC:
                  dense_mass=False, init_step_size=0.1, thin=1,
                  hmc_num_steps=32, model_args=(), model_kwargs=None,
                  shared_adapt=False, init_params=None,
-                 batched_transition=None, device=None):
+                 batched_transition=None, chain_sharding=None, device=None):
         self.num_warmup = int(num_warmup)
         self.num_samples = int(num_samples)
         self.num_chains = int(num_chains)
@@ -90,6 +127,14 @@ class MCMC:
             else torch.as_tensor(init_params, dtype=torch.float32,
                                  device=self.device)
         )
+        self.chain_sharding = chain_sharding
+        start, self._n = 0, self.num_chains
+        if chain_sharding is not None:
+            mesh, axis = chain_sharding
+            start, self._n = local_slice(self.num_chains,
+                                         axis_size(mesh, axis),
+                                         axis_index(mesh, axis))
+        self._start, self._chains = start, None
         self.batched_transition = batched_transition
         if batched_transition is not None and not self.shared_adapt:
             raise ValueError(
@@ -134,6 +179,8 @@ class MCMC:
                 f"{tuple(self.init_params.shape)}.  Rows must be "
                 "UNCONSTRAINED-space points, one per chain."
             )
+        if self.init_params is not None:
+            self.init_params = self.init_params[start:start + self._n]
 
         if kernel == "nuts":
             self._kernel = make_nuts_kernel(
@@ -149,12 +196,21 @@ class MCMC:
             raise ValueError(f"unknown kernel {kernel!r}")
         self._schedule = build_schedule(self.num_warmup)
 
+    @property
+    def chains(self):
+        """Global indices of the chains this process runs, on the chains'
+        device (made at first use: a card need not exist before a run)."""
+        if self._chains is None:
+            self._chains = torch.arange(self._start, self._start + self._n,
+                                        device=self.device)
+        return self._chains
+
     # ------------------------------------------------------------------
     def _init_states(self, seed):
         if self.init_params is not None:
             q = self.init_params
         else:
-            u = init_uniforms(StreamKey(seed, INIT, 0), self.num_chains,
+            u = init_uniforms(StreamKey(seed, INIT, 0), self.chains,
                               self.dim, self.device)
             q = -2.0 + 4.0 * u if self.info is None else \
                 self._ravel(init_to_uniform(self.info, uniforms=u))
@@ -167,7 +223,7 @@ class MCMC:
         return torch.ones(self.dim, device=self.device)
 
     def _welford_init(self):
-        batch = () if self.shared_adapt else (self.num_chains,)
+        batch = () if self.shared_adapt else (self._n,)
         return welford_init(self.dim, dense=self.dense_mass, batch=batch,
                             device=self.device)
 
@@ -177,8 +233,8 @@ class MCMC:
         if self.shared_adapt:
             step0 = torch.tensor(self.init_step_size, device=self.device)
         else:
-            mass = mass.expand((self.num_chains,) + mass.shape).clone()
-            step0 = torch.full((self.num_chains,), self.init_step_size,
+            mass = mass.expand((self._n,) + mass.shape).clone()
+            step0 = torch.full((self._n,), self.init_step_size,
                                device=self.device)
         return _WarmupCarry(states, da_init(step0), self._welford_init(),
                             mass, step0)
@@ -189,9 +245,16 @@ class MCMC:
         kernel path) when set, else the kernel on streams drawn here."""
         if self.batched_transition is not None:
             return self.batched_transition(key, state, step_size, inv_mass)
-        streams = nuts_streams(key, self.num_chains, self.dim, self._depth,
+        streams = nuts_streams(key, self.chains, self.dim, self._depth,
                                self.device)
         return self._kernel(streams, state, step_size, inv_mass)
+
+    def _pooled(self, x):
+        """Every chain's rows of ``x``, in global chain order: gathered
+        over the chain axis when sharded."""
+        if self.chain_sharding is None:
+            return x
+        return all_gather(x, *self.chain_sharding)
 
     def _warm_step(self, seed, carry: _WarmupCarry, t):
         in_slow, window_end = self._schedule
@@ -199,16 +262,16 @@ class MCMC:
         state, info = self._transition(StreamKey(seed, WARMUP, t),
                                        carry.state, eps, carry.inv_mass)
         if self.shared_adapt:
-            da = da_update(carry.da, torch.mean(info.accept_prob),
+            da = da_update(carry.da,
+                           torch.mean(self._pooled(info.accept_prob)),
                            target=self.target_accept)
-            update = welford_update_batch
         else:
             da = da_update(carry.da, info.accept_prob,
                            target=self.target_accept)
-            update = welford_update
         wf, inv_mass = carry.wf, carry.inv_mass
         if in_slow[t]:
-            wf = update(wf, state.q)
+            wf = welford_update_batch(wf, self._pooled(state.q)) \
+                if self.shared_adapt else welford_update(wf, state.q)
         if window_end[t]:
             inv_mass = welford_finalize(wf)
             wf = self._welford_init()
@@ -288,7 +351,7 @@ class MCMC:
             "step_size": step_size,
             "inv_mass": inv_mass,
         }
-        return MCMCResult(samples, extra, qs)
+        return MCMCResult(samples, extra, qs, self.chains)
 
     # ------------------------------------------------------------------
     @staticmethod

@@ -116,12 +116,16 @@ class SVI:
     ``device`` is where the parameters live and the model's draws land
     while it is inspected.  ``None`` means the device of the first tensor
     in ``model_args``, or ``"cuda"`` if there is none.  Generators passed
-    to ``init``/``run`` must live on that device too."""
+    to ``init``/``run`` must live on that device too.
+    ``grad_transform``, when given, maps the gradient tree before the
+    optimizer sees it (clipping, or a data-parallel all-reduce)."""
 
     def __init__(self, model, guide, optimizer, model_args=(),
                  model_kwargs=None, num_particles=1, stl=True,
-                 device=None):
+                 device=None, grad_transform=None):
         self.optimizer = optimizer
+        self.grad_transform = grad_transform
+        self.num_particles = int(num_particles)
         self.device = default_device(device, model_args)
         model_kwargs = model_kwargs or {}
         gen = torch.Generator(device=self.device).manual_seed(0)
@@ -187,6 +191,8 @@ class SVI:
         leaves = tree_leaves(params)
         grads = _tree_unflatten(params,
                                 torch.autograd.grad(loss, leaves))
+        if self.grad_transform is not None:
+            grads = self.grad_transform(grads)
         new_params, opt_state = self.optimizer.update(
             grads, state.opt_state, state.params)
         return (SVIState(new_params, opt_state, state.key, state.step + 1),

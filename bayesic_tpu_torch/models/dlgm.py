@@ -37,6 +37,7 @@ from ..infer.mcmc import MCMC
 from ..infer.svi import SVI, Adam, NeuralGuide
 from ..ops import fused_vae as fv
 from ..ops.fused_nuts import make_batched_transition
+from ..parallel.mesh import axis_index, axis_size, local_slice, psum
 from ..utils import diagnostics as diag
 from ..utils.config import dump_config, parse_config
 from .common import bench_line, timed_steps
@@ -126,12 +127,19 @@ def make_data(cfg: Config):
     return x.astype(np.float32)
 
 
-def make_model_and_guide(cfg: Config, x):
+def make_model_and_guide(cfg: Config, x, rows=None):
     """Model and amortized guide on ``x``'s device.  The decoder init is
     drawn from a CPU generator seeded with ``cfg.seed``, so it does not
-    depend on the device."""
+    depend on the device.
+
+    ``rows = (lo, hi)``: ``x`` holds only the global rows lo..hi-1 of
+    ``cfg.num_data`` (one rank's shard).  The plate still draws the global
+    mini-batch (every rank the same indices and the same guide noise), and
+    the model and guide evaluate the batch positions whose rows fall in the
+    shard, at the global scale N / B: summed over the ranks, the ELBO and
+    its gradient are the unsharded ones, row for row."""
     device = x.device
-    n = int(x.shape[0])
+    n = int(x.shape[0]) if rows is None else int(cfg.num_data)
     dec = Decoder(cfg.latent_dim, cfg.hidden, cfg.data_dim,
                   torch.Generator().manual_seed(cfg.seed)).to(device)
     enc = Encoder(cfg.data_dim, cfg.hidden, cfg.latent_dim).to(device)
@@ -139,15 +147,25 @@ def make_model_and_guide(cfg: Config, x):
     b = cfg.batch_size
     scale = n / b
 
+    def local(idx):
+        """(positions in the batch, rows of x) of the batch's rows that
+        ``x`` holds."""
+        if rows is None:
+            return None, idx
+        pos = torch.nonzero((idx >= rows[0]) & (idx < rows[1])).reshape(-1)
+        return pos, idx[pos] - rows[0]
+
     def model(xa):
         dec_params = param("decoder", init_value=dec_init)
         sigma_x = param("sigma_x",
                         init_value=torch.tensor(0.5, device=device),
                         constraint=constraints.positive)
         with plate("data", n, subsample_size=b) as idx:
-            xb = xa[idx]
+            pos, r = local(idx)
+            xb = xa[r]
             z = sample(
-                "z", dist.Normal(0.0, 1.0).expand((b, cfg.latent_dim))
+                "z", dist.Normal(0.0, 1.0).expand((xb.shape[0],
+                                                   cfg.latent_dim))
                 .to_event(2)
             )
             mu = functional_call(dec, dec_params, (z,))
@@ -169,14 +187,18 @@ def make_model_and_guide(cfg: Config, x):
             idx = torch.arange(b, device=device)
         margs = (ctx or {}).get("model_args")
         xa = margs[0] if margs else x
-        mu, log_sig = functional_call(enc, params, (xa[idx],))   # (b, dz)
-        shape = tuple(sample_shape) + tuple(mu.shape)
+        pos, r = local(idx)
+        mu, log_sig = functional_call(enc, params, (xa[r],))   # (rows, dz)
+        # the whole batch's noise, so every shard draws the same
+        shape = tuple(sample_shape) + (idx.shape[0], cfg.latent_dim)
         eps = (ctx or {}).get("eps")
         if eps is None:
             eps = torch.randn(shape, generator=generator,
                               device=generator.device)
         else:
             eps = eps.expand(shape)
+        if pos is not None:
+            eps = eps[..., pos, :]
         z = mu + torch.exp(log_sig) * eps
         if stop_gradient_q:
             mu_q, log_sig_q = mu.detach(), log_sig.detach()
@@ -191,15 +213,33 @@ def make_model_and_guide(cfg: Config, x):
     return model, NeuralGuide(guide_init, guide_sample), dec, enc
 
 
-def run_svi(cfg: Config, generator=None):
+def run_svi(cfg: Config, generator=None, data_sharding=None):
     """Generic-engine SVI on ``cfg.device``.  ``generator`` (on that device)
-    drives the mini-batches, the noise and the encoder init."""
+    drives the mini-batches, the noise and the encoder init.
+
+    ``data_sharding`` (a ``parallel.mesh.Sharding``, or ``(mesh, axis)``)
+    shards the rows over the mesh axis: each rank holds its
+    ``local_slice`` of them, draws the same global mini-batches and noise
+    from a generator seeded alike, evaluates the batch rows it holds, and
+    the gradients are all-reduced before Adam; the losses are the global
+    ones.  Without it, one process trains on every row."""
     device = torch.device(cfg.device)
     gen = generator if generator is not None else \
         torch.Generator(device=device).manual_seed(cfg.seed)
-    x = torch.as_tensor(make_data(cfg), device=device)
-    model, guide, dec, enc = make_model_and_guide(cfg, x)
-    svi = SVI(model, guide, Adam(cfg.lr), model_args=(x,), device=device)
+    x = make_data(cfg)
+    rows, grad_transform = None, None
+    if data_sharding is not None:
+        mesh, axis = data_sharding
+        start, per = local_slice(cfg.num_data, axis_size(mesh, axis),
+                                 axis_index(mesh, axis))
+        rows, x = (start, start + per), x[start:start + per]
+
+        def grad_transform(grads):
+            return psum(grads, mesh, axis)
+    x = torch.as_tensor(x, device=device)
+    model, guide, dec, enc = make_model_and_guide(cfg, x, rows)
+    svi = SVI(model, guide, Adam(cfg.lr), model_args=(x,), device=device,
+              grad_transform=grad_transform)
 
     if cfg.bench:
         state = svi.init(gen)
@@ -211,6 +251,8 @@ def run_svi(cfg: Config, generator=None):
                    model="dlgm", n=cfg.num_data, batch=cfg.batch_size,
                    device=str(device))
     res = svi.run(gen, cfg.steps, model_args=(x,))
+    if data_sharding is not None:
+        res = res._replace(losses=psum(res.losses, *data_sharding))
     mp = svi.model_params(res.params)
     losses = res.losses.cpu().numpy()
     return {
@@ -307,41 +349,51 @@ def local_posterior_model(cfg: Config, dec, dec_params, sigma_x, x_batch):
 
 
 def local_posterior_mcmc(cfg: Config, dec, dec_params, sigma_x, x_batch,
-                         seed, shared_adapt=None):
+                         seed, chain_sharding=None, shared_adapt=None):
     """NUTS over the local latents z of ``x_batch``'s rows for a fixed
     decoder: the many-chain workload of the DLGM, on ``x_batch``'s device.
-    Returns ``(mcmc, result)``.  Chain sharding over a mesh is not
-    ported."""
+    Returns ``(mcmc, result)``.  ``chain_sharding`` (a
+    ``parallel.mesh.Sharding`` or ``(mesh, axis)``) splits the chains over
+    the mesh axis; the result then holds this rank's chains."""
     if shared_adapt is None:
         # pooled adaptation is the right default once chains are many
         shared_adapt = cfg.num_chains >= 64
     mcmc = MCMC(local_posterior_model(cfg, dec, dec_params, sigma_x, x_batch),
                 num_warmup=cfg.num_warmup, num_samples=cfg.num_samples,
                 num_chains=cfg.num_chains, init_step_size=0.2,
-                shared_adapt=shared_adapt,
+                shared_adapt=shared_adapt, chain_sharding=chain_sharding,
                 device=x_batch.device)
     return mcmc, mcmc.run(seed)
 
 
 def local_posterior_mcmc_fused(cfg: Config, dec, dec_params, sigma_x,
-                               x_batch, *, max_doublings=6, run_seed=None):
+                               x_batch, *, max_doublings=6, run_seed=None,
+                               chain_sharding=None):
     """The same workload through ``ops/fused_nuts``: the same model density
     and ``MCMC`` sampler (pooled adaptation, Welford windows, diagnostics),
     with each transition of every chain in one kernel launch on a GPU.
     Returns the ``MCMC`` object, or ``(mcmc, mcmc.run(run_seed))``.
+    ``chain_sharding`` splits the chains over a mesh axis: each rank
+    launches the kernel on its own chains, which draw their streams by
+    their global indices (the kernel's chain base).
 
     The JAX function's ``block_chains``, ``mm_dtype`` and ``interpret``
     are not ported: the kernel runs one thread block per chain, so there
     is no chain block to size; every product is fp32, so there is no
     precision split to choose; and a CPU tensor runs the plain version, so
     no interpret mode is needed."""
+    chain0 = 0
+    if chain_sharding is not None:
+        mesh, axis = chain_sharding
+        chain0 = local_slice(cfg.num_chains, axis_size(mesh, axis),
+                             axis_index(mesh, axis))[0]
     bt = make_batched_transition(dec_params, float(sigma_x), x_batch,
-                                 max_doublings=max_doublings)
+                                 max_doublings=max_doublings, chain0=chain0)
     mcmc = MCMC(local_posterior_model(cfg, dec, dec_params, sigma_x, x_batch),
                 num_warmup=cfg.num_warmup, num_samples=cfg.num_samples,
                 num_chains=cfg.num_chains, init_step_size=0.2,
                 shared_adapt=True, batched_transition=bt,
-                device=x_batch.device)
+                chain_sharding=chain_sharding, device=x_batch.device)
     if run_seed is not None:
         return mcmc, mcmc.run(run_seed)
     return mcmc

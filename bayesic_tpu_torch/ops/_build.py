@@ -64,7 +64,8 @@ def _declare(lib):
     sz = ctypes.c_size_t
     lib.fused_nuts_workspace_bytes.argtypes = [i32] * 7
     lib.fused_nuts_workspace_bytes.restype = sz
-    key = [ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_uint]
+    # a keyed entry's seed, phase, step and chain base
+    key = [ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_uint, ctypes.c_uint]
     lib.fused_nuts_transition.argtypes = (
         [vp] * 23 + [sz] + [i32] * 6 + [f32, f32, vp])
     lib.fused_nuts_transition.restype = i32

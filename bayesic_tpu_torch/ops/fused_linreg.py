@@ -40,8 +40,9 @@ from ..infer.svi.svi import cosine_decay_schedule
 from . import _build
 from ._kernel_common import adam_leaf, hier_streams, loss_thin, thin_losses
 
-__all__ = ["gram", "init_params", "fused_train", "fused_train_injected",
-           "reference_train", "probe_cycles", "MAX_DIM"]
+__all__ = ["gram", "gram64", "gram_round", "init_params", "fused_train",
+           "fused_train_injected", "reference_train", "probe_cycles",
+           "MAX_DIM"]
 
 _C = 0.5 * math.log(2.0 * math.pi)
 MAX_DIM = 126           # the JAX cap D + 2 <= 128 (MAXD2 of the kernel)
@@ -53,17 +54,28 @@ PROBE_PHASES = ("ring wait", "z and u exchange", "matvec and butterfly",
 LAUNCHES = 0
 
 
+def gram64(x, y):
+    """``P^T P`` over the columns ``P = [x, 1, y]`` in float64, unrounded:
+    additive over row shards (``parallel.dp_fused.dp_gram`` sums the
+    shards' before rounding)."""
+    p = torch.cat([x.to(torch.float64),
+                   torch.ones_like(x[:, :1], dtype=torch.float64),
+                   y.to(torch.float64)[:, None]], 1)
+    return p.T @ p
+
+
+def gram_round(g64):
+    """A float64 Gram made exactly symmetric, then rounded to float32."""
+    return (0.5 * (g64 + g64.T)).to(torch.float32)
+
+
 def gram(x, y):
     """``G = P^T P`` over the columns ``P = [x, 1, y]``: the Gaussian
     likelihood's sufficient statistic, (D+2, D+2) float32.  Accumulated in
     float64 (the N-row inner products lose digits in float32, and the
     residual quadratic form is a difference of large terms), made exactly
     symmetric, then rounded to float32."""
-    p = torch.cat([x.to(torch.float64),
-                   torch.ones_like(x[:, :1], dtype=torch.float64),
-                   y.to(torch.float64)[:, None]], 1)
-    g = p.T @ p
-    return (0.5 * (g + g.T)).to(torch.float32)
+    return gram_round(gram64(x, y))
 
 
 def init_params(dim, init_scale=0.1, device="cpu"):

@@ -148,12 +148,21 @@ def _check_rows(n, **rows):
                              f"got {t.dtype} {tuple(t.shape)}")
 
 
-def _key_words(key):
+def _key_words(key, chain0=0):
     """A ``StreamKey`` as the C entries take it: the 64-bit seed, the phase
     and the step's low 32 bits (the counter's first word, as in
-    streams.py)."""
+    streams.py), then the chain base: the logical index of the launch's
+    first chain."""
+    chain0 = int(chain0)
+    if not 0 <= chain0 < 2**32:
+        raise ValueError(f"chain0 {chain0} is not a 32-bit chain index")
     return (int(key.seed) & 0xFFFFFFFFFFFFFFFF, int(key.phase) & 0xFFFFFF,
-            int(key.t) & 0xFFFFFFFF)
+            int(key.t) & 0xFFFFFFFF, chain0)
+
+
+def _chains(chain0, n, device):
+    """Logical indices chain0 .. chain0 + n - 1 (``nuts_streams``' chains)."""
+    return torch.arange(int(chain0), int(chain0) + n, device=device)
 
 
 def element_groups(nb, latent):
@@ -302,18 +311,19 @@ def fused_nuts_transition(q, pe, grad, mom, sign_dir, log_u_acc, log_u_leaf,
 
 def fused_nuts_transition_keyed(q, pe, grad, key, eps, inv_mass, w1, b1, w2,
                                 b2, x_batch, *, sigma, max_doublings=6,
-                                divergence_threshold=1000.0):
+                                divergence_threshold=1000.0, chain0=0):
     """One NUTS transition of every chain, its draws made from ``key`` (a
-    ``streams.StreamKey``) for logical chains 0..N-1, as
-    ``nuts_streams(key, N, D, K)`` makes them.  On a CUDA tensor the kernel
-    draws them itself; on a CPU tensor this is ``reference_transition`` on
-    ``nuts_streams``.  Other arguments and the outputs as
-    ``fused_nuts_transition``."""
+    ``streams.StreamKey``) for logical chains chain0 .. chain0 + N - 1, as
+    ``nuts_streams(key, chain0 + arange(N), D, K)`` makes them: row i of q
+    is logical chain chain0 + i, so a chain-sharded rank passes its first
+    global chain.  On a CUDA tensor the kernel draws them itself; on a CPU
+    tensor this is ``reference_transition`` on ``nuts_streams``.  Other
+    arguments and the outputs as ``fused_nuts_transition``."""
     if q.device.type == "cpu":
         n, d = q.shape
         return reference_transition(
-            q, pe, grad, *nuts_streams(key, n, d, int(max_doublings),
-                                       q.device),
+            q, pe, grad, *nuts_streams(key, _chains(chain0, n, q.device), d,
+                                       int(max_doublings), q.device),
             eps, inv_mass, w1, b1, w2, b2, x_batch, sigma=sigma,
             max_doublings=max_doublings,
             divergence_threshold=divergence_threshold)
@@ -323,18 +333,18 @@ def fused_nuts_transition_keyed(q, pe, grad, key, eps, inv_mass, w1, b1, w2,
     return _transition("fused_nuts_transition_keyed", q, pe, grad, eps,
                        inv_mass, (w1, b1, w2, b2, x_batch),
                        _doublings(max_doublings), sigma,
-                       divergence_threshold, key=_key_words(key))
+                       divergence_threshold, key=_key_words(key, chain0))
 
 
-def fused_nuts_draws(key, n, dim, max_doublings, device):
-    """The keyed entries' draws for logical chains 0..n-1 as a
-    ``NUTSStreams``: on a CUDA device written by the kernels' own draw
+def fused_nuts_draws(key, n, dim, max_doublings, device, chain0=0):
+    """The keyed entries' draws for logical chains chain0 .. chain0 + n - 1
+    as a ``NUTSStreams``: on a CUDA device written by the kernels' own draw
     function (the check entry against ``nuts_streams``), on the CPU
     ``nuts_streams`` itself."""
     device = torch.device(device)
     kk = int(max_doublings)
     if device.type == "cpu":
-        return nuts_streams(key, n, dim, kk, device)
+        return nuts_streams(key, _chains(chain0, n, device), dim, kk, device)
     if device.type != "cuda":
         raise ValueError(f"fused_nuts_draws: unsupported device {device}")
     kk = _doublings(kk)
@@ -344,7 +354,7 @@ def fused_nuts_draws(key, n, dim, max_doublings, device):
     lib = _build.load()
     with torch.cuda.device(device):
         err = lib.fused_nuts_draws(*map(_ptr, out), n, dim, kk,
-                                   *_key_words(key), _stream(device))
+                                   *_key_words(key, chain0), _stream(device))
     _raise(err, "fused_nuts_draws")
     return out
 
@@ -362,14 +372,16 @@ def decoder_weights(dec_params):
 
 
 def make_batched_transition(dec_params, sigma_x, x_batch, *,
-                            max_doublings=6):
+                            max_doublings=6, chain0=0):
     """A ``batched_transition(key, states, step_size, inv_mass)`` for
     ``MCMC`` over the DLGM local posterior (``models/dlgm.py``
     ``local_posterior_mcmc``'s model), running
     ``fused_nuts_transition_keyed``: the kernel draws each transition's
     per-chain streams from ``key`` by logical chain index, so the host
-    draws nothing.  Requires ``shared_adapt=True`` (one step size, one
-    diagonal mass).  The decoder's widths come from ``dec_params``."""
+    draws nothing.  ``chain0`` is the logical index of the first chain
+    it is given (a chain-sharded rank's first global chain).  Requires
+    ``shared_adapt=True`` (one step size, one diagonal mass).  The
+    decoder's widths come from ``dec_params``."""
     w1, b1, w2, b2 = decoder_weights(dec_params)
     x_batch = x_batch.to(torch.float32).contiguous()
     sigma = float(sigma_x)
@@ -381,7 +393,7 @@ def make_batched_transition(dec_params, sigma_x, x_batch, *,
             fused_nuts_transition_keyed(
                 states.q, states.pe.reshape(n, 1), states.grad, key,
                 step_size, inv_mass, w1, b1, w2, b2, x_batch, sigma=sigma,
-                max_doublings=kk)
+                max_doublings=kk, chain0=chain0)
         new_states = IntegratorState(q2, torch.zeros_like(q2), pe2[:, 0], g2)
         info = NUTSInfo(
             accept_prob=acc[:, 0], diverging=div[:, 0] > 0.5,

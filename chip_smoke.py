@@ -2,8 +2,8 @@
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: the DLGM's
 SVI and local-posterior NUTS, the hierarchical logistic regression's SVI
 and full-batch NUTS, the Gaussian mixture's tempered SMC, the linear
-regression's SVI and the matrix factorization's mini-batch and dense
-SVI.
+regression's SVI, the matrix factorization's mini-batch and dense SVI, and
+the sharded (multi-rank) forms of the DLGM, hier and linreg paths.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
 hand-written kernels from ``bayesic_tpu_torch/csrc/``.
@@ -78,6 +78,24 @@ and that two calls agree bit for bit; drive ``run`` (mini-batch),
 their RMSE and final losses; time the kernel (its device time, queued
 behind a spin kernel, and a call's time with the host's cost), its plain
 version and the eager autograd path, and trace ``fused_train``.
+
+Phases 26-27, the sharded paths (``bayesic_tpu_torch.parallel``,
+``MCMC(chain_sharding=)``): at world size 1 on NCCL in this process,
+``dp_gram`` and the linreg trainer on it, ``dp_svi_run`` on the linreg
+model, ``dlgm.run_svi(data_sharding=)``, ``segment_averaged_train`` on the
+hier trainer and the chain-sharded ``local_posterior_mcmc_fused``, each
+against its unsharded call bit for bit, with the kernels' launches
+counted; then two ranks in processes of their own (``_rank_main``) that
+share the card under gloo (NCCL refuses two ranks on one card), at the
+bench shapes: the hier trainer segment-averaged (300 segments of 10
+steps), ``dp_gram`` and the linreg trainer, the DLGM's generic SVI with
+its rows sharded (50 steps) and its fused NUTS with the 1024 chains split
+over the ranks, gated against the single-process paths run first; their
+rates print beside the single-process ones, which is no scaling
+efficiency, since the ranks share one card.  Phase 9 also holds the keyed
+NUTS kernel's chain base: launched on the upper half of the chains from
+``chain0`` = 512, it gives the upper half of the full-width launch's
+draws and outputs bit for bit.
 
 Each phase prints one line and raises on failure.  The line before the
 last is a JSON object with one entry per kernel: its launches on the main
@@ -200,6 +218,16 @@ LINREG_EDGE_TIMED = 50_000          # steps timed at each edge D
 MF, MF_ODD = {}, (997, 1501)
 MF_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-5, 1e-3)}
 MF_FUSED_LR, MF_TRACE_STEPS = 5e-3, 20
+# phases 26-27, the sharded paths: segments of DP_SPS hier steps (the JAX
+# package's safe length), DP_SEGMENTS of them at two ranks (the hier bench's
+# 3,000 steps); the DLGM generic SVI at the bench for DP_DLGM_STEPS steps;
+# the DLGM fused NUTS bench over the ranks.  Phase 26 at world size 1 runs
+# shorter: W1_SVI_STEPS generic steps, W1_SEGMENTS segments, W1_NUTS + W1_NUTS
+# transitions.  Every spawned world's collectives time out after
+# RANK_TIMEOUT s; the ranks' processes are killed after RANK_DEADLINE s.
+RANKS, RANK_TIMEOUT, RANK_DEADLINE = 2, 60, 600
+DP_SEGMENTS, DP_SPS, DP_DLGM_STEPS, DP_LINREG_SEED = 300, 10, 50, 4
+W1_SVI_STEPS, W1_SEGMENTS, W1_NUTS = 50, 20, 20
 # published peaks of one H100 SXM (NVIDIA data sheet): FP32 outside the
 # tensor cores, dense bf16 and TF32 on them, and HBM3; the SFU does 16
 # exp/log/rcp per SM per clock, at the 1.98 GHz boost clock on 132 SMs
@@ -512,6 +540,18 @@ def _posterior(diag, torch, res, wall):
                 leapfrogs=float(res.extra["num_steps"].float().mean()),
                 step_size=float(res.extra["step_size"].mean()), wall_s=wall,
                 ess_per_s=min_ess / wall)
+
+
+def _nuts_gap(diag, qa, qb):
+    """max |gap| / (5 x combined MCSE + 1e-6) of the per-coordinate means
+    and variances of two runs' samples (phase 10's gate)."""
+    ma, mb = qa.mean((0, 1)), qb.mean((0, 1))
+    sqa, sqb = (qa - ma) ** 2, (qb - mb) ** 2
+    return {name: float((gap.abs() / (5 * bound + 1e-6)).max())
+            for name, gap, bound in (
+                ("mean", ma - mb, diag.mcse(qa) + diag.mcse(qb)),
+                ("var", sqa.mean((0, 1)) - sqb.mean((0, 1)),
+                 diag.mcse(sqa) + diag.mcse(sqb)))}
 
 
 def _svi_phases(torch, np, card, dev):
@@ -845,8 +885,28 @@ def _nuts_phases(torch, np, card, dev):
                     f"phase 9: keyed call {call + 1}, output {i} differs "
                     f"from the injected kernel's on nuts_streams, max abs "
                     f"{float((k_out - i_out).abs().max())}")
+    # the chain base: the keyed kernel over the upper half of the chains
+    # from chain0 = half draws those chains' streams, so its outputs are
+    # the upper half of the full-width launch's, bit for bit
+    half = NUTS_CHAINS // 2
+    drawn = fn.fused_nuts_draws(key, half, dim, NUTS_K, dev, chain0=half)
+    want = nuts_streams(key, torch.arange(half, NUTS_CHAINS, device=dev),
+                        dim, NUTS_K, dev)
+    upper = fn.fused_nuts_transition_keyed(
+        q0[half:], pe_k[half:], g_k[half:], key, EPS_SMALL, ones, *w, xb,
+        chain0=half, **kw)
+    for i, (got_, full_) in enumerate(zip((*drawn, *upper),
+                                          (*want, *(o[half:] for o
+                                                    in keyed)))):
+        if not torch.equal(got_, full_):
+            raise AssertionError(
+                f"phase 9: chain0 {half}: output {i} differs from the "
+                f"full-width launch's upper half, max abs "
+                f"{float((got_ - full_).abs().max())}")
     lines.append(f"in-kernel draws = nuts_streams bit for bit (K {NUTS_K}, "
-                 f"{GENERIC_DEPTH}); keyed = injected bit for bit, twice")
+                 f"{GENERIC_DEPTH}); keyed = injected bit for bit, twice; "
+                 f"chain0 {half} over {half} chains = the upper half, draws "
+                 f"and outputs, bit for bit")
     print(f"phase 9 transition ok ({NUTS_CHAINS} chains): "
           + "; ".join(lines), flush=True)
 
@@ -882,19 +942,11 @@ def _nuts_phases(torch, np, card, dev):
     # the two paths' per-coordinate mean and variance of z agree within
     # 5 x their combined Monte-Carlo error (the variance's from the MCSE
     # of the squared deviations); 1e-6 covers float rounding only
-    qf, qg = res_f.unconstrained, res_g.unconstrained
-    mf, mg = qf.mean((0, 1)), qg.mean((0, 1))
-    sqf, sqg = (qf - mf) ** 2, (qg - mg) ** 2
-    ratios = {}
-    for name, gap, bound in (
-            ("mean", mf - mg, diag.mcse(qf) + diag.mcse(qg)),
-            ("var", sqf.mean((0, 1)) - sqg.mean((0, 1)),
-             diag.mcse(sqf) + diag.mcse(sqg))):
-        ratio = gap.abs() / (5 * bound + 1e-6)
-        if bool((ratio > 1).any()):
+    ratios = _nuts_gap(diag, res_f.unconstrained, res_g.unconstrained)
+    for name, ratio in ratios.items():
+        if ratio > 1:
             raise AssertionError(f"phase 10: posterior {name}s differ, max "
-                                 f"|gap| / bound {float(ratio.max())}")
-        ratios[name] = float(ratio.max())
+                                 f"|gap| / bound {ratio}")
     print(f"phase 10 NUTS main path ok [{card}]: decoder sigma_x "
           f"{out['sigma_x']:.4f}; {NUTS_CHAINS} chains x {NUTS_ROWS} rows, "
           f"{NUTS_WARMUP} warmup + {NUTS_SAMPLES} samples; "
@@ -2401,6 +2453,517 @@ def _mf_phases(torch, np, card, dev):
                     ms["float32"][0], ms["float32"][2], bound)]
 
 
+# ---------------------------------------------------------------------------
+# phases 26-27: the sharded paths (parallel/, MCMC chain sharding)
+# ---------------------------------------------------------------------------
+
+def _timed(torch, dev, fn_):
+    """(fn_(), its wall seconds), the device synchronised around it."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    res = fn_()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return res, time.perf_counter() - t
+
+
+def _hier_dp_rows(np, hl, cfg, ranks):
+    """The hier bench's rows shuffled once and cut to a multiple of 8 x the
+    ranks (JAX harness.py:765-769), as numpy (x, y, group), and the
+    truth."""
+    x, y, group, truth = hl.make_data(cfg)
+    n = x.shape[0] // (8 * ranks) * (8 * ranks)
+    perm = np.random.default_rng(8).permutation(x.shape[0])[:n]
+    return (x[perm], y[perm], group[perm]), truth
+
+
+def _hier_segment_train(fh, n_total, batch, lr0, lr_total):
+    def local_train(rows, state, seed, t0):
+        loc, ls, opt = state
+        loc, ls, opt, losses = fh.fused_train(
+            *rows, loc, ls, opt, steps=DP_SPS, lr0=lr0, lr_total=lr_total,
+            seed=seed, batch=batch, t0=t0, n_total=n_total)
+        return (loc, ls, opt), losses
+
+    return local_train
+
+
+def _dp_world1_phase(torch, np, card, dev):
+    """Phase 26: every sharded path at world size 1 on NCCL, each against
+    its unsharded call on the same seed, bit for bit."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from bayesic_tpu_torch.infer.svi import SVI, Adam, MeanFieldGuide
+    from bayesic_tpu_torch.models import dlgm
+    from bayesic_tpu_torch.models import hier_logistic as hl
+    from bayesic_tpu_torch.models import linreg as lr
+    from bayesic_tpu_torch.ops import fused_hier as fh
+    from bayesic_tpu_torch.ops import fused_linreg as fl
+    from bayesic_tpu_torch.ops import fused_nuts as fn
+    from bayesic_tpu_torch.parallel import dp_svi_run, make_mesh
+    from bayesic_tpu_torch.parallel.dp_fused import (dp_gram,
+                                                     segment_averaged_train)
+    from bayesic_tpu_torch.parallel.mesh import shard_leading
+
+    def same(a, b):
+        return all(torch.equal(u, v) for u, v in zip(a, b))
+
+    t_phase = time.perf_counter()
+    checks, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0,
+            timeout=datetime.timedelta(seconds=RANK_TIMEOUT))
+        try:
+            data = make_mesh({"data": 1})
+            chain = shard_leading(make_mesh({"chain": 1}), "chain")
+            # dp_gram, then the linreg trainer on it
+            cfg = lr.Config(**LINREG, device=str(dev))
+            xn, yn, _, _ = lr.make_data(cfg)
+            x, y = (torch.as_tensor(a, device=dev) for a in (xn, yn))
+            g = dp_gram(x, y, data)
+            checks["dp_gram"] = torch.equal(g, fl.gram(x, y))
+            fl.LAUNCHES = 0
+            fit = fl.fused_train(g, cfg.n, cfg.noise,
+                                 *fl.init_params(cfg.dim, device=dev),
+                                 steps=LINREG_STEPS, lr0=cfg.lr, seed=3)
+            launches["linreg"] = fl.LAUNCHES
+            checks["linreg fused_train on dp_gram"] = same(
+                fit[:2], fl.fused_train(
+                    fl.gram(x, y), cfg.n, cfg.noise,
+                    *fl.init_params(cfg.dim, device=dev),
+                    steps=LINREG_STEPS, lr0=cfg.lr, seed=3)[:2])
+            # dp_svi_run on the linreg model against SVI.run
+            svi = SVI(lr.model, MeanFieldGuide, Adam(cfg.lr),
+                      model_args=(x, y, cfg.noise))
+            gen = torch.Generator(device=dev)
+            a = svi.run(gen.manual_seed(0), W1_SVI_STEPS)
+            b = dp_svi_run(svi, data, gen.manual_seed(0),
+                           (x, y, cfg.noise), W1_SVI_STEPS)
+            checks["dp_svi_run"] = torch.equal(a.losses, b.losses) and same(
+                a.params.values(), b.params.values())
+            # the DLGM's generic SVI with its rows sharded
+            scfg = dlgm.Config(**dict(NUTS_SVI, steps=W1_SVI_STEPS), seed=0,
+                               device=dev.type)
+            a = dlgm.run_svi(scfg, torch.Generator(dev).manual_seed(0))
+            b = dlgm.run_svi(scfg, torch.Generator(dev).manual_seed(0),
+                             data_sharding=shard_leading(data, "data"))
+            checks["dlgm.run_svi(data_sharding=)"] = np.array_equal(
+                a["losses"], b["losses"]) and same(
+                a["decoder_params"].values(), b["decoder_params"].values())
+            # segment averaging on the hier trainer against its segments
+            hcfg = hl.Config()
+            rows, _ = _hier_dp_rows(np, hl, hcfg, 1)
+            rows = tuple(torch.as_tensor(r, device=dev) for r in rows)
+            total = W1_SEGMENTS * DP_SPS
+            local = _hier_segment_train(fh, rows[0].shape[0],
+                                        hcfg.batch_size, hcfg.lr, total)
+            start = fh.init_params(hcfg.num_groups, hcfg.num_features,
+                                   device=dev)
+            fh.LAUNCHES = 0
+            st, ls_ = segment_averaged_train(
+                local, start, rows, data, segments=W1_SEGMENTS,
+                steps_per_segment=DP_SPS, seed=3, hierarchical_scales=True)
+            launches["hier"] = fh.LAUNCHES
+            st1, ls1 = start, []
+            for s in range(W1_SEGMENTS):
+                st1, l_ = local(rows, st1, (3 + s + 1) * 1 + 0, s * DP_SPS)
+                ls1.append(l_)
+            checks["segment_averaged_train"] = torch.equal(
+                ls_, torch.cat(ls1)) and same(
+                (st[0], st[1], *st[2]), (st1[0], st1[1], *st1[2]))
+            # chain-sharded fused NUTS against the unsharded sampler
+            ncfg = dlgm.Config(**NUTS_SVI, num_chains=NUTS_CHAINS,
+                               num_warmup=W1_NUTS, num_samples=W1_NUTS,
+                               seed=0, device=dev.type)
+            dec = dlgm.Decoder(ncfg.latent_dim, ncfg.hidden, ncfg.data_dim,
+                               torch.Generator().manual_seed(0)).to(dev)
+            dparams = {k: p.detach() for k, p in dec.named_parameters()}
+            xb = torch.as_tensor(dlgm.make_data(ncfg)[:NUTS_ROWS],
+                                 device=dev)
+            _, a = dlgm.local_posterior_mcmc_fused(
+                ncfg, dec, dparams, 0.3, xb, max_doublings=NUTS_K,
+                run_seed=2)
+            fn.LAUNCHES = 0
+            _, b = dlgm.local_posterior_mcmc_fused(
+                ncfg, dec, dparams, 0.3, xb, max_doublings=NUTS_K,
+                run_seed=2, chain_sharding=chain)
+            launches["dlgm nuts"] = fn.LAUNCHES
+            checks["local_posterior_mcmc_fused(chain_sharding=)"] = \
+                torch.equal(a.unconstrained, b.unconstrained) and same(
+                    (a.extra["step_size"], a.extra["inv_mass"]),
+                    (b.extra["step_size"], b.extra["inv_mass"]))
+        finally:
+            dist.destroy_process_group()
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise AssertionError(f"phase 26: not bit for bit at world size 1: "
+                             f"{bad}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"phase 26: a sharded path launched no "
+                             f"kernel: {launches}")
+    print(f"phase 26 sharded paths at world size 1 (NCCL) ok [{card}]: "
+          + ", ".join(checks) + " each equal to the unsharded call bit for "
+          "bit (linreg " + f"{LINREG_STEPS} steps, generic SVI "
+          f"{W1_SVI_STEPS} steps, {W1_SEGMENTS} x {DP_SPS} hier steps, "
+          f"{NUTS_CHAINS} chains x {W1_NUTS} + {W1_NUTS}); kernel launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items())
+          + f"; phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def _rank_main(rank, tmp, device="cuda"):
+    """One rank of phase 27 (run in a process of its own): joins a gloo
+    world of ``RANKS`` ranks that share cuda:0, runs the sharded paths,
+    and writes its outputs to ``tmp/rank{rank}.npz``."""
+    import traceback
+
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, ROOT)
+    from bayesic_tpu_torch.parallel import launcher
+
+    try:
+        launcher.initialize(init_method=f"file://{tmp}/rendezvous",
+                            world_size=RANKS, rank=rank, local_rank=0,
+                            device=device, backend="gloo",
+                            timeout=RANK_TIMEOUT)
+        dev = torch.device(device, 0) if device == "cuda" \
+            else torch.device(device)
+        np.savez(os.path.join(tmp, f"rank{rank}.npz"),
+                 **_rank_work(torch, np, rank, tmp, dev))
+    except Exception:
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)     # at once: the other rank's collectives time out
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def _rank_work(torch, np, rank, tmp, dev):
+    from bayesic_tpu_torch.models import dlgm
+    from bayesic_tpu_torch.models import hier_logistic as hl
+    from bayesic_tpu_torch.models import linreg as lr
+    from bayesic_tpu_torch.ops import fused_hier as fh
+    from bayesic_tpu_torch.ops import fused_linreg as fl
+    from bayesic_tpu_torch.ops import fused_nuts as fn
+    from bayesic_tpu_torch.parallel import make_mesh
+    from bayesic_tpu_torch.parallel.dp_fused import (dp_gram,
+                                                     segment_averaged_train)
+    from bayesic_tpu_torch.parallel.mesh import local_slice, shard_leading
+
+    data = make_mesh({"data": RANKS})
+    chain = shard_leading(make_mesh({"chain": RANKS}), "chain")
+    out = {}
+
+    def shard(a):
+        start, per = local_slice(a.shape[0], RANKS, rank)
+        return a[start:start + per]
+
+    def timed(fn_):
+        return _timed(torch, dev, fn_)
+
+    # each path runs once short and untimed first: its first call pays the
+    # set-up (model build, first kernels, first collectives) that the
+    # single-process runs, warmed by the earlier phases, do not pay
+    # the hier trainer, segment averaged
+    cfg = hl.Config()
+    rows, _ = _hier_dp_rows(np, hl, cfg, RANKS)
+    local = tuple(torch.as_tensor(shard(r), device=dev) for r in rows)
+    total = DP_SEGMENTS * DP_SPS
+    train = _hier_segment_train(fh, rows[0].shape[0], cfg.batch_size,
+                                cfg.lr, total)
+    start = fh.init_params(cfg.num_groups, cfg.num_features, device=dev)
+
+    def hier_fit(segments):
+        return segment_averaged_train(
+            train, start, local, data, segments=segments,
+            steps_per_segment=DP_SPS, seed=3, hierarchical_scales=True)
+
+    hier_fit(2)
+    fh.LAUNCHES = 0
+    (st, losses), out["hier_s"] = timed(lambda: hier_fit(DP_SEGMENTS))
+    out["hier_launches"] = fh.LAUNCHES
+    out["hier_loc"], out["hier_ls"] = st[0].cpu().numpy(), \
+        st[1].cpu().numpy()
+    out["hier_losses"] = losses.cpu().numpy()
+
+    # linreg: the Gram of every rank's rows, then the replicated trainer
+    lcfg = lr.Config(**LINREG, device=str(dev))
+    xn, yn, _, _ = lr.make_data(lcfg)
+    xl, yl = (torch.as_tensor(shard(a), device=dev) for a in (xn, yn))
+
+    def linreg_fit(steps):
+        g = dp_gram(xl, yl, data)
+        return fl.fused_train(g, lcfg.n, lcfg.noise,
+                              *fl.init_params(lcfg.dim, device=dev),
+                              steps=steps, lr0=lcfg.lr, seed=DP_LINREG_SEED)
+
+    linreg_fit(100)
+    fl.LAUNCHES = 0
+    (loc, ls, _, _), out["linreg_s"] = timed(
+        lambda: linreg_fit(LINREG_FUSED_STEPS))
+    out["linreg_launches"] = fl.LAUNCHES
+    out["linreg_loc"], out["linreg_ls"] = loc.cpu().numpy(), \
+        ls.cpu().numpy()
+
+    # the DLGM's generic SVI at the bench, its rows sharded
+    bcfg = dlgm.Config(**BENCH, steps=DP_DLGM_STEPS, lr=LR, seed=0,
+                       device=dev.type)
+
+    def dlgm_fit(cfg_):
+        return dlgm.run_svi(cfg_, torch.Generator(dev).manual_seed(0),
+                            data_sharding=shard_leading(data, "data"))
+
+    dlgm_fit(dataclasses.replace(bcfg, steps=2))
+    r, out["dlgm_s"] = timed(lambda: dlgm_fit(bcfg))
+    out["dlgm_losses"] = r["losses"]
+
+    # the DLGM's fused NUTS, the chains sharded, under phase 27's decoder
+    saved = torch.load(os.path.join(tmp, "nuts.pt"), weights_only=True)
+    ncfg = dlgm.Config(**NUTS_SVI, num_chains=NUTS_CHAINS,
+                       num_warmup=NUTS_WARMUP, num_samples=NUTS_SAMPLES,
+                       seed=0, device=dev.type)
+    dec = dlgm.Decoder(ncfg.latent_dim, ncfg.hidden, ncfg.data_dim).to(dev)
+    dparams = {k: v.to(dev) for k, v in saved["decoder"].items()}
+
+    def nuts_fit(cfg_, sharding=chain):
+        return dlgm.local_posterior_mcmc_fused(
+            cfg_, dec, dparams, float(saved["sigma"]), saved["x"].to(dev),
+            max_doublings=NUTS_K, run_seed=2, chain_sharding=sharding)
+
+    nuts_fit(dataclasses.replace(ncfg, num_warmup=2, num_samples=2))
+    fn.LAUNCHES = 0
+    (_, res), out["nuts_s"] = timed(lambda: nuts_fit(ncfg))
+    out["nuts_launches"] = fn.LAUNCHES
+    out["nuts_q"] = res.unconstrained.cpu().numpy()
+    out["nuts_chains"] = res.chains.cpu().numpy()
+    out["nuts_step_size"] = res.extra["step_size"].cpu().numpy()
+    out["nuts_inv_mass"] = res.extra["inv_mass"].cpu().numpy()
+
+    # the control: a rank's share of the hier and NUTS work unsharded (no
+    # collective), both ranks at once, which is what sharing the card
+    # costs them
+    import torch.distributed as dist
+
+    def alone_hier():
+        st_ = start
+        for s_ in range(DP_SEGMENTS):
+            st_, _ = train(local, st_, s_ + 1, s_ * DP_SPS)
+        return st_
+
+    dist.barrier()
+    _, out["hier_alone_s"] = timed(alone_hier)
+    dist.barrier()
+    _, out["nuts_alone_s"] = timed(lambda: nuts_fit(dataclasses.replace(
+        ncfg, num_chains=NUTS_CHAINS // RANKS), None))
+    return out
+
+
+def _dp_ranks_phase(torch, np, card, dev):
+    """Phase 27: two ranks on the one card (gloo), at the bench shapes,
+    against the single-process paths run first in this process."""
+    import tempfile
+
+    from bayesic_tpu_torch.models import dlgm
+    from bayesic_tpu_torch.models import hier_logistic as hl
+    from bayesic_tpu_torch.models import linreg as lr
+    from bayesic_tpu_torch.ops import fused_hier as fh
+    from bayesic_tpu_torch.ops import fused_linreg as fl
+    from bayesic_tpu_torch.utils import diagnostics as diag
+
+    def timed(fn_):
+        return _timed(torch, dev, fn_)
+
+    t_phase = time.perf_counter()
+    # the single-process paths
+    cfg = hl.Config()
+    rows, truth = _hier_dp_rows(np, hl, cfg, RANKS)
+    trows = tuple(torch.as_tensor(r, device=dev) for r in rows)
+    total = DP_SEGMENTS * DP_SPS
+    (h_loc, h_ls, _, _), hier_s = timed(lambda: fh.fused_train(
+        *trows, *fh.init_params(cfg.num_groups, cfg.num_features,
+                                device=dev)[:2],
+        steps=total, lr0=cfg.lr, lr_total=total, seed=11,
+        batch=cfg.batch_size))
+    lcfg = lr.Config(**LINREG, device=str(dev))
+    xn, yn, _, _ = lr.make_data(lcfg)
+    x, y = (torch.as_tensor(a, device=dev) for a in (xn, yn))
+    (l_loc, _, _, _), linreg_s = timed(lambda: fl.fused_train(
+        fl.gram(x, y), lcfg.n, lcfg.noise,
+        *fl.init_params(lcfg.dim, device=dev), steps=LINREG_FUSED_STEPS,
+        lr0=lcfg.lr, seed=DP_LINREG_SEED))
+    analytic, _ = lr.analytic_posterior(xn, yn, lcfg.noise)
+    bcfg = dlgm.Config(**BENCH, steps=DP_DLGM_STEPS, lr=LR, seed=0,
+                       device=dev.type)
+    # warmed as the ranks warm their paths (_rank_work)
+    dlgm.run_svi(dataclasses.replace(bcfg, steps=2))
+    ref_dlgm, dlgm_s = timed(lambda: dlgm.run_svi(
+        bcfg, torch.Generator(dev).manual_seed(0)))
+    trained = dlgm.run_svi(dlgm.Config(**NUTS_SVI, seed=0, device=dev.type))
+    ncfg = dlgm.Config(**NUTS_SVI, num_chains=NUTS_CHAINS,
+                       num_warmup=NUTS_WARMUP, num_samples=NUTS_SAMPLES,
+                       seed=0, device=dev.type)
+    xb = trained["x"][:NUTS_ROWS]
+
+    def nuts_fit(cfg_):
+        return dlgm.local_posterior_mcmc_fused(
+            cfg_, trained["decoder"], trained["decoder_params"],
+            trained["sigma_x"], xb, max_doublings=NUTS_K, run_seed=2)
+
+    nuts_fit(dataclasses.replace(ncfg, num_warmup=2, num_samples=2))
+    (_, ref_nuts), nuts_s = timed(lambda: nuts_fit(ncfg))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"decoder": {k: v.cpu() for k, v
+                                in trained["decoder_params"].items()},
+                    "sigma": torch.tensor(trained["sigma_x"],
+                                          dtype=torch.float64),
+                    "x": xb.cpu()}, os.path.join(tmp, "nuts.pt"))
+        t = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke; chip_smoke._rank_main({r}, {tmp!r}, "
+             f"{dev.type!r})"],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(RANKS)]
+        errs = []
+        try:
+            for p in procs:
+                left = RANK_DEADLINE - (time.perf_counter() - t)
+                errs.append(p.communicate(timeout=max(left, 1.0))[1])
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"phase 27: the ranks passed the "
+                                 f"{RANK_DEADLINE} s deadline") from None
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks_s = time.perf_counter() - t
+        bad = [(r, p.returncode, e[-3000:]) for r, (p, e)
+               in enumerate(zip(procs, errs)) if p.returncode]
+        if bad:
+            raise AssertionError(f"phase 27: ranks failed: {bad}")
+        outs = []
+        for r in range(RANKS):
+            with np.load(os.path.join(tmp, f"rank{r}.npz")) as f:
+                outs.append(dict(f))
+
+    # replicated results: the same bits on every rank
+    for k in ("hier_loc", "hier_ls", "hier_losses", "linreg_loc",
+              "dlgm_losses", "nuts_step_size", "nuts_inv_mass"):
+        if not all(np.array_equal(o[k], outs[0][k]) for o in outs):
+            raise AssertionError(f"phase 27: {k} differs across ranks")
+    launches = {k: [int(o[f"{k}_launches"]) for o in outs]
+                for k in ("hier", "linreg", "nuts")}
+    want = {"hier": DP_SEGMENTS, "linreg": 1,
+            "nuts": NUTS_WARMUP + NUTS_SAMPLES}
+    if any(c != [want[k]] * RANKS for k, c in launches.items()):
+        raise AssertionError(f"phase 27: kernel launches a rank {launches}, "
+                             f"want {want}")
+    out = outs[0]
+    lines = []
+
+    # hier: JAX's limits against the single-process trainer, phase 13's
+    # against the truth
+    j = cfg.num_groups
+    m_dp, m_1 = out["hier_loc"], h_loc.cpu().numpy()
+    gaps = {"mu": abs(m_dp[0] - m_1[0]),
+            "tau": abs(np.exp(m_dp[1]) - np.exp(m_1[1])),
+            "beta": np.abs(m_dp[2 + j:] - m_1[2 + j:]).max(),
+            "theta": np.abs(m_dp[2:2 + j] - m_1[2:2 + j]).max()}
+    lim = {"mu": 0.15, "tau": 0.3, "beta": 0.15, "theta": 0.35}
+    truth_gap = {"mu": abs(m_dp[0] - truth["mu"]),
+                 "beta": np.abs(m_dp[2 + j:] - truth["beta"]).max()}
+    hl_losses = out["hier_losses"]
+    if any(gaps[k] > lim[k] for k in lim) or truth_gap["mu"] > 0.5 \
+            or truth_gap["beta"] > 0.15 or not hl_losses[-1] < hl_losses[0]:
+        raise AssertionError(f"phase 27: hier gaps {gaps} (limits {lim}), "
+                             f"to the truth {truth_gap} (0.5, 0.15)")
+    lines.append(
+        f"hier segment_averaged_train {rows[0].shape[0]} rows, "
+        f"{DP_SEGMENTS} x {DP_SPS} steps: gaps to one process's "
+        + ", ".join(f"{k} {v:.4f}" for k, v in gaps.items())
+        + f" (limits {lim}), to the truth mu {truth_gap['mu']:.4f} beta "
+        f"{truth_gap['beta']:.4f} (0.5, 0.15)")
+
+    # linreg: phase 22's gate
+    lin_err = float(np.abs(out["linreg_loc"] - analytic).max())
+    one_err = float(np.abs(l_loc.cpu().numpy() - analytic).max())
+    if not lin_err < 0.02:
+        raise AssertionError(f"phase 27: linreg mean off the analytic by "
+                             f"{lin_err} (limit 0.02)")
+    lines.append(f"linreg dp_gram + fused_train: max |mean - analytic| "
+                 f"{lin_err:.5f} (one process {one_err:.5f}; limit 0.02)")
+
+    # the DLGM's generic SVI: the losses at rtol 2e-4
+    rel = np.abs(out["dlgm_losses"] - ref_dlgm["losses"]) \
+        / np.abs(ref_dlgm["losses"])
+    if not rel.max() < 2e-4:
+        raise AssertionError(f"phase 27: DLGM losses rel err {rel.max()}")
+    lines.append(f"DLGM run_svi(data_sharding=) at the bench, "
+                 f"{DP_DLGM_STEPS} steps: losses max rel err "
+                 f"{rel.max():.2e} (limit 2e-4)")
+
+    # the DLGM's fused NUTS: bit for bit, else phase 10's gates
+    q = torch.as_tensor(np.concatenate([o["nuts_q"] for o in outs]))
+    chains = np.concatenate([o["nuts_chains"] for o in outs])
+    ref_q = ref_nuts.unconstrained.cpu()
+    if not np.array_equal(chains, np.arange(NUTS_CHAINS)):
+        raise AssertionError(f"phase 27: the ranks ran chains {chains}")
+    bits = torch.equal(q, ref_q) and np.array_equal(
+        out["nuts_step_size"], ref_nuts.extra["step_size"].cpu().numpy()) \
+        and np.array_equal(out["nuts_inv_mass"],
+                           ref_nuts.extra["inv_mass"].cpu().numpy())
+    if bits:
+        lines.append(f"DLGM fused NUTS {NUTS_CHAINS} chains over {RANKS} "
+                     f"ranks, {NUTS_WARMUP} + {NUTS_SAMPLES}: equal to one "
+                     f"process bit for bit (samples, step size, mass)")
+    else:
+        rhat = float(diag.split_rhat(q).max())
+        ratio = _nuts_gap(diag, q, ref_q)
+        if not rhat < 1.01 or max(ratio.values()) > 1:
+            raise AssertionError(f"phase 27: NUTS not bit for bit, R-hat "
+                                 f"{rhat}, gap / bound {ratio}")
+        lines.append(f"DLGM fused NUTS: NOT bit for bit, max split-R-hat "
+                     f"{rhat:.4f}, max |gap| / 5 MCSE {ratio}")
+
+    # rates: two ranks share the one card, so no scaling efficiency
+    slow = {k: max(float(o[f"{k}_s"]) for o in outs)
+            for k in ("hier", "linreg", "dlgm", "nuts")}
+    work = {"hier": (total, "steps"), "linreg": (LINREG_FUSED_STEPS, "steps"),
+            "dlgm": (DP_DLGM_STEPS, "steps"),
+            "nuts": (NUTS_WARMUP + NUTS_SAMPLES, "transitions")}
+    single = {"hier": hier_s, "linreg": linreg_s, "dlgm": dlgm_s,
+              "nuts": nuts_s}
+    rates = "; ".join(
+        f"{k} {n / slow[k]:.1f} {u}/s over {RANKS} ranks against "
+        f"{n / single[k]:.1f} in one process" for k, (n, u) in work.items())
+    print(f"phase 27 two ranks on one card (gloo) ok [{card}]: "
+          + "; ".join(lines) + f"; kernel launches a rank {launches}",
+          flush=True)
+    alone = {k: max(float(o[f"{k}_alone_s"]) for o in outs)
+             for k in ("hier", "nuts")}
+    rates += "; control, a rank's share unsharded with no collective, " \
+        "both ranks at once: " + "; ".join(
+            f"{k} {work[k][0] / alone[k]:.1f} {work[k][1]}/s"
+            for k in alone)
+    print(f"phase 27 rates [{card}]: {rates} (each sharded call's wall on "
+          f"its slower rank, the DLGM's including its data; {RANKS} ranks "
+          f"share one card, so the ratio is not a scaling efficiency); "
+          f"the ranks' processes {ranks_s:.1f} s in all, the phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main():
     import numpy as np
     import torch
@@ -2433,6 +2996,8 @@ def main():
     records += _gmm_phases(torch, np, card, dev)
     records += _linreg_phases(torch, np, card, dev)
     records += _mf_phases(torch, np, card, dev)
+    _dp_world1_phase(torch, np, card, dev)
+    _dp_ranks_phase(torch, np, card, dev)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": records}))

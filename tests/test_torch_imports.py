@@ -1,4 +1,5 @@
-"""The port and its chip script import no JAX, flax or optax (AST scan)."""
+"""The port, its chip script and the worker of its multi-rank tests import
+no JAX, flax or optax (AST scan)."""
 
 import ast
 from pathlib import Path
@@ -7,7 +8,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "bayesic_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_parallel_worker.py"]
 BANNED = {"jax", "jaxlib", "flax", "optax", "bayesic_tpu"}
 
 

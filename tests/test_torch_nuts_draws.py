@@ -159,3 +159,33 @@ def test_keyed_kernel_matches_injected_kernel(model, kk):
         for i, (a, b, c) in enumerate(zip(got, want, again)):
             assert torch.equal(a, b), (i, float((a - b).abs().max()))
             assert torch.equal(a, c), i
+
+
+@pytest.mark.gpu
+def test_keyed_chain_base_on_card():
+    """On a CUDA card: the DLGM keyed kernel launched on the upper half of
+    the chains with ``chain0`` = the half draws those chains' streams, so
+    its draws and outputs equal the upper half of the full-width launch's
+    bit for bit (a chain-sharded rank's launch)."""
+    dev = _card()
+    n, half = 2 * C, C
+    q, extra = _dlgm(5)
+    q = torch.cat([q, 0.5 * q.flip(0)]).to(dev)
+    extra = [t.to(dev) for t in extra]
+    w, xb = extra[:4], extra[4]
+    pe, grad = tfn.fused_nuts_potential(q, *w, xb, sigma=0.7)
+    ones = torch.ones(q.shape[1], device=dev)
+    kw = dict(sigma=0.7, max_doublings=K)
+    for key in KEYS:
+        drawn = tfn.fused_nuts_draws(key, half, q.shape[1], K, dev,
+                                     chain0=half)
+        full = nuts_streams(key, n, q.shape[1], K, dev)
+        whole = tfn.fused_nuts_transition_keyed(q, pe, grad, key, 0.1, ones,
+                                                *w, xb, **kw)
+        upper = tfn.fused_nuts_transition_keyed(
+            q[half:], pe[half:], grad[half:], key, 0.1, ones, *w, xb,
+            chain0=half, **kw)
+        for i, (a, b) in enumerate(zip((*drawn, *upper),
+                                       (*full, *whole))):
+            assert torch.equal(a, b[half:]), (i, float(
+                (a - b[half:]).abs().max()))

@@ -228,14 +228,15 @@ def adapted_state(torch, dev):
         .contiguous()
 
 
-def keyed_entry(lib, n_rows, n_shape):
+def keyed_entry(lib, n_rows, n_shape, n_key):
     """The keyed transition entry of a built library, for ``n_rows`` row
-    arrays and ``n_shape`` int arguments."""
+    arrays, ``n_shape`` int arguments and ``n_key`` key words (4 with the
+    chain base, 3 before it)."""
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     entry = lib.fused_hier_nuts_transition_keyed
     entry.argtypes = ([vp] * (13 + n_rows) + [i32] * n_shape + [f32]
-                      + [ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_uint,
-                         vp])
+                      + [ctypes.c_ulonglong] + [ctypes.c_uint] * (n_key - 1)
+                      + [vp])
     entry.restype = i32
     return entry
 
@@ -304,11 +305,14 @@ def main():
         rows = {name: (data.xc, data.ybits, data.chunks, data.chunk_off)
                 for name in built}
         shape = {name: (chains, j, f, kk, depth, nch) for name in built}
+        key_of = {name: key for name in built}
         if opt.parent:
             built["parent (the commit before)"] = parent
             rows["parent (the commit before)"] = (data.x, data.y,
                                                   data.offsets)
             shape["parent (the commit before)"] = (chains, j, f, kk)
+            # the parent's keyed entry takes no chain base
+            key_of["parent (the commit before)"] = key[:3]
         # the launched instance's template arguments: threads, F, resident
         tmpl = {name: ",".join(
             [edits.get(THREADS, THREADS).split()[-1][:-1]] * 2
@@ -319,7 +323,7 @@ def main():
         for name, (so, _) in built.items():
             libs[name] = ctypes.CDLL(str(so))
             entry = keyed_entry(libs[name], len(rows[name]),
-                                len(shape[name]))
+                                len(shape[name]), len(key_of[name]))
             for state, eps in states.items():
                 scal = torch.empty((6, chains, 1), device=dev)
                 # q', pe', grad', accept, diverging, depth, steps, h0
@@ -329,7 +333,8 @@ def main():
                 def run(entry=entry, name=name, outs=outs, eps=eps):
                     err = entry(*map(_ptr, (q, pe, g, eps, inv_mass)),
                                 *map(_ptr, rows[name]), *map(_ptr, outs),
-                                *shape[name], 1000.0, *key, _stream(dev))
+                                *shape[name], 1000.0, *key_of[name],
+                                _stream(dev))
                     if err:
                         raise RuntimeError(f"{name}: launch failed: CUDA "
                                            f"error {err}")
