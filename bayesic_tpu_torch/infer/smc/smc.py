@@ -22,6 +22,20 @@ the MH log-uniforms (N, K) from 23-bit uniforms (strictly inside (0, 1)).
 Every mutation path (the generic engine, the hand-fused likelihood hooks
 and a whole-stage ``batched_mutation``) consumes the same draws, so one
 seed gives common random numbers across the paths.
+
+``particle_sharding`` splits the particles over a mesh axis of P ranks:
+each rank holds N / P of them, by their global indices.  Every rank draws
+the whole population's initial particles and each stage's draws from one
+generator seeded alike and keeps its rows, so the streams are those of
+one process.  The stage's reductions (the bisection, the evidence
+increment, the ESS test, the ancestors, the precondition moments and the
+mutation's mean accept) run on the whole population: each per-particle
+vector is all-gathered in rank order where it is needed, and every rank
+runs the one-process arithmetic on the same full vectors, as XLA's
+partitioner does for the JAX package.  The carried log-weights are
+therefore replicated, the ranks read the same beta and leave the loop
+together, and the resampled rows move by ``parallel.resample``'s ring on
+the one-process ancestors.
 """
 
 from __future__ import annotations
@@ -32,13 +46,14 @@ from typing import NamedTuple
 import torch
 
 from ...core.logjoint import build_logjoint, default_device, init_population
-from ...parallel.resample import (effective_sample_size,
+from ...parallel.mesh import all_gather, axis_index, axis_size, local_slice
+from ...parallel.resample import (_ring_route, effective_sample_size,
                                   normalize_log_weights,
                                   systematic_ancestors)
 from ..mcmc.adapt import DualAveragingState, da_update
 from ..svi.guides import unraveler
 
-__all__ = ["SMC", "SMCResult", "stage_draws"]
+__all__ = ["SMC", "SMCResult", "stage_draws", "gather_particles"]
 
 
 class SMCResult(NamedTuple):
@@ -48,6 +63,25 @@ class SMCResult(NamedTuple):
     num_stages: int
     accept_rate: torch.Tensor    # final-stage mean accept probability
     unconstrained: torch.Tensor  # (N, dim)
+    # (stages, N) global: each stage's ancestor of every particle, its own
+    # index where the stage did not resample
+    ancestors: torch.Tensor = None
+
+
+def gather_particles(result: SMCResult, particle_sharding) -> SMCResult:
+    """Every rank's particles of a particle-sharded run, in global order,
+    on every rank (an all_gather of each per-particle array).  For the
+    predictive check and tests: a run at scale keeps its particles where
+    they ran."""
+    mesh, axis = particle_sharding
+
+    def g(x):
+        return all_gather(x, mesh, axis)
+
+    return result._replace(
+        particles={k: g(v) for k, v in result.particles.items()},
+        log_weights=g(result.log_weights),
+        unconstrained=g(result.unconstrained))
 
 
 class StageDraws(NamedTuple):
@@ -82,7 +116,10 @@ class SMC:
       final particles' log-likelihood for the next stage's reweight.
 
     After ``run``, :meth:`equal_weight_samples` gives plain posterior
-    draws."""
+    draws.  ``particle_sharding`` (a ``parallel.mesh.Sharding`` or ``(mesh,
+    axis)``) splits the particles over a mesh axis (see the module
+    docstring); the result then holds this rank's particles and log
+    weights, and the hooks see this rank's rows."""
 
     @staticmethod
     def equal_weight_samples(result: SMCResult, u0, num_samples=None):
@@ -97,7 +134,7 @@ class SMC:
                  target_accept=0.65, model_args=(), model_kwargs=None,
                  batched_loglik=None, batched_loglik_grad=None,
                  batched_mutation=None, precondition=False, step_adapt="da",
-                 device=None):
+                 particle_sharding=None, device=None):
         self.model = model
         self.n = int(num_particles)
         self.ess_target = float(ess_target)
@@ -118,6 +155,13 @@ class SMC:
             raise ValueError(f"step_adapt must be 'da' or 'nudge', got "
                              f"{step_adapt!r}")
         self.step_adapt = step_adapt
+        self.particle_sharding = particle_sharding
+        self._rows = slice(0, self.n)
+        if particle_sharding is not None:
+            mesh, axis = particle_sharding
+            start, per = local_slice(self.n, axis_size(mesh, axis),
+                                     axis_index(mesh, axis))
+            self._rows = slice(start, start + per)
         self._model_args = tuple(model_args)
         self._model_kwargs = model_kwargs or {}
         self.device = default_device(device, self._model_args)
@@ -146,6 +190,23 @@ class SMC:
         self._batched_mutation = batched_mutation
 
     # ------------------------------------------------------------------
+    def _full(self, x):
+        """Every particle's rows of ``x``, in global order: gathered over
+        the particle axis when sharded."""
+        if self.particle_sharding is None:
+            return x
+        return all_gather(x, *self.particle_sharding)
+
+    def _take(self, q, anc):
+        """This rank's rows of the population resampled at the global
+        ancestors ``anc`` (N,): by the ring when sharded."""
+        if self.particle_sharding is None:
+            return q[anc]
+        per = q.shape[0]
+        mine = anc[self._rows]
+        return _ring_route(q, mine // per, mine % per,
+                           *self.particle_sharding)
+
     def _loglik(self, qs):
         if self._loglik_hook is not None:
             return self._loglik_hook(qs)
@@ -154,7 +215,7 @@ class SMC:
     def _init_particles(self, generator):
         u = init_population(self.model, self.info, self.n, *self._model_args,
                             rng_key=generator, **self._model_kwargs)
-        return self._ravel(u).to(torch.float32)
+        return self._ravel(u).to(torch.float32)[self._rows]
 
     def _next_beta(self, beta, loglik, log_w):
         """Bisection: the largest dbeta that keeps the conditional ESS,
@@ -224,10 +285,11 @@ class SMC:
             q = torch.where(take[:, None], qq, q)
             g = torch.where(take[:, None], gg, g)
             pe = torch.where(take, pe1, pe)
+            a_mean = self._full(a).mean()
             if self.step_adapt == "da":
-                da = da_update(da, a.mean(), target=self.target_accept,
+                da = da_update(da, a_mean, target=self.target_accept,
                                t0=2.0)
-            acc_sum = acc_sum + a.mean()
+            acc_sum = acc_sum + a_mean
         accept = acc_sum / self.mutation_steps
         if self.step_adapt == "da":
             next_step = torch.exp(da.log_step_avg)
@@ -237,45 +299,52 @@ class SMC:
         return q, accept, torch.clamp(next_step, 1e-5, 2.0)
 
     def stage(self, q, log_w, beta, ll, step_size, draws: StageDraws):
-        """One tempering stage.  ``ll`` is loglik(q) when a
-        ``batched_mutation`` keeps it current, else None (evaluated here).
-        Returns (q, log_w, beta', log evidence increment, step size, accept,
-        ll)."""
+        """One tempering stage.  ``q`` and ``ll`` are this rank's rows,
+        ``log_w`` and ``draws`` the whole population's.  ``ll`` is
+        loglik(q) when a ``batched_mutation`` keeps it current, else None
+        (evaluated here).  Returns (q, log_w, beta', log evidence
+        increment, step size, accept, ll, ancestors), the ancestors global
+        and the particle's own index where the stage did not resample."""
         if ll is None:
             ll = self._loglik(q)
-        new_beta = self._next_beta(beta, ll, log_w)
+        ll_all = self._full(ll)
+        new_beta = self._next_beta(beta, ll_all, log_w)
         delta = new_beta - beta
         log_ev_inc = torch.logsumexp(normalize_log_weights(log_w)
-                                     + delta * ll, 0)
-        log_w = log_w + delta * ll
+                                     + delta * ll_all, 0)
+        log_w = log_w + delta * ll_all
         # resampling computed every stage, selected where the ESS is low
         do_res = effective_sample_size(log_w) \
             < self.resample_threshold * self.n
         anc = systematic_ancestors(draws.u0, log_w)
-        q = torch.where(do_res, q[anc], q)
-        ll = torch.where(do_res, ll[anc], ll)
+        q = torch.where(do_res, self._take(q, anc), q)
+        ll = torch.where(do_res, ll_all[anc[self._rows]], ll)
         log_w = torch.where(do_res, torch.zeros_like(log_w), log_w)
+        anc = torch.where(do_res, anc, torch.arange(self.n,
+                                                    device=anc.device))
         m_inv = None
         if self.precondition:
+            q_all = self._full(q)
             w_n = torch.exp(normalize_log_weights(log_w))
-            mean = torch.sum(w_n[:, None] * q, 0)
-            var = torch.sum(w_n[:, None] * (q - mean) ** 2, 0)
+            mean = torch.sum(w_n[:, None] * q_all, 0)
+            var = torch.sum(w_n[:, None] * (q_all - mean) ** 2, 0)
             m_inv = torch.clamp(var, 1e-8, 1e8)
+        mom, log_u = draws.mom[:, self._rows], draws.log_u[self._rows]
         if self._batched_mutation is not None:
             q, ll, accept, step_size = self._batched_mutation(
-                q, new_beta, step_size, m_inv, draws.mom, draws.log_u)
+                q, new_beta, step_size, m_inv, mom, log_u)
         else:
             q, accept, step_size = self._mutate(q, new_beta, step_size,
-                                                m_inv, draws.mom,
-                                                draws.log_u)
+                                                m_inv, mom, log_u)
             ll = None
-        return q, log_w, new_beta, log_ev_inc, step_size, accept, ll
+        return q, log_w, new_beta, log_ev_inc, step_size, accept, ll, anc
 
     # ------------------------------------------------------------------
     def run(self, seed) -> SMCResult:
         """Run the tempering loop.  ``seed`` is an int or a
         ``torch.Generator`` on the particles' device; it gives the initial
-        population and every stage's draws."""
+        population and every stage's draws (under ``particle_sharding``
+        the same on every rank)."""
         gen = seed if isinstance(seed, torch.Generator) else \
             torch.Generator(device=self.device).manual_seed(int(seed))
         f32 = dict(dtype=torch.float32, device=self.device)
@@ -286,15 +355,16 @@ class SMC:
         log_ev = torch.zeros((), **f32)
         step = torch.tensor(self.init_step_size, **f32)
         accept = torch.ones((), **f32)
-        stage = 0
+        stage, ancestors = 0, []
         while stage < self.max_stages:
             draws = stage_draws(gen, self.n, self.dim, self.mutation_steps)
-            q, log_w, beta, inc, step, accept, ll = self.stage(
+            q, log_w, beta, inc, step, accept, ll, anc = self.stage(
                 q, log_w, beta, ll, step, draws)
             log_ev = log_ev + inc
+            ancestors.append(anc)
             stage += 1
             if float(beta) >= 1.0:           # the stage's one host read
                 break
         return SMCResult(self._constrain(self._unravel(q)),
-                         normalize_log_weights(log_w), log_ev, stage,
-                         accept, q)
+                         normalize_log_weights(log_w)[self._rows], log_ev,
+                         stage, accept, q, torch.stack(ancestors))

@@ -21,7 +21,9 @@ Four ways through ``infer.smc.SMC`` (``run``'s ``mode``):
 
 An empty ``Config.mode`` picks ``"kernels"`` on a CUDA device and
 ``"generic"`` elsewhere, as the JAX package picks its Pallas kernels on a
-TPU.
+TPU.  ``run(particle_sharding=)`` splits the particles over a mesh axis in
+every mode (``infer.smc``); each rank then runs the hooks' kernels on its
+own rows, and every rank returns the same figures.
 
 Run: ``python -m bayesic_tpu_torch.models.gmm --smoke true`` (on the card;
 add ``--device cpu`` for the CPU).
@@ -36,7 +38,7 @@ import torch
 
 from .. import dist
 from ..core import sample
-from ..infer.smc import SMC
+from ..infer.smc import SMC, gather_particles
 from ..utils.config import dump_config, parse_config
 from .common import bench_line, timed_steps
 
@@ -130,22 +132,26 @@ def make_batched_loglik_grad(info, unravel, ravel, x):
     return loglik_vg
 
 
-def make_batched_mutation(cfg: Config, x, target_accept=0.65):
+def make_batched_mutation(cfg: Config, x, target_accept=0.65,
+                          particle_sharding=None):
     """The whole-stage fused mutation (``ops/fused_smc_gmm``) as SMC's
     ``batched_mutation``."""
     from ..ops.fused_smc_gmm import make_batched_mutation as _mk
 
     return _mk(x, cfg.num_components, cfg.data_dim, kmut=cfg.mutation_steps,
-               lsteps=cfg.leapfrog_steps, target_accept=target_accept)
+               lsteps=cfg.leapfrog_steps, target_accept=target_accept,
+               particle_sharding=particle_sharding)
 
 
-def make_smc(cfg: Config, x, mode, **smc_kwargs):
-    """The SMC sampler of one mode (``MODES``) on x's device."""
+def make_smc(cfg: Config, x, mode, particle_sharding=None, **smc_kwargs):
+    """The SMC sampler of one mode (``MODES``) on x's device, its particles
+    split over ``particle_sharding``'s axis when given."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     kw = dict(num_particles=cfg.num_particles,
               mutation_steps=cfg.mutation_steps,
-              hmc_leapfrog_steps=cfg.leapfrog_steps, device=x.device)
+              hmc_leapfrog_steps=cfg.leapfrog_steps, device=x.device,
+              particle_sharding=particle_sharding)
     kw.update(smc_kwargs)
     model = make_model(cfg, x)
     smc = SMC(model, **kw)
@@ -157,7 +163,7 @@ def make_smc(cfg: Config, x, mode, **smc_kwargs):
             smc.info, smc._unravel, smc._ravel, x)
     elif mode == "fused":
         hooks = {"batched_mutation": make_batched_mutation(
-            cfg, x, kw.get("target_accept", 0.65))}
+            cfg, x, kw.get("target_accept", 0.65), particle_sharding)}
     return SMC(model, **kw, **hooks)
 
 
@@ -189,9 +195,11 @@ def predictive_loglik(res, x, cfg, num_particles_eval=256):
     return float(avg.mean())
 
 
-def run(cfg: Config, seed=None):
+def run(cfg: Config, seed=None, particle_sharding=None):
     """One SMC fit on ``cfg.device`` in ``cfg.mode``; ``seed`` (an int or
-    a ``torch.Generator``) defaults to ``cfg.seed``."""
+    a ``torch.Generator``) defaults to ``cfg.seed``.  Under
+    ``particle_sharding`` the result holds this rank's particles, and the
+    predictive check gathers the whole final population once."""
     if cfg.smoke:
         cfg = dataclasses.replace(cfg, num_data=200, num_particles=512,
                                   mutation_steps=2, leapfrog_steps=3)
@@ -199,7 +207,7 @@ def run(cfg: Config, seed=None):
     mode = cfg.mode or ("kernels" if device.type == "cuda" else "generic")
     xn, truth = make_data(cfg)
     x = torch.as_tensor(xn, device=device)
-    smc = make_smc(cfg, x, mode)
+    smc = make_smc(cfg, x, mode, particle_sharding)
     seed = cfg.seed if seed is None else seed
     if cfg.bench:
         res, dt = timed_steps(lambda: smc.run(seed))
@@ -210,7 +218,8 @@ def run(cfg: Config, seed=None):
                    device=str(device))
     else:
         res = smc.run(seed)
-    pred = predictive_loglik(res, x, cfg)
+    pred = predictive_loglik(res if particle_sharding is None else
+                             gather_particles(res, particle_sharding), x, cfg)
     ref = _true_loglik(xn, truth)
     return {
         "pred_loglik": pred,

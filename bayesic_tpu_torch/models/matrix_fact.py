@@ -25,9 +25,15 @@ log-likelihood is closed form in q's first and second moments, and the KL
 terms are analytic: the ELBO is deterministic (zero gradient variance),
 with the mini-batch estimator's optimum.
 
-Not ported yet: the ``data_file`` path, which needs the native ratings
-loader (``bayesic_tpu/io``), and the mesh-sharded dense path (ROADMAP
-Queue 1 items 12 and 13).
+The item-sharded dense path (``run_dense_sharded``): the cell grid is
+additive over item columns, so each rank of a mesh axis holds one column
+slice of (cnt, rsum) and the item-side guide params (v, bi), and forms
+only its (U, I / P) slice of the mean and variance fields.  One
+all-reduce a step sums the loss and the replicated sites' gradients.
+
+``Config.data_file`` reads the ratings from a file in the JAX package's
+format (``io.ratings``), each process its own contiguous shard; a missing
+file is generated from the synthetic recipe and written first.
 
 Run: ``python -m bayesic_tpu_torch.models.matrix_fact --smoke true`` (on
 the card; add ``--device cpu`` for the CPU).
@@ -47,11 +53,16 @@ from ..infer.svi import SVI, Adam, MeanFieldGuide, cosine_decay_schedule
 from ..infer.svi.svi import tree_map
 from ..ops.mf_dense import PRIORS
 from ..ops.mf_dense import kl_normal as _kl_normal
+from ..parallel.mesh import (Sharding, all_gather, axis_index, axis_size,
+                             local_slice, psum)
 from ..utils.config import dump_config, parse_config
 from .common import bench_line, timed_steps
 
 __all__ = ["Config", "make_data", "make_model", "dense_stats", "dense_init",
-           "expected_loglik", "dense_neg_elbo", "run_dense", "run", "main"]
+           "expected_loglik", "dense_neg_elbo", "run_dense",
+           "dense_param_specs", "dense_neg_elbo_sharded",
+           "dense_value_and_grad_sharded", "run_dense_sharded", "run",
+           "main"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +78,7 @@ class Config:
     lr: float = 0.02
     smoke: bool = False
     bench: bool = False
-    data_file: str = ""     # the native loader's file; not ported yet
+    data_file: str = ""     # a ratings file (io.ratings); written if missing
     device: str = "cuda"
 
 
@@ -78,11 +89,34 @@ _SMOKE = dict(num_users=50, num_items=30, num_factors=4, num_ratings=5000,
 def make_data(cfg: Config):
     """``(users (R,) int32, items (R,) int32, ratings (R,) float32,
     truth)`` as numpy: the JAX package's synthetic recipe, so both make
-    identical data."""
+    identical data; from ``cfg.data_file`` when given (truth None)."""
     if cfg.data_file:
-        raise NotImplementedError(
-            "data_file needs the native ratings loader, not ported yet "
-            "(ROADMAP Queue 1 item 12)")
+        return _data_from_file(cfg)
+    return _synthetic_data(cfg)
+
+
+def _data_from_file(cfg: Config, shard=True):
+    """This process's shard of the file's ratings, by the JAX package's
+    arithmetic: per = n // processes rows from rank * per (the last n %
+    processes rows are read by none); every row with ``shard=False``.  A
+    missing file is generated from the synthetic recipe and written
+    first."""
+    import os
+
+    from ..io import RatingsDataset, write_ratings
+    from ..parallel.launcher import _world
+
+    if not os.path.exists(cfg.data_file):
+        users, items, r, _ = _synthetic_data(cfg)
+        write_ratings(cfg.data_file, users, items, r)
+    world, rank = _world() if shard else (1, 0)
+    with RatingsDataset(cfg.data_file) as ds:
+        per = len(ds) // world
+        u, i, r = ds.read_shard(rank * per, per)
+    return u, i, r, None
+
+
+def _synthetic_data(cfg: Config):
     rng = np.random.default_rng(cfg.seed)
     u_true = rng.normal(0, 0.5, (cfg.num_users, cfg.num_factors)) \
         .astype(np.float32)
@@ -261,6 +295,122 @@ def run_dense(cfg: Config, generator=None, data=None, params=None):
     }
 
 
+# ---------------------------------------------------------------------------
+# the item-sharded dense path
+# ---------------------------------------------------------------------------
+
+_ITEM_SHARDED = ("v", "bi")     # sites with a leading num_items dimension
+
+
+def dense_param_specs(mesh, axis="items"):
+    """``{site: Sharding}`` for the dense guide params: the item-side
+    sites (v, bi) split on their leading dimension over ``axis``, the rest
+    replicated (``Sharding(mesh, None)``)."""
+    return {site: Sharding(mesh, axis if site in _ITEM_SHARDED else None)
+            for site in PRIORS}
+
+
+def dense_neg_elbo_sharded(mesh, sqsum, n_ratings, noise, axis="items"):
+    """``loss_fn(params, cnt_l, rsum_l)``: this rank's term of
+    ``dense_neg_elbo``, whose sum over ``axis`` is the whole -ELBO.
+    ``cnt_l`` and ``rsum_l`` are the rank's (U, I / P) column slices,
+    ``params`` hold the rank's rows of v and bi and the replicated u, bu
+    and m.  The term is the local cells' expected log-likelihood with
+    sqsum / P and n_ratings / P, the item-side KL, and the replicated KL
+    divided by P, summed in ``dense_neg_elbo``'s site order (with one rank
+    its bits).  ``dense_value_and_grad_sharded`` sums the terms and the
+    replicated sites' gradients."""
+    ndev = axis_size(mesh, axis)
+    sqsum, n_ratings, noise = float(sqsum), float(n_ratings), float(noise)
+
+    def loss_fn(params, cnt_l, rsum_l):
+        ell = expected_loglik(params, cnt_l, rsum_l, sqsum / ndev,
+                              n_ratings / ndev, noise)
+        kl = sum(_kl_normal(*params[site], *prior)
+                 / (1 if site in _ITEM_SHARDED else ndev)
+                 for site, prior in PRIORS.items())
+        return kl - ell
+
+    return loss_fn
+
+
+def dense_value_and_grad_sharded(loss_fn, params, cnt_l, rsum_l, mesh,
+                                 axis="items"):
+    """(-ELBO, gradients) of the item-sharded objective, equal on every
+    rank: autograd of this rank's term, then one all-reduce over ``axis``
+    of the term and of the replicated sites' gradients (the transpose of
+    the JAX package's psum inside ``shard_map``).  The item-side
+    gradients stay this rank's."""
+    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss = loss_fn(p, cnt_l, rsum_l)
+    leaves = [t for site in PRIORS for t in p[site]]
+    g = iter(torch.autograd.grad(loss, leaves))
+    grads = {site: (next(g), next(g)) for site in PRIORS}
+    summed = psum({"loss": loss.detach(),
+                   **{s: grads[s] for s in PRIORS
+                      if s not in _ITEM_SHARDED}}, mesh, axis)
+    return summed.pop("loss"), {**grads, **summed}
+
+
+def run_dense_sharded(cfg: Config, mesh, generator=None, data=None,
+                      axis="items"):
+    """``run_dense`` over the ranks of ``mesh``'s ``axis``: the same Adam,
+    schedule and step count, each rank holding its (U, I / P) column slice
+    of cnt and rsum and its rows of v and bi.  ``num_items`` must divide
+    by the axis size.  Returns ``run_dense``'s keys; ``params`` and
+    ``opt_state`` are this rank's, ``mean`` and ``std`` whole.  ``data``
+    (default: ``make_data``, or every row of ``cfg.data_file``) is the
+    whole data set on every rank: a rank needs every rating of its
+    columns."""
+    if cfg.smoke:
+        cfg = dataclasses.replace(cfg, **_SMOKE)
+    device = torch.device(cfg.device)
+    ndev, me = axis_size(mesh, axis), axis_index(mesh, axis)
+    start, per = local_slice(cfg.num_items, ndev, me)
+    if data is None:
+        data = _data_from_file(cfg, shard=False) if cfg.data_file \
+            else _synthetic_data(cfg)
+    users, items, ratings, _ = data
+    users, items, ratings = (np.asarray(a.cpu() if isinstance(a, torch.Tensor)
+                                        else a)
+                             for a in (users, items, ratings))
+    keep = (items >= start) & (items < start + per)
+    cnt, rsum, _, _ = dense_stats(users[keep], items[keep] - start,
+                                  ratings[keep], cfg.num_users, per, device)
+    r64 = ratings.astype(np.float64)
+    sqsum, n = float((r64 * r64).sum()), int(r64.shape[0])
+    rows = slice(start, start + per)
+    specs = dense_param_specs(mesh, axis)
+    params = {site: tuple(t[rows] if specs[site].axis else t for t in pair)
+              for site, pair in dense_init(cfg, generator,
+                                           device=device).items()}
+    loss_fn = dense_neg_elbo_sharded(mesh, sqsum, n, cfg.noise, axis)
+    opt = Adam(cosine_decay_schedule(cfg.lr, cfg.steps))
+    state = opt.init(params)
+    losses = []
+    for _ in range(cfg.steps):
+        loss, grads = dense_value_and_grad_sharded(loss_fn, params, cnt,
+                                                   rsum, mesh, axis)
+        params, state = opt.update(grads, state, params)
+        losses.append(loss)
+    losses = torch.stack(losses).cpu().numpy()
+    whole = {site: tuple(all_gather(t, mesh, axis) if specs[site].axis
+                         else t for t in pair)
+             for site, pair in params.items()}
+    mean_u = {k: v[0] for k, v in whole.items()}
+    idx = [torch.as_tensor(a, device=device) for a in (users, items, ratings)]
+    return {
+        "rmse": _rmse(mean_u, *idx),
+        "noise_floor": cfg.noise,
+        "final_elbo": -float(losses[-1]),
+        "losses": losses,
+        "params": params,
+        "opt_state": state,
+        "mean": mean_u,
+        "std": {k: torch.exp(v[1]) for k, v in whole.items()},
+    }
+
+
 def run(cfg: Config, generator=None):
     """Mini-batch SVI through the DSL on ``cfg.device``; ``generator`` (on
     that device) draws the mini-batches and the guide's noise."""
@@ -270,6 +420,8 @@ def run(cfg: Config, generator=None):
     gen = generator if generator is not None else \
         torch.Generator(device=device).manual_seed(cfg.seed)
     users, items, ratings, _ = _tensors(cfg)
+    if users.shape[0] != cfg.num_ratings:       # a file's own count
+        cfg = dataclasses.replace(cfg, num_ratings=int(users.shape[0]))
     svi = SVI(make_model(cfg), MeanFieldGuide,
               Adam(cosine_decay_schedule(cfg.lr, cfg.steps)),
               model_args=(users, items, ratings), device=device)

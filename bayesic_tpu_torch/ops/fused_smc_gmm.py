@@ -23,6 +23,9 @@ equal to ``core.logjoint``'s density parts, constants included.
 * ``make_batched_mutation`` returns the ``batched_mutation`` hook of
   ``infer.smc.SMC``: ``(q', ll', accept, next_step)``, ll' the final
   particles' log-likelihood, which the next stage's reweight reuses.
+  Under particle sharding each rank launches the kernel on its own rows
+  and the hook gathers the blocks' steps and the accepts over the axis
+  before it takes their means, so both are the one-process values.
 
 The 128-particle block is the adaptation's semantics, as on the TPU: a
 population that is not a multiple of 128 is padded with particles at q = 0
@@ -278,17 +281,31 @@ def fused_gmm_mutate(q, mom, log_u, beta, step_size, m_inv, x, *, k, d, kmut,
 # SMC integration
 # ---------------------------------------------------------------------------
 
-def make_batched_mutation(x, k, d, *, kmut, lsteps, target_accept=0.65):
+def make_batched_mutation(x, k, d, *, kmut, lsteps, target_accept=0.65,
+                          particle_sharding=None):
     """A ``batched_mutation(q, beta, step_size, m_inv, mom, log_u)`` for
     ``infer.smc.SMC``: ``mom`` (kmut, P, dim) standard normals and
     ``log_u`` (P, kmut) log-uniforms are the stage's draws; the momenta are
     scaled by 1/sqrt(m_inv) here.  Returns ``(q', ll', accept,
     next_step)``, next_step the geometric mean of the blocks' steps clipped
-    to [1e-5, 2]."""
+    to [1e-5, 2].  Under ``particle_sharding`` (``(mesh, axis)``) q holds
+    this rank's rows, a whole number of 128-particle blocks, and the
+    accepts and the blocks' steps are gathered over the axis before their
+    means are taken."""
+    from ..parallel.mesh import all_gather
+
     x = x.to(torch.float32).contiguous()
+
+    def full(t):
+        return t if particle_sharding is None else \
+            all_gather(t, *particle_sharding)
 
     def mutate(q, beta, step_size, m_inv, mom, log_u):
         dim = q.shape[1]
+        if particle_sharding is not None and q.shape[0] % PB:
+            raise ValueError(f"a rank's {q.shape[0]} particles are not a "
+                             f"whole number of {PB}-particle adaptation "
+                             f"blocks")
         if m_inv is None:
             m_inv = torch.ones(dim, dtype=torch.float32, device=q.device)
         mom = (mom / torch.sqrt(m_inv)).contiguous()
@@ -296,8 +313,8 @@ def make_batched_mutation(x, k, d, *, kmut, lsteps, target_accept=0.65):
             q.contiguous(), mom, log_u.contiguous(), beta, step_size,
             m_inv.contiguous(), x, k=k, d=d, kmut=kmut, lsteps=lsteps,
             target_accept=target_accept)
-        next_step = torch.clamp(torch.exp(torch.mean(torch.log(eps_b))),
-                                1e-5, 2.0)
-        return q2, ll, acc.mean(), next_step
+        next_step = torch.clamp(
+            torch.exp(torch.mean(torch.log(full(eps_b)))), 1e-5, 2.0)
+        return q2, ll, full(acc).mean(), next_step
 
     return mutate

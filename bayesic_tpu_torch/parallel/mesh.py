@@ -19,7 +19,10 @@ Under NCCL every collective runs on the card.  Under gloo (the CPU tests,
 and two ranks that share one card) the tensors stay where they are too:
 gloo takes all_reduce, broadcast and all_gather on CUDA tensors (it
 stages them through the host itself; read on torch 2.11 by
-``chip_smoke.py`` phase 27).
+``chip_smoke.py`` phase 27).  Point-to-point sends are another matter:
+gloo's send and receive of a CUDA tensor fail on torch 2.11 ("writev ...
+Bad address"), so ``ppermute`` copies a CUDA tensor to the host and back
+itself under gloo; under NCCL it stays on the card.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from ..infer.svi.svi import _tree_unflatten, tree_leaves, tree_map
 __all__ = ["AXES", "Sharding", "make_mesh", "shard_leading", "replicate",
            "put_sharded", "put_replicated", "local_slice", "axis_size",
            "axis_index", "psum", "pmean", "pmax", "all_gather",
-           "group_device"]
+           "ppermute", "group_device"]
 
 AXES = ("data", "chain", "particle", "model")
 
@@ -187,3 +190,30 @@ def all_gather(t, mesh, axis: str, dim=0):
     """The ranks' tensors ``t`` concatenated along ``dim`` in the order of
     their coordinates on ``axis``."""
     return torch.cat(_all_gather(t, mesh.get_group(axis)), dim)
+
+
+def ppermute(tree, mesh, axis: str, shift: int = -1):
+    """Every tensor leaf of ``tree`` moved ``shift`` places around the ring
+    of ``axis``: the rank at coordinate i sends to (i + shift) mod P and
+    receives from (i - shift) mod P.  The default, -1, is JAX's ring
+    ``perm=[(i, (i - 1) % p)]``.  Every rank's sends and receives of every
+    leaf are posted together (``batch_isend_irecv``), so no order of the
+    ranks can deadlock.  Under gloo a CUDA leaf goes through the host (gloo
+    sends host tensors only); under NCCL it stays on the card.  With one
+    rank on the axis it returns copies."""
+    group = mesh.get_group(axis)
+    p, me = axis_size(mesh, axis), axis_index(mesh, axis)
+    leaves = tree_leaves(tree)
+    if p == 1:
+        return _tree_unflatten(tree, [x.clone() for x in leaves])
+    host = dist.get_backend(group) != "nccl"
+    send = [(x.cpu() if host else x).contiguous() for x in leaves]
+    recv = [torch.empty_like(x) for x in send]
+    to = dist.get_global_rank(group, (me + shift) % p)
+    frm = dist.get_global_rank(group, (me - shift) % p)
+    ops = [dist.P2POp(dist.isend, x, to, group) for x in send] \
+        + [dist.P2POp(dist.irecv, x, frm, group) for x in recv]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return _tree_unflatten(tree, [r.to(x.device) for r, x in zip(recv,
+                                                                 leaves)])

@@ -3,7 +3,8 @@
 SVI and local-posterior NUTS, the hierarchical logistic regression's SVI
 and full-batch NUTS, the Gaussian mixture's tempered SMC, the linear
 regression's SVI, the matrix factorization's mini-batch and dense SVI, and
-the sharded (multi-rank) forms of the DLGM, hier and linreg paths.
+the sharded (multi-rank) forms of the DLGM, hier, linreg, GMM and dense MF
+paths.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
 hand-written kernels from ``bayesic_tpu_torch/csrc/``.
@@ -83,16 +84,22 @@ Phases 26-27, the sharded paths (``bayesic_tpu_torch.parallel``,
 ``MCMC(chain_sharding=)``): at world size 1 on NCCL in this process,
 ``dp_gram`` and the linreg trainer on it, ``dp_svi_run`` on the linreg
 model, ``dlgm.run_svi(data_sharding=)``, ``segment_averaged_train`` on the
-hier trainer and the chain-sharded ``local_posterior_mcmc_fused``, each
-against its unsharded call bit for bit, with the kernels' launches
-counted; then two ranks in processes of their own (``_rank_main``) that
-share the card under gloo (NCCL refuses two ranks on one card), at the
-bench shapes: the hier trainer segment-averaged (300 segments of 10
-steps), ``dp_gram`` and the linreg trainer, the DLGM's generic SVI with
-its rows sharded (50 steps) and its fused NUTS with the 1024 chains split
-over the ranks, gated against the single-process paths run first; their
-rates print beside the single-process ones, which is no scaling
-efficiency, since the ranks share one card.  Phase 9 also holds the keyed
+hier trainer, the chain-sharded ``local_posterior_mcmc_fused``,
+``systematic_resample_shard_map`` in both routings, ``gmm.run(
+particle_sharding=)`` in the fused and kernels modes at the GMM bench,
+``run_dense_sharded`` and ``make_data`` and ``fused_train`` on the bench's
+1M ratings read from a file, each against its unsharded call bit for bit,
+with the kernels' launches counted; then two ranks in processes of their
+own (``_rank_main``) that share the card under gloo (NCCL refuses two
+ranks on one card), at the bench shapes: the hier trainer
+segment-averaged (300 segments of 10 steps), ``dp_gram`` and the linreg
+trainer, the DLGM's generic SVI with its rows sharded (50 steps), its
+fused NUTS with the 1024 chains split over the ranks, the GMM's fused and
+kernels modes with 4,096 particles a rank, ``run_dense_sharded`` with 750
+items a rank and each rank's shard of the ratings file, gated against the
+single-process paths run first; their rates and the collectives' bytes
+print beside the single-process ones, which is no scaling efficiency,
+since the ranks share one card.  Phase 9 also holds the keyed
 NUTS kernel's chain base: launched on the upper half of the chains from
 ``chain0`` = 512, it gives the upper half of the full-width launch's
 draws and outputs bit for bit.
@@ -228,6 +235,15 @@ MF_FUSED_LR, MF_TRACE_STEPS = 5e-3, 20
 RANKS, RANK_TIMEOUT, RANK_DEADLINE = 2, 60, 600
 DP_SEGMENTS, DP_SPS, DP_DLGM_STEPS, DP_LINREG_SEED = 300, 10, 50, 4
 W1_SVI_STEPS, W1_SEGMENTS, W1_NUTS = 50, 20, 20
+# phases 26-27 also run the particle-sharded GMM SMC at the GMM bench on
+# GMM_SEEDS[0] in the fused and kernels modes (4,096 particles a rank at
+# two ranks), the item-sharded dense MF at matrix_fact.Config() (750 items
+# a rank at two ranks) for W1_MF_STEPS steps at world size 1 and
+# DP_MF_STEPS at two ranks (the bench's 2,000 cut for time; the schedule
+# follows the step count on both sides), and the bench's 1M ratings read
+# from a file; the resampler at the GMM bench's 8,192 particles
+W1_MF_STEPS, DP_MF_STEPS = 200, 1000
+DP_GMM_MODES = ("fused", "kernels")
 # published peaks of one H100 SXM (NVIDIA data sheet): FP32 outside the
 # tensor cores, dense bf16 and TF32 on them, and HBM3; the SFU does 16
 # exp/log/rcp per SM per clock, at the 1.98 GHz boost clock on 132 SMs
@@ -2498,12 +2514,16 @@ def _dp_world1_phase(torch, np, card, dev):
     import torch.distributed as dist
 
     from bayesic_tpu_torch.infer.svi import SVI, Adam, MeanFieldGuide
+    from bayesic_tpu_torch.infer.svi.svi import tree_leaves
+    from bayesic_tpu_torch.io import write_ratings
     from bayesic_tpu_torch.models import dlgm
     from bayesic_tpu_torch.models import hier_logistic as hl
     from bayesic_tpu_torch.models import linreg as lr
+    from bayesic_tpu_torch.models import matrix_fact as mf
     from bayesic_tpu_torch.ops import fused_hier as fh
     from bayesic_tpu_torch.ops import fused_linreg as fl
     from bayesic_tpu_torch.ops import fused_nuts as fn
+    from bayesic_tpu_torch.ops import mf_dense as md
     from bayesic_tpu_torch.parallel import dp_svi_run, make_mesh
     from bayesic_tpu_torch.parallel.dp_fused import (dp_gram,
                                                      segment_averaged_train)
@@ -2598,6 +2618,33 @@ def _dp_world1_phase(torch, np, card, dev):
                 torch.equal(a.unconstrained, b.unconstrained) and same(
                     (a.extra["step_size"], a.extra["inv_mass"]),
                     (b.extra["step_size"], b.extra["inv_mass"]))
+            _particle_world1(torch, np, dev, checks, launches, same)
+            # the item-sharded dense MF against run_dense
+            mcfg = mf.Config(**MF, steps=W1_MF_STEPS, device=str(dev))
+            data = mf.make_data(mcfg)
+            a = mf.run_dense(mcfg, data=data)
+            b = mf.run_dense_sharded(mcfg, make_mesh({"items": 1}),
+                                     data=data)
+            checks["run_dense_sharded"] = np.array_equal(
+                a["losses"], b["losses"]) and same(
+                tree_leaves(a["params"]), tree_leaves(b["params"]))
+            # the bench's 1M ratings through a file, and fused_train on them
+            path = os.path.join(tmp, "ratings.btpr")
+            write_ratings(path, *data[:3])
+            got = mf.make_data(dataclasses.replace(mcfg, data_file=path))
+            checks["make_data(data_file=)"] = all(
+                np.array_equal(u, v) for u, v in zip(got[:3], data[:3]))
+
+            def fused(d):
+                st = mf.dense_stats(*d[:3], mcfg.num_users, mcfg.num_items,
+                                    dev)
+                return md.fused_train(mf.dense_init(mcfg), *st, mcfg.noise,
+                                      steps=W1_MF_STEPS, lr=MF_FUSED_LR)[2]
+
+            md.LAUNCHES = 0
+            checks["fused_train on the file's ratings"] = torch.equal(
+                fused(got), fused(data))
+            launches["mf file"] = md.LAUNCHES
         finally:
             dist.destroy_process_group()
     bad = [k for k, v in checks.items() if not v]
@@ -2611,9 +2658,55 @@ def _dp_world1_phase(torch, np, card, dev):
           + ", ".join(checks) + " each equal to the unsharded call bit for "
           "bit (linreg " + f"{LINREG_STEPS} steps, generic SVI "
           f"{W1_SVI_STEPS} steps, {W1_SEGMENTS} x {DP_SPS} hier steps, "
-          f"{NUTS_CHAINS} chains x {W1_NUTS} + {W1_NUTS}); kernel launches "
+          f"{NUTS_CHAINS} chains x {W1_NUTS} + {W1_NUTS}, the GMM bench "
+          f"on seed {GMM_SEEDS[0]}, MF {W1_MF_STEPS} steps); kernel launches "
           + ", ".join(f"{k} {v}" for k, v in launches.items())
           + f"; phase wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def _particle_world1(torch, np, dev, checks, launches, same):
+    """Phase 26's particle-sharded paths at world size 1: the resampler in
+    both routings against ``systematic_resample``, and ``gmm.run`` in the
+    fused and kernels modes against the unsharded run."""
+    from bayesic_tpu_torch.models import gmm
+    from bayesic_tpu_torch.ops import fused_smc_gmm as fsg
+    from bayesic_tpu_torch.ops import gmm_logprob as glp
+    from bayesic_tpu_torch.parallel import make_mesh
+    from bayesic_tpu_torch.parallel.mesh import shard_leading
+    from bayesic_tpu_torch.parallel.resample import (
+        systematic_resample, systematic_resample_shard_map)
+
+    pmesh = make_mesh({"particle": 1})
+    n = GMM["num_particles"]
+    g = torch.Generator(device=dev).manual_seed(26)
+    lw = 3.0 * torch.randn(n, generator=g, device=dev)
+    payload = {"q": torch.randn(n, 7, generator=g, device=dev),
+               "ll": torch.randn(n, generator=g, device=dev)}
+    ref, anc = systematic_resample(0.37, lw, payload)
+    for routing in ("ring", "all_gather"):
+        got, a = systematic_resample_shard_map(pmesh, "particle", routing)(
+            0.37, lw, payload)
+        checks[f"systematic_resample_shard_map {routing}"] = \
+            torch.equal(a, anc) and same(got.values(), ref.values())
+    sharding = shard_leading(pmesh, "particle")
+    for mode in DP_GMM_MODES:
+        cfg = gmm.Config(**GMM, mode=mode, device=str(dev))
+        a = gmm.run(cfg, seed=GMM_SEEDS[0])
+        glp.LAUNCHES.update(fwd=0, bwd=0, vg=0)
+        fsg.LAUNCHES = 0
+        b = gmm.run(cfg, seed=GMM_SEEDS[0], particle_sharding=sharding)
+        if mode == "fused":
+            launches["gmm fused"] = fsg.LAUNCHES
+        else:
+            launches["gmm kernels vg"] = glp.LAUNCHES["vg"]
+            launches["gmm kernels fwd"] = glp.LAUNCHES["fwd"]
+        ra, rb = a["result"], b["result"]
+        checks[f"gmm.run(particle_sharding=) {mode}"] = (
+            a["num_stages"] == b["num_stages"]
+            and all(a[k] == b[k] for k in ("log_evidence", "gap",
+                                           "accept_rate"))
+            and same((ra.unconstrained, ra.log_weights, ra.ancestors),
+                     (rb.unconstrained, rb.log_weights, rb.ancestors)))
 
 
 def _rank_main(rank, tmp, device="cuda"):
@@ -2765,6 +2858,61 @@ def _rank_work(torch, np, rank, tmp, dev):
     dist.barrier()
     _, out["nuts_alone_s"] = timed(lambda: nuts_fit(dataclasses.replace(
         ncfg, num_chains=NUTS_CHAINS // RANKS), None))
+    out.update(_rank_particle_work(torch, np, rank, tmp, dev, timed))
+    return out
+
+
+def _rank_particle_work(torch, np, rank, tmp, dev, timed):
+    """Phase 27's particle-sharded GMM runs, item-sharded dense MF and file
+    shard on one rank."""
+    from bayesic_tpu_torch.infer.smc import gather_particles
+    from bayesic_tpu_torch.io import RatingsDataset
+    from bayesic_tpu_torch.models import gmm
+    from bayesic_tpu_torch.models import matrix_fact as mf
+    from bayesic_tpu_torch.ops import fused_smc_gmm as fsg
+    from bayesic_tpu_torch.ops import gmm_logprob as glp
+    from bayesic_tpu_torch.parallel import make_mesh
+    from bayesic_tpu_torch.parallel.mesh import shard_leading
+
+    particle = shard_leading(make_mesh({"particle": RANKS}), "particle")
+    out = {}
+    for mode in DP_GMM_MODES:
+        cfg = gmm.Config(**GMM, mode=mode, device=dev.type)
+        # warmed on a run of one adaptation block a rank
+        gmm.run(dataclasses.replace(cfg, num_particles=RANKS * 128),
+                seed=GMM_SEEDS[0], particle_sharding=particle)
+        glp.LAUNCHES.update(fwd=0, bwd=0, vg=0)
+        fsg.LAUNCHES = 0
+        r, out[f"gmm_{mode}_s"] = timed(lambda: gmm.run(
+            cfg, seed=GMM_SEEDS[0], particle_sharding=particle))
+        out[f"gmm_{mode}_launches"] = fsg.LAUNCHES if mode == "fused" \
+            else glp.LAUNCHES["vg"]
+        out[f"gmm_{mode}_fwd_launches"] = glp.LAUNCHES["fwd"]
+        res = r["result"]
+        out[f"gmm_{mode}_stages"] = np.array(r["num_stages"])
+        out[f"gmm_{mode}_ancestors"] = res.ancestors.cpu().numpy()
+        for k in ("log_evidence", "gap", "accept_rate"):
+            out[f"gmm_{mode}_{k}"] = np.array(r[k])
+        out[f"gmm_{mode}_q"] = gather_particles(
+            res, particle).unconstrained.cpu().numpy()
+    items = make_mesh({"items": RANKS})
+    cfg = mf.Config(**MF, steps=DP_MF_STEPS, device=str(dev))
+    data = mf.make_data(cfg)
+    mf.run_dense_sharded(dataclasses.replace(cfg, steps=2), items,
+                         data=data)
+    r, out["mf_s"] = timed(lambda: mf.run_dense_sharded(cfg, items,
+                                                        data=data))
+    out["mf_losses"], out["mf_rmse"] = r["losses"], np.array(r["rmse"])
+    # this rank's shard of the file the parent wrote, by the JAX
+    # package's arithmetic, against the plain reader's rows
+    path = os.path.join(tmp, "ratings.btpr")
+    got = mf.make_data(dataclasses.replace(cfg, data_file=path))
+    with RatingsDataset(path, use_native=False) as ds:
+        per = len(ds) // RANKS
+        want = ds.read_shard(rank * per, per)
+    out["file_rows"] = np.array(len(got[0]))
+    out["file_equal"] = np.array(all(np.array_equal(a, b)
+                                     for a, b in zip(got[:3], want)))
     return out
 
 
@@ -2823,6 +2971,7 @@ def _dp_ranks_phase(torch, np, card, dev):
     (_, ref_nuts), nuts_s = timed(lambda: nuts_fit(ncfg))
 
     with tempfile.TemporaryDirectory() as tmp:
+        prefs = _particle_refs(torch, np, dev, tmp)
         torch.save({"decoder": {k: v.cpu() for k, v
                                 in trained["decoder_params"].items()},
                     "sigma": torch.tensor(trained["sigma_x"],
@@ -2865,6 +3014,7 @@ def _dp_ranks_phase(torch, np, card, dev):
             raise AssertionError(f"phase 27: {k} differs across ranks")
     launches = {k: [int(o[f"{k}_launches"]) for o in outs]
                 for k in ("hier", "linreg", "nuts")}
+    plines, prates = _particle_gates(np, outs, prefs)
     want = {"hier": DP_SEGMENTS, "linreg": 1,
             "nuts": NUTS_WARMUP + NUTS_SAMPLES}
     if any(c != [want[k]] * RANKS for k, c in launches.items()):
@@ -2949,19 +3099,132 @@ def _dp_ranks_phase(torch, np, card, dev):
         f"{k} {n / slow[k]:.1f} {u}/s over {RANKS} ranks against "
         f"{n / single[k]:.1f} in one process" for k, (n, u) in work.items())
     print(f"phase 27 two ranks on one card (gloo) ok [{card}]: "
-          + "; ".join(lines) + f"; kernel launches a rank {launches}",
-          flush=True)
+          + "; ".join(lines + plines) + f"; kernel launches a rank "
+          f"{launches}", flush=True)
     alone = {k: max(float(o[f"{k}_alone_s"]) for o in outs)
              for k in ("hier", "nuts")}
     rates += "; control, a rank's share unsharded with no collective, " \
         "both ranks at once: " + "; ".join(
             f"{k} {work[k][0] / alone[k]:.1f} {work[k][1]}/s"
             for k in alone)
+    rates += "; " + prates
     print(f"phase 27 rates [{card}]: {rates} (each sharded call's wall on "
           f"its slower rank, the DLGM's including its data; {RANKS} ranks "
           f"share one card, so the ratio is not a scaling efficiency); "
           f"the ranks' processes {ranks_s:.1f} s in all, the phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def _particle_refs(torch, np, dev, tmp):
+    """Phase 27's one-process sides of the particle-sharded GMM runs and the
+    item-sharded dense MF, timed (the earlier phases warmed both paths), and
+    the ratings file the ranks read (the bench's 1M ratings)."""
+    from bayesic_tpu_torch.io import write_ratings
+    from bayesic_tpu_torch.models import gmm
+    from bayesic_tpu_torch.models import matrix_fact as mf
+
+    refs = {}
+    for mode in DP_GMM_MODES:
+        cfg = gmm.Config(**GMM, mode=mode, device=dev.type)
+        refs[f"gmm_{mode}"], refs[f"gmm_{mode}_s"] = _timed(
+            torch, dev, lambda: gmm.run(cfg, seed=GMM_SEEDS[0]))
+    cfg = mf.Config(**MF, steps=DP_MF_STEPS, device=str(dev))
+    data = mf.make_data(cfg)
+    refs["mf"], refs["mf_s"] = _timed(
+        torch, dev, lambda: mf.run_dense(cfg, data=data))
+    write_ratings(os.path.join(tmp, "ratings.btpr"), *data[:3])
+    refs["mf_cfg"] = cfg
+    return refs
+
+
+def _particle_gates(np, outs, refs):
+    """Phase 27's gates on the particle-sharded GMM runs (the stage count
+    and ancestors equal to one process, log Z to 1e-6 relative, the
+    predictive gap < 0.3 nats a point, the fused kernel launched once a
+    stage a rank), the item-sharded dense MF (the final ELBO to rtol 1e-4,
+    the RMSE within 5e-3 of run_dense's: the JAX test's limits) and the
+    file shards; returns the lines and the
+    rates, with the bytes each rank receives a stage or step."""
+    out, lines, rates = outs[0], [], []
+    n = GMM["num_particles"]
+    per = n // RANKS
+    for mode in DP_GMM_MODES:
+        ref = refs[f"gmm_{mode}"]
+        res = ref["result"]
+        for k in ("stages", "ancestors", "log_evidence", "gap", "q"):
+            if not all(np.array_equal(o[f"gmm_{mode}_{k}"],
+                                      out[f"gmm_{mode}_{k}"]) for o in outs):
+                raise AssertionError(f"phase 27: GMM {mode} {k} differs "
+                                     f"across ranks")
+        stages = int(out[f"gmm_{mode}_stages"])
+        anc_ok = stages == res.num_stages and np.array_equal(
+            out[f"gmm_{mode}_ancestors"], res.ancestors.cpu().numpy())
+        dz = abs(float(out[f"gmm_{mode}_log_evidence"]) - ref["log_evidence"])
+        gap = float(out[f"gmm_{mode}_gap"])
+        bits = np.array_equal(out[f"gmm_{mode}_q"],
+                              res.unconstrained.cpu().numpy()) and dz == 0.0
+        launched = [int(o[f"gmm_{mode}_launches"]) for o in outs]
+        fwd = [int(o[f"gmm_{mode}_fwd_launches"]) for o in outs]
+        want = [stages] * RANKS if mode == "fused" else None
+        if not anc_ok or dz > 1e-6 * abs(ref["log_evidence"]) \
+                or not gap < 0.3 or min(launched) < 1 \
+                or (want is not None and launched != want):
+            raise AssertionError(
+                f"phase 27: GMM {mode} over {RANKS} ranks: stages {stages} "
+                f"(one process {res.num_stages}), ancestors equal {anc_ok}, "
+                f"|d log Z| {dz}, gap {gap}, launches a rank {launched}")
+        lines.append(
+            f"GMM {mode} {n} particles over {RANKS} ranks ({per} a rank), "
+            f"seed {GMM_SEEDS[0]}: {stages} stages and every stage's "
+            f"ancestors equal to one process, log Z "
+            f"{float(out[f'gmm_{mode}_log_evidence']):.4f} (|diff| {dz:.2e}), "
+            f"gap {gap:.4f} (< 0.3), "
+            + ("particles and log Z bit for bit" if bits else
+               "particles NOT bit for bit")
+            + f", launches a rank {launched}"
+            + ("" if mode == "fused" else f" (value+grad), {fwd} (forward)"))
+        slow = max(float(o[f"gmm_{mode}_s"]) for o in outs)
+        # each rank receives a stage: the other ranks' ll, the ring's
+        # P - 1 hops of (n_local, dim) rows, and the fused mode's accepts
+        # and block steps or the generic mutation's K accept vectors
+        dim, kmut = ref["smc"].dim, ref["smc"].mutation_steps
+        floats = per * (1 + dim) + (per + per // 128 if mode == "fused"
+                                    else kmut * per)
+        rates.append(
+            f"GMM {mode} {n * stages / slow:.1f} particle-stages/s over "
+            f"{RANKS} ranks against {n * res.num_stages / refs[f'gmm_{mode}_s']:.1f} "
+            f"in one process, {(RANKS - 1) * floats * 4} B received a rank "
+            f"a stage")
+    ref = refs["mf"]
+    rel = abs(out["mf_losses"][-1] - ref["losses"][-1]) \
+        / abs(ref["losses"][-1])
+    rmse = float(out["mf_rmse"])
+    cfg = refs["mf_cfg"]
+    if not all(np.array_equal(o["mf_losses"], out["mf_losses"])
+               for o in outs) or not rel < 1e-4 \
+            or not abs(rmse - ref["rmse"]) < 5e-3:
+        raise AssertionError(f"phase 27: run_dense_sharded final ELBO rel "
+                             f"err {rel} (limit 1e-4), RMSE {rmse}")
+    every = float(np.max(np.abs(out["mf_losses"] - ref["losses"])
+                         / np.abs(ref["losses"])))
+    lines.append(f"run_dense_sharded at Config() over {RANKS} ranks "
+                 f"({cfg.num_items // RANKS} items a rank), {DP_MF_STEPS} "
+                 f"steps: final ELBO rel err {rel:.2e} (limit 1e-4), every "
+                 f"step's {every:.2e}, RMSE {rmse:.4f} (run_dense "
+                 f"{ref['rmse']:.4f}, limit 5e-3 apart)")
+    slow = max(float(o["mf_s"]) for o in outs)
+    floats = 1 + 2 * (cfg.num_users * cfg.num_factors + cfg.num_users + 1)
+    rates.append(f"dense MF {DP_MF_STEPS / slow:.1f} steps/s over {RANKS} "
+                 f"ranks against {DP_MF_STEPS / refs['mf_s']:.1f} in one "
+                 f"process, one all-reduce of {floats * 4} B a step")
+    rows = [int(o["file_rows"]) for o in outs]
+    if not all(bool(o["file_equal"]) for o in outs) \
+            or rows != [cfg.num_ratings // RANKS] * RANKS:
+        raise AssertionError(f"phase 27: file shards {rows} rows, equal "
+                             f"{[bool(o['file_equal']) for o in outs]}")
+    lines.append(f"each rank's make_data(data_file=) shard of the 1M-rating "
+                 f"file equal to read_shard of its rows ({rows[0]} a rank)")
+    return lines, "; ".join(rates)
 
 
 def main():

@@ -50,7 +50,7 @@ def _jax(params):
             for s, pair in params.items()}
 
 
-def test_data_and_dense_stats_match_jax():
+def test_data_and_dense_stats_match_jax(tmp_path):
     tcfg, jcfg = _cfgs()
     tdata, jdata = tmf.make_data(tcfg), jmf.make_data(jcfg)
     for a, b in zip(tdata[:3], jdata[:3]):
@@ -58,8 +58,13 @@ def test_data_and_dense_stats_match_jax():
     for a, b in zip(tmf.dense_stats(*tdata[:3], 40, 25),
                     jmf.dense_stats(*jdata[:3], 40, 25)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmf.make_data(tcfg.__class__(data_file="ratings.bin"))
+    # data_file: the missing file is written from the same recipe and read
+    # back, by the port and by the JAX package
+    path = str(tmp_path / "ratings.bin")
+    fcfg, jfcfg = _cfgs(data_file=path)
+    for got in (tmf.make_data(fcfg), jmf.make_data(jfcfg)):
+        for a, b in zip(got[:3], jdata[:3]):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_dense_objective_and_plain_pass_match_jax_autodiff():

@@ -6,7 +6,8 @@ One gloo world of ``torch_parallel_worker.WORLD`` CPU ranks runs every
 multi-rank case (its ranks write their outputs to ``.npz`` files), while
 this process computes the single-process and JAX sides; a second world of
 two ranks, started with ``torchrun``'s variables, runs the launcher's
-cases.  Each world has a deadline and each collective a timeout, so a
+cases, and two more of two ranks a run that loses a rank after its
+checkpoint and the restart from that checkpoint.  Each world has a deadline and each collective a timeout, so a
 failed or hung rank fails the tests that read its outputs.  The JAX side
 runs on the 8-device virtual mesh of ``conftest.py``.
 """
@@ -27,11 +28,13 @@ import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 import bayesic_tpu.dist as jdist
+import bayesic_tpu.parallel.resample as jres
 import torch_parallel_worker as W
 from bayesic_tpu.core import sample as jsample
 from bayesic_tpu.infer.mcmc import MCMC as JMCMC
 from bayesic_tpu.infer.svi import SVI as JSVI
 from bayesic_tpu.infer.svi import MeanFieldGuide as JMeanField
+from bayesic_tpu.models import matrix_fact as jmf
 from bayesic_tpu.ops import fused_linreg as jfl
 from bayesic_tpu.parallel import dp_svi_run as jdp_svi_run
 from bayesic_tpu.parallel import make_mesh as jmake_mesh
@@ -40,7 +43,8 @@ from bayesic_tpu.parallel import mesh as jmesh
 from bayesic_tpu.parallel.dp_fused import dp_gram as jdp_gram
 from bayesic_tpu.utils import checkpoint as jckpt
 from bayesic_tpu_torch.infer.mcmc import StreamKey, nuts_streams
-from bayesic_tpu_torch.models import dlgm, linreg
+from bayesic_tpu_torch.models import dlgm, gmm, linreg
+from bayesic_tpu_torch.models import matrix_fact as mf
 from bayesic_tpu_torch.ops import fused_hier as fh
 from bayesic_tpu_torch.ops import fused_linreg as fl
 from bayesic_tpu_torch.ops import fused_nuts as fn
@@ -70,6 +74,18 @@ class _World:
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             for r in range(n)]
         self._out = None
+
+    def returncodes(self):
+        """Each rank's exit code, once every rank has exited."""
+        for p in self.procs:
+            left = DEADLINE - (time.monotonic() - self.start)
+            try:
+                p.communicate(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                self.close()
+                raise AssertionError(f"the world passed its {DEADLINE} s "
+                                     f"deadline") from None
+        return [p.returncode for p in self.procs]
 
     def outputs(self):
         if self._out is None:
@@ -105,21 +121,28 @@ def _free_port():
         return s.getsockname()[1]
 
 
-@pytest.fixture(scope="module", autouse=True)
-def worlds(tmp_path_factory):
-    """Both worlds, started when the module's first test starts, so that
-    they run while this process computes the other sides."""
-    d = tmp_path_factory.mktemp("world")
-    main = _World(d, "world", W.WORLD, init=f"file://{d}/rendezvous")
-    d = tmp_path_factory.mktemp("launcher")
+def _torchrun_world(outdir, mode):
+    """A world of ``LAUNCHER_WORLD`` ranks started with torchrun's
+    variables."""
     port = str(_free_port())
-    launch = _World(d, "launcher", W.LAUNCHER_WORLD, env=lambda r: {
+    return _World(outdir, mode, W.LAUNCHER_WORLD, env=lambda r: {
         "RANK": str(r), "LOCAL_RANK": str(r),
         "WORLD_SIZE": str(W.LAUNCHER_WORLD), "MASTER_ADDR": "127.0.0.1",
         "MASTER_PORT": port})
-    yield main, launch
-    main.close()
-    launch.close()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def worlds(tmp_path_factory):
+    """The main, launcher and crash worlds, started when the module's first
+    test starts, so that they run while this process computes the other
+    sides."""
+    d = tmp_path_factory.mktemp("world")
+    main = _World(d, "world", W.WORLD, init=f"file://{d}/rendezvous")
+    launch = _torchrun_world(tmp_path_factory.mktemp("launcher"), "launcher")
+    crash = _torchrun_world(tmp_path_factory.mktemp("crash"), "crash")
+    yield main, launch, crash
+    for w in (main, launch, crash):
+        w.close()
 
 
 @pytest.fixture
@@ -130,6 +153,11 @@ def world(worlds):
 @pytest.fixture
 def launcher_world(worlds):
     return worlds[1]
+
+
+@pytest.fixture
+def crash_world(worlds):
+    return worlds[2]
 
 
 @contextlib.contextmanager
@@ -248,6 +276,141 @@ def test_checkpoint_restores_jax_file_and_round_trips(tmp_path):
         ckpt.restore(path, {"b": torch.zeros(4), "a": target["a"]})
 
 
+# ---------------------------------------------------------------------------
+# particle-sharded SMC, the item-sharded dense MF objective, file shards
+# (first: their one-process sides run while the world does)
+# ---------------------------------------------------------------------------
+
+def _cat(outs, key):
+    return np.concatenate([o[key] for o in outs])
+
+
+@pytest.mark.parametrize("mode", W.GMM_MODES)
+def test_particle_sharded_gmm_matches_one_process(world, mode):
+    """``gmm.run(particle_sharding=)`` at the smoke size on the plain
+    versions: the one-process run's stages, ancestors, particles, log Z
+    and predictive gap."""
+    with _one_thread():
+        ref = gmm.run(gmm.Config(smoke=True, mode=mode, device="cpu"))
+    outs = world.outputs()
+    _same_on_every_rank(outs, f"gmm/{mode}")
+    out = outs[0]
+    res = ref["result"]
+    assert int(out[f"gmm/{mode}/num_stages"]) == ref["num_stages"]
+    np.testing.assert_array_equal(out[f"gmm/{mode}/ancestors"],
+                                  res.ancestors.numpy())
+    np.testing.assert_allclose(out[f"gmm/{mode}/q"], res.unconstrained,
+                               rtol=1e-6, atol=1e-6)
+    for k in ("log_evidence", "gap", "accept_rate"):
+        np.testing.assert_allclose(out[f"gmm/{mode}/{k}"], ref[k],
+                                   rtol=1e-6, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("routing", ["ring", "all_gather"])
+def test_sharded_resampler_equals_jax_systematic_ancestors(world, routing):
+    """64 particles over the world's ranks: both routings give the JAX
+    package's ancestors and rows exactly."""
+    lw, parts = W.resample_inputs()
+    key = jax.random.PRNGKey(1)
+    assert np.float32(jax.random.uniform(key)) == np.float32(W.RES_U0)
+    anc = np.asarray(jres.systematic_ancestors(key, jnp.asarray(lw)))
+    outs = world.outputs()
+    np.testing.assert_array_equal(_cat(outs, f"resample/{routing}/anc"), anc)
+    for k, v in parts.items():
+        # payload rows are exact copies
+        np.testing.assert_array_equal(_cat(outs, f"resample/{routing}/{k}"),
+                                      v[anc])
+
+
+def test_ring_resampler_million_particles(world):
+    """2^20 particles by the ring: routing each particle's own global index
+    reproduces the ancestors, and every count is within 1 of N w_i (JAX
+    ``test_sharding.py``)."""
+    outs = world.outputs()
+    anc = _cat(outs, "resample/big/anc")
+    np.testing.assert_array_equal(_cat(outs, "resample/big/routed"), anc)
+    lw = 3.0 * np.random.default_rng(W.RES_SEED).normal(0, 1, W.RES_BIG) \
+        .astype(np.float32)
+    w = np.exp(lw.astype(np.float64) - lw.max())
+    w /= w.sum()
+    counts = np.bincount(anc, minlength=W.RES_BIG)
+    assert np.max(np.abs(counts - W.RES_BIG * w)) <= 1.0 + 1e-3
+
+
+@pytest.mark.parametrize("case", list(W.SMC_CASES))
+def test_particle_sharded_smc_matches_one_process(world, case):
+    """The JAX tests' SMC models with the particles over the world's
+    ranks: the one-process run's stages and ancestors, its particles and
+    log Z to 1e-6."""
+    with _one_thread():
+        ref = W.run_smc(case)
+    outs = world.outputs()
+    _same_on_every_rank(outs, f"smc/{case}")
+    out = outs[0]
+    assert ref.num_stages >= 2
+    assert int(out[f"smc/{case}/stages"]) == ref.num_stages
+    if case == "multihost":
+        resampled = ref.ancestors != torch.arange(ref.ancestors.shape[1])
+        assert bool(resampled.any())
+    np.testing.assert_array_equal(out[f"smc/{case}/ancestors"],
+                                  ref.ancestors.numpy())
+    np.testing.assert_allclose(out[f"smc/{case}/q"], ref.unconstrained,
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(out[f"smc/{case}/log_w"], ref.log_weights,
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(out[f"smc/{case}/log_z"], ref.log_evidence,
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_dense_mf_sharded_loss_and_grads_equal_jax(world):
+    """The item-sharded objective's loss and every gradient against JAX
+    ``dense_neg_elbo`` at ``test_mf_dense_sharded.py``'s config, at its
+    tolerances."""
+    cfg = mf.Config(**W.MF)
+    users, items, ratings, _ = mf.make_data(cfg)
+    cnt, rsum, sqsum, n = jmf.dense_stats(users, items, ratings,
+                                          cfg.num_users, cfg.num_items)
+    params = jax.tree_util.tree_map(jnp.asarray, W.mf_params(cfg))
+    ref, gref = jax.jit(jax.value_and_grad(jmf.dense_neg_elbo),
+                        static_argnums=5)(params, cnt, rsum, sqsum, float(n),
+                                          cfg.noise)
+    outs = world.outputs()
+    _same_on_every_rank(outs, "mf/loss")
+    for site in ("u", "bu", "m"):
+        _same_on_every_rank(outs, f"mf/grads/{site}")
+    np.testing.assert_allclose(outs[0]["mf/loss"], float(ref), rtol=2e-6)
+    for site in params:
+        for j in range(2):
+            key = f"mf/grads/{site}/{j}"
+            got = _cat(outs, key) if site in ("v", "bi") else outs[0][key]
+            np.testing.assert_allclose(got, np.asarray(gref[site][j]),
+                                       rtol=3e-5, atol=3e-5, err_msg=key)
+
+
+def test_run_dense_sharded_matches_run_dense(world):
+    cfg = mf.Config(**W.MF)
+    with _one_thread():
+        ref = mf.run_dense(cfg)
+    out = world.outputs()[0]
+    _same_on_every_rank(world.outputs(), "mf/losses")
+    np.testing.assert_allclose(out["mf/losses"], ref["losses"], rtol=1e-4)
+    assert abs(float(out["mf/rmse"]) - ref["rmse"]) < 5e-3
+    assert float(out["mf/rmse"]) < 1.3 * cfg.noise
+
+
+def test_file_shards_follow_the_jax_arithmetic(world):
+    """Each rank reads rows [rank * per, (rank + 1) * per) of the file the
+    ranks wrote, per = n // ranks: the synthetic arrays' rows, the last
+    n % ranks read by none."""
+    cfg = mf.Config(**W.MF_FILE)
+    want = mf.make_data(cfg)[:3]
+    per = cfg.num_ratings // W.WORLD
+    for r, o in enumerate(world.outputs()):
+        for k, a in zip(("users", "items", "ratings"), want):
+            np.testing.assert_array_equal(o[f"file/{k}"],
+                                          a[r * per:(r + 1) * per])
+
+
 @pytest.mark.parametrize("shared", [False, True])
 def test_chain_sharded_mcmc_matches_one_process(world, shared):
     """8 chains over the world's ranks: five warmup and five sampling
@@ -317,6 +480,18 @@ def test_mesh_helpers(world):
         np.testing.assert_array_equal(o["mesh/pmax"], [n - 1.0])
         np.testing.assert_array_equal(o["mesh/all_gather"], np.arange(n))
         np.testing.assert_array_equal(o["mesh/psum"], [n, n, 2.0 * n])
+
+
+def test_ppermute_moves_each_leaf_one_place_round_the_ring(world):
+    outs = world.outputs()
+    n = W.WORLD
+    for r, o in enumerate(outs):
+        np.testing.assert_array_equal(o["mesh/ppermute/a"],
+                                      np.full(3, float((r + 1) % n)))
+        np.testing.assert_array_equal(o["mesh/ppermute/b"],
+                                      [(r + 1) % n, (r + 1) % n])
+        np.testing.assert_array_equal(o["mesh/ppermute/back"],
+                                      np.full(3, float(r)))
 
 
 def test_make_mesh_needs_a_process_group():
@@ -509,3 +684,24 @@ def test_launcher_env_world_sync_desync_and_resume(launcher_world):
                   model_args=args)
     np.testing.assert_allclose(outs[0]["losses"], ref.losses.numpy(),
                                rtol=2e-4, atol=2e-4)
+
+
+def test_fault_injection_rank_dies_then_restart(crash_world, launcher_world,
+                                                tmp_path):
+    """Rank 1 exits right after the checkpoint's barrier, and rank 0 fails
+    at its next collective; a restart at the same world size from the
+    checkpoint lands on the uninterrupted run bit for bit."""
+    codes = crash_world.returncodes()
+    assert codes[1] == W.CRASH_CODE and codes[0] not in (0, W.CRASH_CODE)
+    resume = _torchrun_world(crash_world.outdir, "resume")
+    try:
+        outs = resume.outputs()
+    finally:
+        resume.close()
+    ref = launcher_world.outputs()[0]
+    for o in outs:
+        assert bool(o["sync"])
+        assert o["fingerprint"] == ref["fingerprint"]
+        assert int(o["step"]) == W.LAUNCH_STEPS
+        np.testing.assert_array_equal(o["losses"],
+                                      ref["losses"][W.LAUNCH_SAVE:])

@@ -4,10 +4,12 @@ the inputs both sides build from seeds.
 Run as ``python torch_parallel_worker.py MODE RANK WORLD INIT OUTDIR``:
 MODE ``world`` runs every multi-rank case of the port's ``parallel``
 layer in one world (``INIT`` a ``file://`` rendezvous) and writes this
-rank's outputs to ``OUTDIR/rank{RANK}.npz``; MODE ``launcher`` reads
+rank's outputs to ``OUTDIR/rank{RANK}.npz``; the other modes read
 ``RANK``/``WORLD_SIZE``/``MASTER_*`` from the environment, as ``torchrun``
-sets them, and runs the launcher, desync and checkpoint cases.  It
-imports torch and the port only.  The test module imports the recipes.
+sets them: ``launcher`` runs the launcher, desync and checkpoint cases,
+``crash`` checkpoints a run and then loses rank 1 (exit code 17), and
+``resume`` restarts from that checkpoint in ``OUTDIR``.  It imports torch
+and the port only.  The test module imports the recipes.
 """
 
 from __future__ import annotations
@@ -47,6 +49,26 @@ FNUTS = dict(num_data=64, data_dim=6, latent_dim=2, hidden=8,
 FNUTS_ROWS = 3
 # the launcher world: dp_svi_run on 64 rows, a checkpoint at LAUNCH_SAVE
 LAUNCH_N, LAUNCH_STEPS, LAUNCH_SAVE = 64, 200, 100
+CRASH_CODE = 17         # the exit code of the rank that the crash loses
+# systematic_resample_shard_map: the JAX test's 64 particles (log-weights
+# and payloads from RES_SEED), and 2^20 by the ring; RES_U0 is the JAX
+# test's jax.random.uniform(PRNGKey(1)) as a float32
+RES_N, RES_BIG, RES_SEED, RES_U0 = 64, 1 << 20, 5, 0.4386324882507324
+# SMC(particle_sharding=): the JAX test_sharding.py model at 512 particles
+# and test_multihost.py's at 128 with ess_target and the resampling
+# threshold 0.9
+SMC_CASES = {"sharding": dict(num_particles=512),
+             "multihost": dict(num_particles=128, ess_target=0.9,
+                               resample_threshold=0.9)}
+# gmm.run(particle_sharding=) at the smoke size
+GMM_MODES = ("generic", "fused", "split")
+# the dense MF objective: the JAX test_mf_dense_sharded.py config, 64 items
+# a rank at 4 ranks
+MF = dict(num_users=512, num_items=256, num_factors=8, num_ratings=40_000,
+          steps=300, lr=0.05, device="cpu")
+# make_data from a file: a count that 4 ranks do not divide
+MF_FILE = dict(num_users=50, num_items=30, num_factors=4, num_ratings=10_001,
+               device="cpu")
 
 
 def linear_data(n=LIN_N, seed=7):
@@ -138,6 +160,55 @@ def fnuts_inputs():
     return cfg, dec, dparams, 0.3, xb
 
 
+def resample_inputs(n=RES_N):
+    """Log-weights (n,) and a payload {"x": (n, 3), "y": (n,)}."""
+    rng = np.random.default_rng(RES_SEED)
+    return (rng.normal(0, 1, n).astype(np.float32),
+            {"x": rng.normal(0, 1, (n, 3)).astype(np.float32),
+             "y": rng.normal(0, 1, n).astype(np.float32)})
+
+
+def smc_model(case):
+    """The SMC test models: mu ~ N(0, 3), 16 observations ~ N(mu, 1)."""
+    import torch
+
+    from bayesic_tpu_torch import dist
+    from bayesic_tpu_torch.core import sample
+
+    if case == "sharding":
+        yv = np.random.default_rng(2).normal(1.0, 1.0, 16)
+    else:
+        yv = np.linspace(-0.5, 1.5, 16)
+    yt = torch.as_tensor(yv.astype(np.float32))
+
+    def model():
+        mu = sample("mu", dist.Normal(0.0, 3.0))
+        sample("obs", dist.Normal(mu, 1.0).expand((16,)).to_event(1), obs=yt)
+
+    return model
+
+
+def run_smc(case, particle_sharding=None):
+    from bayesic_tpu_torch.infer.smc import SMC
+
+    return SMC(smc_model(case), mutation_steps=2, hmc_leapfrog_steps=3,
+               particle_sharding=particle_sharding, device="cpu",
+               **SMC_CASES[case]).run(1)
+
+
+def mf_params(cfg):
+    """Dense guide params {site: (loc, log_scale)} as numpy, from a seed."""
+    rng = np.random.default_rng(6)
+    shapes = {"u": (cfg.num_users, cfg.num_factors),
+              "v": (cfg.num_items, cfg.num_factors),
+              "bu": (cfg.num_users,), "bi": (cfg.num_items,), "m": ()}
+    loc0 = {"m": 3.0}
+    return {k: ((loc0.get(k, 0.0) + rng.normal(0, 0.3, s))
+                .astype(np.float32),
+                rng.normal(-1.5, 0.3, s).astype(np.float32))
+            for k, s in shapes.items()}
+
+
 def toy_local_train(data_local, state, seed, t0):
     import torch
 
@@ -173,7 +244,7 @@ def _tree_np(prefix, tree, out):
         out[prefix] = _np(tree)
 
 
-def world_cases(rank, world):
+def world_cases(rank, world, outdir):
     import torch
 
     from bayesic_tpu_torch.infer.mcmc import gather_chains
@@ -182,8 +253,9 @@ def world_cases(rank, world):
     from bayesic_tpu_torch.ops import fused_vae as fv
     from bayesic_tpu_torch.parallel import dp_fused, dp_svi_run, make_mesh
     from bayesic_tpu_torch.parallel.mesh import (all_gather, local_slice,
-                                                 pmax, psum, put_replicated,
-                                                 put_sharded, shard_leading)
+                                                 pmax, ppermute, psum,
+                                                 put_replicated, put_sharded,
+                                                 shard_leading)
 
     out = {}
     data_mesh = make_mesh({"data": world})
@@ -206,6 +278,12 @@ def world_cases(rank, world):
     tree = psum({"x": torch.ones(2), "y": (torch.full((1,), 2.0),)},
                 data_mesh, "data")
     out["mesh/psum"] = _np(torch.cat([tree["x"], tree["y"][0]]))
+    moved = ppermute({"a": torch.full((3,), float(rank)),
+                      "b": torch.tensor([rank, rank])}, data_mesh, "data")
+    out["mesh/ppermute/a"], out["mesh/ppermute/b"] = _np(moved["a"]), \
+        _np(moved["b"])
+    out["mesh/ppermute/back"] = _np(ppermute(moved["a"], data_mesh, "data",
+                                             shift=1))
 
     # dp_gram on the JAX test's linreg shape
     x, y, _, _ = linreg.make_data(linreg.Config(n=4096, dim=16))
@@ -304,7 +382,90 @@ def world_cases(rank, world):
         fcfg, dec, dparams, sig, xb, max_doublings=4, run_seed=5,
         chain_sharding=sharding)
     out["fnuts/q"] = _np(gather_chains(res, sharding).unconstrained)
+    particle_cases(rank, world, out, outdir)
     return out
+
+
+def particle_cases(rank, world, out, outdir):
+    """The particle-sharded resampler, SMC and GMM, the item-sharded dense
+    MF objective and the file-backed MF data."""
+    import torch
+
+    from bayesic_tpu_torch.infer.smc import gather_particles
+    from bayesic_tpu_torch.models import gmm
+    from bayesic_tpu_torch.models import matrix_fact as mf
+    from bayesic_tpu_torch.parallel import make_mesh
+    from bayesic_tpu_torch.parallel.mesh import local_slice, shard_leading
+    from bayesic_tpu_torch.parallel.resample import \
+        systematic_resample_shard_map
+
+    pmesh = make_mesh({"particle": world})
+    sharding = shard_leading(pmesh, "particle")
+
+    def shard(a):
+        start, per = local_slice(a.shape[0], world, rank)
+        return a[start:start + per]
+
+    lw, parts = resample_inputs()
+    for routing in ("ring", "all_gather"):
+        fn = systematic_resample_shard_map(pmesh, "particle", routing)
+        got, anc = fn(RES_U0, torch.as_tensor(shard(lw)),
+                      {k: torch.as_tensor(shard(v)) for k, v in parts.items()})
+        out[f"resample/{routing}/anc"] = _np(anc)
+        for k, v in got.items():
+            out[f"resample/{routing}/{k}"] = _np(v)
+    big = 3.0 * np.random.default_rng(RES_SEED).normal(0, 1, RES_BIG) \
+        .astype(np.float32)
+    fn = systematic_resample_shard_map(pmesh, "particle", "ring")
+    got, anc = fn(RES_U0, torch.as_tensor(shard(big)),
+                  torch.as_tensor(shard(np.arange(RES_BIG))))
+    out["resample/big/anc"] = _np(anc)
+    out["resample/big/routed"] = _np(got)
+
+    for case in SMC_CASES:
+        res = gather_particles(run_smc(case, sharding), sharding)
+        out[f"smc/{case}/q"] = _np(res.unconstrained)
+        out[f"smc/{case}/log_w"] = _np(res.log_weights)
+        out[f"smc/{case}/log_z"] = _np(res.log_evidence)
+        out[f"smc/{case}/stages"] = np.array(res.num_stages)
+        out[f"smc/{case}/ancestors"] = _np(res.ancestors)
+
+    for mode in GMM_MODES:
+        r = gmm.run(gmm.Config(smoke=True, mode=mode, device="cpu"),
+                    particle_sharding=sharding)
+        full = gather_particles(r["result"], sharding)
+        for k in ("gap", "log_evidence", "num_stages", "accept_rate"):
+            out[f"gmm/{mode}/{k}"] = np.array(r[k])
+        out[f"gmm/{mode}/q"] = _np(full.unconstrained)
+        out[f"gmm/{mode}/ancestors"] = _np(full.ancestors)
+
+    # the item-sharded dense MF objective: one value and gradient at
+    # seeded params, then a run
+    imesh = make_mesh({"items": world})
+    cfg = mf.Config(**MF)
+    users, items, ratings, _ = mf.make_data(cfg)
+    start, per = local_slice(cfg.num_items, world, rank)
+    cnt, rsum, sqsum, n = mf.dense_stats(users, items, ratings,
+                                         cfg.num_users, cfg.num_items)
+    cols = slice(start, start + per)
+    params = {k: tuple(torch.as_tensor(a[cols] if k in ("v", "bi") else a)
+                       for a in pair)
+              for k, pair in mf_params(cfg).items()}
+    loss_fn = mf.dense_neg_elbo_sharded(imesh, sqsum, n, cfg.noise)
+    loss, grads = mf.dense_value_and_grad_sharded(
+        loss_fn, params, cnt[:, cols].contiguous(),
+        rsum[:, cols].contiguous(), imesh)
+    out["mf/loss"] = _np(loss)
+    _tree_np("mf/grads", grads, out)
+    r = mf.run_dense_sharded(cfg, imesh, data=(users, items, ratings, None))
+    out["mf/losses"] = r["losses"]
+    out["mf/rmse"] = np.array(r["rmse"])
+
+    # this rank's shard of a ratings file that the ranks write at once
+    fcfg = mf.Config(**MF_FILE, data_file=os.path.join(outdir,
+                                                       "ratings.btpr"))
+    for k, a in zip(("users", "items", "ratings"), mf.make_data(fcfg)[:3]):
+        out[f"file/{k}"] = a
 
 
 # ---------------------------------------------------------------------------
@@ -359,6 +520,55 @@ def launcher_cases(rank, world, outdir):
     return out
 
 
+def crash_case(rank, outdir):
+    """The launcher world's run up to its checkpoint, then rank 1 exits at
+    once after the checkpoint's barrier; rank 0 goes on and fails at the
+    next collective."""
+    import torch
+
+    from bayesic_tpu_torch.parallel import dp_svi_run, make_mesh
+    from bayesic_tpu_torch.parallel.launcher import host_shard
+    from bayesic_tpu_torch.utils import checkpoint as ckpt
+
+    mesh = make_mesh()
+    x, y = linear_data(LAUNCH_N, seed=0)
+    svi, _ = linear_svi(x, y)
+    local = (torch.as_tensor(host_shard(x)), torch.as_tensor(host_shard(y)))
+    half = dp_svi_run(svi, mesh, torch.Generator().manual_seed(0), local,
+                      LAUNCH_SAVE)
+    ckpt.save_multihost(os.path.join(outdir, "svi.npz"), half.state)
+    if rank == 1:
+        os._exit(CRASH_CODE)
+    dp_svi_run(svi, mesh, None, local, LAUNCH_STEPS - LAUNCH_SAVE,
+               state=half.state)
+    return {}
+
+
+def resume_case(outdir):
+    """A restart with the same world size from the crashed run's
+    checkpoint, to the end of the launcher world's run."""
+    import torch
+
+    from bayesic_tpu_torch.parallel import dp_svi_run, make_mesh
+    from bayesic_tpu_torch.parallel.launcher import (check_replicated_sync,
+                                                     host_shard,
+                                                     replicated_fingerprint)
+    from bayesic_tpu_torch.utils import checkpoint as ckpt
+
+    mesh = make_mesh()
+    x, y = linear_data(LAUNCH_N, seed=0)
+    svi, _ = linear_svi(x, y)
+    local = (torch.as_tensor(host_shard(x)), torch.as_tensor(host_shard(y)))
+    state = ckpt.restore(os.path.join(outdir, "svi.npz"),
+                         svi.init(torch.Generator().manual_seed(99)))
+    res = dp_svi_run(svi, mesh, None, local, LAUNCH_STEPS - LAUNCH_SAVE,
+                     state=state)
+    return {"sync": np.array(check_replicated_sync(res.params)),
+            "fingerprint": np.array(replicated_fingerprint(res.params),
+                                    dtype=np.int64),
+            "losses": _np(res.losses), "step": np.array(res.state.step)}
+
+
 def main(argv):
     mode, rank, world, init, outdir = argv
     rank, world = int(rank), int(world)
@@ -371,10 +581,15 @@ def main(argv):
         if mode == "world":
             initialize(init_method=init, world_size=world, rank=rank,
                        device="cpu", timeout=TIMEOUT)
-            out = world_cases(rank, world)
+            out = world_cases(rank, world, outdir)
         else:           # torchrun's variables are in the environment
             initialize(device="cpu", timeout=TIMEOUT)
-            out = launcher_cases(rank, world, outdir)
+            if mode == "launcher":
+                out = launcher_cases(rank, world, outdir)
+            elif mode == "crash":
+                out = crash_case(rank, outdir)
+            else:
+                out = resume_case(outdir)
         np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
     except Exception:
         traceback.print_exc()
