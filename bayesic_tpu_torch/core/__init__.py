@@ -1,15 +1,28 @@
-"""Model DSL + joint log-prob compiler (the DLGM path's subset)."""
+"""Model DSL + joint log-prob compiler: the port of ``bayesic_tpu.core``
+(discrete enumeration aside)."""
 
 from . import handlers
-from .logjoint import ModelInfo, build_logjoint, inspect_model
-from .primitives import param, plate, sample
+from .logjoint import (ModelInfo, Potential, build_logjoint, init_to_prior,
+                       init_to_uniform, inspect_model)
+from .primitives import deterministic, factor, param, plate, sample
+from .render import render_model
+from .reparam import LocScaleReparam, Reparam, reparam
 
 __all__ = [
     "handlers",
     "sample",
     "plate",
     "param",
+    "deterministic",
+    "factor",
+    "reparam",
+    "Reparam",
+    "LocScaleReparam",
     "ModelInfo",
+    "Potential",
     "build_logjoint",
     "inspect_model",
+    "init_to_prior",
+    "init_to_uniform",
+    "render_model",
 ]

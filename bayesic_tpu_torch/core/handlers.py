@@ -1,5 +1,5 @@
 """Effect handlers: seed / trace / substitute / condition / scale / mask /
-block.
+block / uncondition.
 
 Counterpart of ``bayesic_tpu/core/handlers.py``.  ``seed`` holds one
 ``torch.Generator`` and hands it to every sample and subsample site in site
@@ -17,7 +17,7 @@ import torch
 from .primitives import HANDLER_STACK
 
 __all__ = ["Handler", "seed", "trace", "substitute", "condition", "scale",
-           "mask", "block"]
+           "block", "uncondition", "mask"]
 
 
 class Handler:
@@ -119,8 +119,18 @@ class scale(Handler):
         self.factor = factor
 
     def process_message(self, msg):
-        if msg["type"] == "sample":
+        if msg["type"] in ("sample", "factor"):
             msg["scale"] = msg["scale"] * self.factor
+
+
+class uncondition(Handler):
+    """Strip observations so likelihood sites resample from their
+    distributions (posterior-predictive replay)."""
+
+    def process_message(self, msg):
+        if msg["type"] == "sample" and msg["is_observed"]:
+            msg["is_observed"] = False
+            msg["value"] = None
 
 
 class mask(Handler):
@@ -135,7 +145,7 @@ class mask(Handler):
         self.mask = mask
 
     def process_message(self, msg):
-        if msg["type"] == "sample":
+        if msg["type"] in ("sample", "factor"):
             prev = msg.get("mask")
             msg["mask"] = self.mask if prev is None \
                 else torch.logical_and(prev, self.mask)

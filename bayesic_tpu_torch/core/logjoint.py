@@ -2,10 +2,11 @@
 space.
 
 Counterpart of ``bayesic_tpu/core/logjoint.py`` without discrete
-enumeration.  The compiler traces the model once to discover its sites,
-then returns closures that replay it under ``substitute``.  JAX replays at
-trace time only; PyTorch is eager, so every call of ``logdensity`` replays
-the handler stack in Python.
+enumeration (a latent site marked ``infer={"enumerate": True}`` raises).
+The compiler traces the model once to discover its sites, then returns
+closures that replay it under ``substitute``.  JAX replays at trace time
+only; PyTorch is eager, so every call of ``logdensity`` replays the
+handler stack in Python.
 """
 
 from __future__ import annotations
@@ -18,9 +19,9 @@ import torch
 from ..dist.transforms import biject_to
 from . import handlers
 
-__all__ = ["ModelInfo", "inspect_model", "build_logjoint", "init_to_prior",
-           "init_population", "priors_fixed", "init_to_uniform",
-           "default_device"]
+__all__ = ["ModelInfo", "inspect_model", "build_logjoint", "Potential",
+           "init_to_prior", "init_population", "priors_fixed",
+           "init_to_uniform", "default_device"]
 
 
 class ModelInfo(NamedTuple):
@@ -28,6 +29,7 @@ class ModelInfo(NamedTuple):
 
     latent_names: tuple
     observed_names: tuple
+    deterministic_names: tuple
     transforms: dict          # latent name -> Transform (R^n -> support)
     site_shapes: dict         # latent name -> constrained shape
     unconstrained_shapes: dict  # latent name -> unconstrained shape
@@ -71,7 +73,7 @@ def inspect_model(model, *args, rng_key=None, **kwargs) -> ModelInfo:
     device the model's draws must land on (CPU generator by default)."""
     gen = rng_key if rng_key is not None else _default_generator()
     tr = _model_trace(model, args, kwargs, gen)
-    latents, observed = [], []
+    latents, observed, deterministics = [], [], []
     transforms, shapes, ushapes, subsample_sites = {}, {}, {}, {}
     param_names, param_transforms, param_init = [], {}, {}
     has_subsample = False
@@ -80,6 +82,10 @@ def inspect_model(model, *args, rng_key=None, **kwargs) -> ModelInfo:
             if site["is_observed"]:
                 observed.append(name)
                 continue
+            if site.get("infer", {}).get("enumerate"):
+                raise ValueError(
+                    f"latent site {name!r} is marked infer={{'enumerate': "
+                    f"True}}; discrete enumeration is not ported.")
             if site["dist"].support.is_discrete:
                 raise ValueError(
                     f"latent site {name!r} is discrete — observe it "
@@ -90,6 +96,8 @@ def inspect_model(model, *args, rng_key=None, **kwargs) -> ModelInfo:
             transforms[name] = t
             shapes[name] = tuple(site["value"].shape)
             ushapes[name] = t.inverse_shape(shapes[name])
+        elif site["type"] == "deterministic":
+            deterministics.append(name)
         elif site["type"] == "subsample":
             if site["subsample_size"] is not None \
                     and site["subsample_size"] < site["size"]:
@@ -106,8 +114,8 @@ def inspect_model(model, *args, rng_key=None, **kwargs) -> ModelInfo:
             param_init[name] = t.inverse(site["value"])
             param_names.append(name)
     return ModelInfo(
-        tuple(latents), tuple(observed), transforms, shapes, ushapes,
-        has_subsample, subsample_sites, tuple(param_names),
+        tuple(latents), tuple(observed), tuple(deterministics), transforms,
+        shapes, ushapes, has_subsample, subsample_sites, tuple(param_names),
         param_transforms, param_init,
     )
 
@@ -199,7 +207,7 @@ def build_logjoint(model, *args, rng_key=None, **kwargs):
       ``logdensity.prior`` the first of the two alone.
     * ``constrain(uparams) -> dict``: latent values in the support.
     * ``postprocess(uparams, rng_key=None, params=None) -> dict``:
-      constrained latents (full replay).
+      constrained latents plus the deterministic sites (full replay).
 
     ``rng_key`` here is the generator of the discovery trace; it fixes the
     device of the draws made while inspecting the model.
@@ -240,9 +248,15 @@ def build_logjoint(model, *args, rng_key=None, **kwargs):
         m = site.get("mask")
         return lp if m is None else torch.where(m, lp, torch.zeros_like(lp))
 
+    def _factor(site):
+        return site["scale"] * torch.sum(
+            _apply_mask(site, torch.as_tensor(site["value"])))
+
     def _accumulate(tr, uparams):
         total = 0.0
         for name, site in tr.items():
+            if site["type"] == "factor":
+                total = total + _factor(site)
             if site["type"] != "sample":
                 continue
             lp = _apply_mask(site, site["dist"].log_prob(site["value"]))
@@ -265,6 +279,8 @@ def build_logjoint(model, *args, rng_key=None, **kwargs):
                         model_kwargs, params)
         log_prior, log_lik = 0.0, 0.0
         for name, site in tr.items():
+            if site["type"] == "factor" and lik:
+                log_lik = log_lik + _factor(site)
             if site["type"] != "sample" or (site["is_observed"]
                                             and not lik):
                 continue
@@ -280,8 +296,9 @@ def build_logjoint(model, *args, rng_key=None, **kwargs):
 
     def logdensity_parts(uparams, rng_key=None, subsample=None,
                          model_args=None, model_kwargs=None, params=None):
-        """(log prior + Jacobians, log likelihood): observed sites make the
-        likelihood, latent sites and their Jacobians the prior."""
+        """(log prior + Jacobians, log likelihood): observed sites and
+        factors make the likelihood, latent sites and their Jacobians the
+        prior."""
         return _parts(uparams, rng_key, subsample, model_args, model_kwargs,
                       params, True)
 
@@ -301,11 +318,73 @@ def build_logjoint(model, *args, rng_key=None, **kwargs):
         }
 
     def postprocess(uparams, rng_key=None, params=None):
-        # deterministic sites are not ported, so a replay adds nothing to
-        # the constrained latents yet; it still checks the model runs
-        _, values = _replay(uparams, rng_key, None, params=params)
-        return values
+        """``params``: unconstrained values of the model's ``param`` sites;
+        without them a deterministic site downstream of a trained param
+        would be recomputed from the init values."""
+        tr, values = _replay(uparams, rng_key, None, params=params)
+        out = dict(values)
+        for n in info.deterministic_names:
+            out[n] = tr[n]["value"]
+        return out
 
     logdensity.parts = logdensity_parts
     logdensity.prior = logdensity_prior
     return info, logdensity, constrain, postprocess
+
+
+def _flatten(tree):
+    """Leaves of a pytree of tensors in ``jax.flatten_util.ravel_pytree``'s
+    order (dict keys sorted, sequences in order) and a rebuilder."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        parts = [_flatten(tree[k]) for k in keys]
+
+        def build(leaves):
+            out, i = {}, 0
+            for k, (sub, rebuild) in zip(keys, parts):
+                out[k] = rebuild(leaves[i:i + len(sub)])
+                i += len(sub)
+            return out
+        return [leaf for sub, _ in parts for leaf in sub], build
+    if isinstance(tree, (list, tuple)):
+        parts = [_flatten(t) for t in tree]
+
+        def build(leaves):
+            out, i = [], 0
+            for sub, rebuild in parts:
+                out.append(rebuild(leaves[i:i + len(sub)]))
+                i += len(sub)
+            return type(tree)(out)
+        return [leaf for sub, _ in parts for leaf in sub], build
+    return [torch.as_tensor(tree)], lambda leaves: leaves[0]
+
+
+class Potential:
+    """Flat-vector view of a log-joint for HMC/NUTS: the negative
+    log-density over one raveled parameter vector.  The vector's order is
+    the JAX package's ``ravel_pytree`` of the same ``uparams`` (dict keys
+    sorted), so one flat vector means the same point in both packages."""
+
+    def __init__(self, logdensity, uparams_example):
+        leaves, build = _flatten(uparams_example)
+        shapes = [tuple(x.shape) for x in leaves]
+        sizes = [math.prod(s) for s in shapes]
+        self.example_flat = torch.cat([x.reshape(-1) for x in leaves])
+        self.dim = int(self.example_flat.shape[0])
+        self._logdensity = logdensity
+
+        def unravel(flat):
+            chunks = torch.split(flat, sizes, dim=-1)
+            batch = tuple(flat.shape[:-1])
+            return build([c.reshape(batch + s)
+                          for c, s in zip(chunks, shapes)])
+
+        self.unravel = unravel
+
+    def __call__(self, q, **kw):
+        return -self._logdensity(self.unravel(q), **kw)
+
+    def value_and_grad(self, q, **kw):
+        grad, value = torch.func.grad_and_value(
+            lambda qq: self(qq, **kw))(q)
+        return value, grad

@@ -1,4 +1,5 @@
-"""Model-DSL primitives: ``sample``, ``plate``, ``param``.
+"""Model-DSL primitives: ``sample``, ``plate``, ``param``,
+``deterministic``, ``factor``.
 
 Counterpart of ``bayesic_tpu/core/primitives.py``.  A model is an ordinary
 Python function that calls these primitives; handlers (handlers.py)
@@ -14,7 +15,8 @@ import torch
 from ..dist import constraints
 from ..dist.distribution import Distribution
 
-__all__ = ["sample", "plate", "param", "apply_stack", "HANDLER_STACK"]
+__all__ = ["sample", "plate", "param", "deterministic", "factor",
+           "apply_stack", "HANDLER_STACK"]
 
 # Innermost handler is last.  Module-level, as in the JAX package: handlers
 # are entered and left around one model call on one thread.
@@ -85,14 +87,18 @@ def default_process(msg):
                                               device=gen.device)[:ssize]
     elif t == "param":
         msg["value"] = msg["init_value"]
+    elif t in ("deterministic", "factor"):
+        pass
     else:
         raise ValueError(f"unknown message type {t!r}")
 
 
-def sample(name, fn, obs=None, rng_key=None, sample_shape=()):
+def sample(name, fn, obs=None, rng_key=None, sample_shape=(), infer=None):
     """Declare a random variable ``name`` with distribution ``fn``; if
     ``obs`` is given the site is an observed likelihood term.  ``rng_key``
-    is a ``torch.Generator``."""
+    is a ``torch.Generator``.  ``infer`` carries inference hints and is
+    recorded in the trace; ``build_logjoint`` refuses a latent site marked
+    ``{"enumerate": True}`` (discrete enumeration is not ported)."""
     if not isinstance(fn, Distribution):
         raise TypeError(f"sample({name!r}): fn must be a Distribution")
     if not HANDLER_STACK and obs is None and rng_key is None:
@@ -102,6 +108,7 @@ def sample(name, fn, obs=None, rng_key=None, sample_shape=()):
     msg = _new_msg(
         "sample", name, dist=fn, value=obs,
         is_observed=obs is not None, key=rng_key, sample_shape=sample_shape,
+        infer=infer or {},
     )
     apply_stack(msg)
     return msg["value"]
@@ -111,6 +118,20 @@ def param(name, init_value=None, constraint=constraints.real):
     """Declare a learnable parameter site.  ``init_value`` is a tensor or a
     dict of tensors (e.g. a module's parameters)."""
     msg = _new_msg("param", name, init_value=init_value, constraint=constraint)
+    apply_stack(msg)
+    return msg["value"]
+
+
+def deterministic(name, value):
+    """Record a derived quantity in the trace."""
+    msg = _new_msg("deterministic", name, value=value)
+    apply_stack(msg)
+    return msg["value"]
+
+
+def factor(name, log_factor):
+    """Add an arbitrary term to the joint log-density."""
+    msg = _new_msg("factor", name, value=log_factor)
     apply_stack(msg)
     return msg["value"]
 
@@ -174,7 +195,7 @@ class plate:
 
     # -- as a handler on the stack ----------------------------------------
     def process_message(self, msg):
-        if msg["type"] == "sample":
+        if msg["type"] in ("sample", "factor"):
             msg["scale"] = msg["scale"] * self.scale
             msg["plates"] = msg["plates"] + (self,)
 

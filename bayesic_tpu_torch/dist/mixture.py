@@ -41,6 +41,8 @@ class MixtureSameFamily(Distribution):
     def support(self):
         return self.components.support
 
+    reparametrized = False  # the discrete index breaks the pathwise gradient
+
     def log_prob(self, x):
         ev = len(self.components.event_shape)
         comp_lp = self.components.log_prob(x.unsqueeze(-1 - ev))  # (..., K)
@@ -55,6 +57,13 @@ class MixtureSameFamily(Distribution):
         idx = idx.reshape(idx.shape + (1,) * (1 + ev)).expand(
             idx.shape + (1,) + comps.shape[comps.dim() - ev:])
         return torch.gather(comps, -1 - ev, idx).squeeze(-1 - ev)
+
+    @property
+    def mean(self):
+        ev = len(self.components.event_shape)
+        w = self.mixing.probs
+        w = w.reshape(tuple(w.shape) + (1,) * ev)
+        return torch.sum(w * self.components.mean, -1 - ev)
 
     def expand(self, batch_shape):
         batch_shape = tuple(batch_shape)

@@ -2,9 +2,10 @@
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: the DLGM's
 SVI and local-posterior NUTS, the hierarchical logistic regression's SVI
 and full-batch NUTS, the Gaussian mixture's tempered SMC, the linear
-regression's SVI, the matrix factorization's mini-batch and dense SVI, and
+regression's SVI, the matrix factorization's mini-batch and dense SVI,
 the sharded (multi-rank) forms of the DLGM, hier, linreg, GMM and dense MF
-paths.
+paths, and the model DSL's breadth (every distribution family, the
+generic MCMC and SVI on further models).
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
 hand-written kernels from ``bayesic_tpu_torch/csrc/``.
@@ -80,6 +81,17 @@ their RMSE and final losses; time the kernel (its device time, queued
 behind a spin kernel, and a call's time with the host's cost), its plain
 version and the eager autograd path, and trace ``fused_train``.
 
+Phase 28, the breadth of ``dist`` and ``core`` (no kernel): every
+distribution family's log_prob, mean, variance, entropy, cdf and icdf on
+2^20 seeded points on the card against the same call on the CPU, and
+each family built from Python floats evaluated on the card; 10^6 draws
+of each family on the card, in the support, with the moments (or, for
+heavy tails, the quartiles) against the analytic values; and the JAX
+package's own tests' models through the generic ``MCMC`` and ``SVI`` on
+the card: 8-schools non-centered by ``LocScaleReparam`` (with
+``render_model``'s text), the Wishart-precision conjugate, the LKJ prior
+alone, and a negative-binomial regression at 100,000 rows by SVI.
+
 Phases 26-27, the sharded paths (``bayesic_tpu_torch.parallel``,
 ``MCMC(chain_sharding=)``): at world size 1 on NCCL in this process,
 ``dp_gram`` and the linreg trainer on it, ``dp_svi_run`` on the linreg
@@ -128,6 +140,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -244,6 +257,30 @@ W1_SVI_STEPS, W1_SEGMENTS, W1_NUTS = 50, 20, 20
 # from a file; the resampler at the GMM bench's 8,192 particles
 W1_MF_STEPS, DP_MF_STEPS = 200, 1000
 DP_GMM_MODES = ("fused", "kernels")
+# phase 28, the breadth of dist and core: (a) 2^20 seeded points a family,
+# the card against the CPU at BREADTH_LIMITS (rtol, atol), at
+# BREADTH_SPECIAL for values through gammainc, the incomplete beta,
+# i0e/i1e, ndtri or the multivariate log-gamma; (b) BREADTH_DRAWS draws a
+# family, moments by batch means over BREADTH_BATCHES batches; (c) the JAX
+# package's own tests' models: 8-schools (tests/test_logjoint.py:262), the
+# Wishart-precision conjugate (tests/test_multivariate_extra.py:131) and
+# the LKJ prior under NUTS as (chains, warmup, samples), and a
+# negative-binomial regression at a size users fit by SVI
+BREADTH_POINTS = 1 << 20
+BREADTH_LIMITS, BREADTH_SPECIAL = (1e-5, 1e-6), (1e-4, 1e-5)
+BREADTH_DRAWS, BREADTH_BATCHES = 1_000_000, 100
+# the families the earlier slices ported: their new members are gated,
+# their float32 log_prob (the five models' paths) is measured
+OLDER_FAMILIES = ("Normal", "HalfNormal", "Bernoulli", "Categorical",
+                  "Dirichlet")
+BREADTH_NUTS = {"schools": (64, 400, 400), "wishart": (64, 500, 500),
+                "lkj": (64, 300, 300)}
+SCHOOLS_Y = (28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0)
+SCHOOLS_SIGMA = (15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0)
+NEGBIN = dict(rows=100_000, dim=16, steps=2000, lr=0.01, conc=5.0)
+# 28(c)'s runs, each in a process of its own, and their deadline (s)
+BREADTH_RUNS = ("schools", "wishart", "lkj", "negbin")
+BREADTH_DEADLINE = 600
 # published peaks of one H100 SXM (NVIDIA data sheet): FP32 outside the
 # tensor cores, dense bf16 and TF32 on them, and HBM3; the SFU does 16
 # exp/log/rcp per SM per clock, at the 1.98 GHz boost clock on 132 SMs
@@ -1928,16 +1965,22 @@ def _gmm_phases(torch, np, card, dev):
     margs = (q0, mom, log_u, 1.0, 0.03, m_inv, x)
     mkw = dict(k=k, d=d, kmut=kmut, lsteps=lsteps)
     fsg.fused_gmm_mutate(*margs, **mkw)
+    # the timed calls take beta and the step on the card, as the SMC stage
+    # passes them: a Python number is copied to the card with a host sync
+    # each call, which would wait out the spin
+    beta_t, step_t = (torch.tensor(v, device=dev) for v in (1.0, 0.03))
+    t_args = (q0, mom, log_u, beta_t, step_t, m_inv, x)
     ms["mutate"] = (
-        _cuda_ms(torch, lambda: fsg.fused_gmm_mutate(*margs, **mkw), 5)[0],
+        _device_ms(torch, lambda: fsg.fused_gmm_mutate(*t_args, **mkw),
+                   GMM_TIMED),
         _cuda_ms(torch, lambda: fsg.mutation_core(
             q0, mom, log_u, 1.0, 0.03, m_inv, pg, kmut, lsteps, 0.65))[0])
     # one adaptation block alone: one cluster's latency, without the fill
     b_args = (q0[:fsg.PB].contiguous(), mom[:, :fsg.PB].contiguous(),
-              log_u[:fsg.PB].contiguous(), 1.0, 0.03, m_inv, x)
+              log_u[:fsg.PB].contiguous(), beta_t, step_t, m_inv, x)
     fsg.fused_gmm_mutate(*b_args, **mkw)
-    ms_block = _cuda_ms(torch, lambda: fsg.fused_gmm_mutate(*b_args, **mkw),
-                        5)[0]
+    ms_block = _device_ms(torch, lambda: fsg.fused_gmm_mutate(*b_args, **mkw),
+                          GMM_TIMED)
     geo = fsg.device_geometry(n_b, k, d)
     want_geo = fsg.launch_geometry(p_b, k, d)
     if any(geo[kk] != want_geo[kk] for kk in ("cluster", "threads",
@@ -1998,8 +2041,8 @@ def _gmm_phases(torch, np, card, dev):
         f"bound {fp32[kk][0]:.4f} ms ({fp32[kk][1]}), SFU "
         f"{_sfu_ms(cost[kk][2]):.4f} ms ({sfu_pair[kk]:g} a pair)"
         for kk in ms)
-        + f" (mutate per stage, the others per call, the likelihood "
-        f"kernels' device time queued behind a spin; the wrappers' host time "
+        + f" (mutate per stage, the others per call, the four kernels' "
+        f"device time queued behind a spin; the wrappers' host time "
         f"a call: " + ", ".join(f"{kk} {v:.4f} ms" for kk, v in
                                 host_ms.items())
         + f"); launches at P {p_b}: " + "; ".join(lik_geo)
@@ -3227,6 +3270,848 @@ def _particle_gates(np, outs, refs):
     return lines, "; ".join(rates)
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the breadth of dist and core (no kernel: the families run as
+# PyTorch ops on the card, the models through the generic MCMC and SVI)
+# ---------------------------------------------------------------------------
+
+def _b_params(np, rng, n, spec):
+    """A family's parameters: a dict of float32 arrays (a batch of n) from
+    ``spec``, each a (low, high) uniform range or a function of (rng, n)."""
+    out = {}
+    for k, v in spec.items():
+        out[k] = (np.asarray(v(rng, n), np.float32) if callable(v)
+                  else rng.uniform(v[0], v[1], n).astype(np.float32))
+    return out
+
+
+def _b_tril(np, d):
+    def make(rng, n):
+        t = np.tril(rng.normal(size=(n, d, d)) * 0.4, -1)
+        return t + np.eye(d) * rng.uniform(0.5, 1.5, size=(n, 1, d))
+    return make
+
+
+def _b_spd(np, rng, n, d):
+    a = rng.normal(size=(n, d, d))
+    return (a @ np.swapaxes(a, -1, -2) / d + np.eye(d)).astype(np.float32)
+
+
+def _b_corr(np, rng, n, d):
+    t = np.tril(rng.normal(size=(n, d, d)), -1) \
+        + np.eye(d) * rng.uniform(0.3, 1.5, size=(n, 1, d))
+    return (t / np.linalg.norm(t, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def _breadth_families(np):
+    """Phase 28(a)'s families: (name, parameter spec, build(dist, P) from
+    tensors P, points(rng, p, n) in the support, the members whose values
+    go through gammainc, the incomplete beta, i0e/i1e, ndtri or the
+    multivariate log-gamma, and the family built from Python floats with
+    its points, for the pass that checks floats broadcast on the card)."""
+    nrm = (lambda r, p, n: 2.0 * r.normal(size=n))
+    ints = (lambda lo, hi: lambda r, n: r.integers(lo, hi, n))
+
+    def counts(total, k):
+        def make(r, p, n):
+            tot = np.broadcast_to(total(p), (n,)).astype(np.int64)
+            pr = r.dirichlet(np.ones(k), n)
+            return r.multinomial(tot, pr).astype(np.float32)
+        return make
+
+    tril3, tril2 = _b_tril(np, 3), _b_tril(np, 2)
+    return [
+        ("Normal", dict(loc=(-2, 2), scale=(0.3, 2)),
+         lambda d, P: d.Normal(P["loc"], P["scale"]), nrm, {"icdf"},
+         (lambda d: d.Normal(0.5, 1.5), nrm)),
+        ("LogNormal", dict(loc=(-1, 1), scale=(0.2, 1)),
+         lambda d, P: d.LogNormal(P["loc"], P["scale"]),
+         lambda r, p, n: r.lognormal(size=n), {"icdf"},
+         (lambda d: d.LogNormal(0.3, 0.5), lambda r, p, n: r.lognormal(
+             size=n))),
+        ("HalfNormal", dict(scale=(0.3, 2)),
+         lambda d, P: d.HalfNormal(P["scale"]),
+         lambda r, p, n: np.abs(r.normal(size=n)), set(),
+         (lambda d: d.HalfNormal(1.5), lambda r, p, n: np.abs(
+             r.normal(size=n)))),
+        ("Cauchy", dict(loc=(-2, 2), scale=(0.3, 2)),
+         lambda d, P: d.Cauchy(P["loc"], P["scale"]),
+         lambda r, p, n: 3.0 * r.normal(size=n), set(),
+         (lambda d: d.Cauchy(1.0, 2.0), nrm)),
+        ("HalfCauchy", dict(scale=(0.3, 2)),
+         lambda d, P: d.HalfCauchy(P["scale"]),
+         lambda r, p, n: np.abs(3.0 * r.normal(size=n)), set(),
+         (lambda d: d.HalfCauchy(5.0), lambda r, p, n: np.abs(
+             r.normal(size=n)))),
+        ("StudentT", dict(df=(0.5, 8), loc=(-2, 2), scale=(0.3, 2)),
+         lambda d, P: d.StudentT(P["df"], P["loc"], P["scale"]),
+         lambda r, p, n: 3.0 * r.normal(size=n), {"cdf"},
+         (lambda d: d.StudentT(3.0, 0.5, 1.5), nrm)),
+        ("Laplace", dict(loc=(-2, 2), scale=(0.3, 2)),
+         lambda d, P: d.Laplace(P["loc"], P["scale"]), nrm, set(),
+         (lambda d: d.Laplace(1.0, 2.0), nrm)),
+        ("Exponential", dict(rate=(0.3, 3)),
+         lambda d, P: d.Exponential(P["rate"]),
+         lambda r, p, n: r.exponential(size=n), set(),
+         (lambda d: d.Exponential(1.5), lambda r, p, n: r.exponential(
+             size=n))),
+        ("Gamma", dict(c=(0.2, 5), r=(0.3, 3)),
+         lambda d, P: d.Gamma(P["c"], P["r"]),
+         lambda r, p, n: r.gamma(2.0, size=n), {"cdf"},
+         (lambda d: d.Gamma(2.0, 0.1), lambda r, p, n: r.gamma(
+             2.0, size=n) * 10.0)),
+        ("InverseGamma", dict(c=(0.5, 5), s=(0.3, 3)),
+         lambda d, P: d.InverseGamma(P["c"], P["s"]),
+         lambda r, p, n: 1.0 / r.gamma(2.0, size=n), set(),
+         (lambda d: d.InverseGamma(3.0, 2.0), lambda r, p, n: 1.0 / r.gamma(
+             2.0, size=n))),
+        ("Beta", dict(a=(0.3, 5), b=(0.3, 5)),
+         lambda d, P: d.Beta(P["a"], P["b"]),
+         lambda r, p, n: r.uniform(0.01, 0.99, n), {"cdf"},
+         (lambda d: d.Beta(2.0, 3.0), lambda r, p, n: r.uniform(
+             0.01, 0.99, n))),
+        ("Uniform", dict(lo=(-2, 0), hi=(0.5, 3)),
+         lambda d, P: d.Uniform(P["lo"], P["hi"]),
+         lambda r, p, n: r.uniform(-2.5, 3.5, n), set(),
+         (lambda d: d.Uniform(-1.0, 3.0), lambda r, p, n: r.uniform(
+             -2.0, 4.0, n))),
+        ("TruncatedNormal",
+         dict(loc=(-1, 1), scale=(0.5, 2), low=(-2, -0.5), high=(0, 2)),
+         lambda d, P: d.TruncatedNormal(P["loc"], P["scale"], P["low"],
+                                        P["high"]),
+         lambda r, p, n: r.uniform(-2.5, 2.5, n), set(),
+         (lambda d: d.TruncatedNormal(0.5, 1.5, -1.0, 2.0),
+          lambda r, p, n: r.uniform(-1.5, 2.5, n))),
+        ("Weibull", dict(s=(0.5, 2), k=(0.5, 3)),
+         lambda d, P: d.Weibull(P["s"], P["k"]),
+         lambda r, p, n: r.exponential(size=n) + 0.01, set(),
+         (lambda d: d.Weibull(1.5, 2.0), lambda r, p, n: r.exponential(
+             size=n) + 0.01)),
+        ("Gumbel", dict(loc=(-2, 2), scale=(0.3, 2)),
+         lambda d, P: d.Gumbel(P["loc"], P["scale"]), nrm, set(),
+         (lambda d: d.Gumbel(0.5, 1.2), nrm)),
+        ("Pareto", dict(s=(0.5, 2), a=(1.5, 4)),
+         lambda d, P: d.Pareto(P["s"], P["a"]),
+         lambda r, p, n: p["s"] * (1.0 + r.exponential(size=n)), set(),
+         (lambda d: d.Pareto(1.0, 2.0), lambda r, p, n: 1.0
+          + r.exponential(size=n))),
+        ("Chi2", dict(df=(0.5, 8)),
+         lambda d, P: d.Chi2(P["df"]),
+         lambda r, p, n: r.gamma(2.0, size=n), {"cdf"},
+         (lambda d: d.Chi2(4.0), lambda r, p, n: r.gamma(2.0, size=n))),
+        ("Bernoulli", dict(p=(0.05, 0.95)),
+         lambda d, P: d.Bernoulli(probs=P["p"]),
+         lambda r, p, n: r.integers(0, 2, n), set(),
+         (lambda d: d.Bernoulli(probs=0.3), lambda r, p, n: r.integers(
+             0, 2, n))),
+        ("Binomial", dict(n=ints(1, 20), p=(0.05, 0.95)),
+         lambda d, P: d.Binomial(P["n"], probs=P["p"]),
+         lambda r, p, n: np.floor(r.uniform(0, 1, n) * (p["n"] + 1)), set(),
+         (lambda d: d.Binomial(12.0, probs=0.3), lambda r, p, n: r.integers(
+             0, 13, n))),
+        ("Categorical",
+         dict(probs=lambda r, n: r.dirichlet(np.ones(4), n)),
+         lambda d, P: d.Categorical(probs=P["probs"]),
+         lambda r, p, n: r.integers(0, 4, n), set(), None),
+        ("OrderedLogistic",
+         dict(eta=(-2, 2),
+              cut=lambda r, n: np.sort(1.5 * r.normal(size=(n, 3)), -1)),
+         lambda d, P: d.OrderedLogistic(P["eta"], P["cut"]),
+         lambda r, p, n: r.integers(0, 4, n), set(), None),
+        ("Poisson", dict(rate=(0.5, 8)),
+         lambda d, P: d.Poisson(P["rate"]),
+         lambda r, p, n: r.poisson(3.0, n), set(),
+         (lambda d: d.Poisson(3.5), lambda r, p, n: r.poisson(3.0, n))),
+        ("Geometric", dict(p=(0.1, 0.9)),
+         lambda d, P: d.Geometric(probs=P["p"]),
+         lambda r, p, n: r.geometric(0.4, n) - 1, set(),
+         (lambda d: d.Geometric(probs=0.3), lambda r, p, n: r.geometric(
+             0.4, n) - 1)),
+        ("NegativeBinomial", dict(r=(0.5, 6), p=(0.1, 0.8)),
+         lambda d, P: d.NegativeBinomial(P["r"], probs=P["p"]),
+         lambda r, p, n: r.poisson(3.0, n), set(),
+         (lambda d: d.NegativeBinomial(5.0, probs=0.4),
+          lambda r, p, n: r.poisson(3.0, n))),
+        ("Multinomial",
+         dict(probs=lambda r, n: r.dirichlet(2 * np.ones(3), n)),
+         lambda d, P: d.Multinomial(10, probs=P["probs"]),
+         counts(lambda p: 10, 3), set(), None),
+        ("MultivariateNormal",
+         dict(loc=lambda r, n: r.normal(size=(n, 3)), L=tril3),
+         lambda d, P: d.MultivariateNormal(P["loc"], scale_tril=P["L"]),
+         lambda r, p, n: 2.0 * r.normal(size=(n, 3)), set(), None),
+        ("Dirichlet", dict(alpha=lambda r, n: r.uniform(0.5, 4, (n, 3))),
+         lambda d, P: d.Dirichlet(P["alpha"]),
+         lambda r, p, n: r.dirichlet(np.ones(3), n), set(), None),
+        ("LKJCholesky", dict(eta=(0.5, 4)),
+         lambda d, P: d.LKJCholesky(3, P["eta"]),
+         lambda r, p, n: _b_corr(np, r, n, 3), set(),
+         (lambda d: d.LKJCholesky(3, 2.0),
+          lambda r, p, n: _b_corr(np, r, n, 3))),
+        ("MultivariateStudentT",
+         dict(df=(3, 9), loc=lambda r, n: r.normal(size=(n, 3)), L=tril3),
+         lambda d, P: d.MultivariateStudentT(P["df"], P["loc"], P["L"]),
+         lambda r, p, n: 2.0 * r.normal(size=(n, 3)), set(), None),
+        ("MatrixNormal",
+         dict(loc=lambda r, n: r.normal(size=(n, 2, 3)), R=tril2, C=tril3),
+         lambda d, P: d.MatrixNormal(P["loc"], P["R"], P["C"]),
+         lambda r, p, n: r.normal(size=(n, 2, 3)), set(), None),
+        ("Wishart", dict(df=(3, 8), L=tril3),
+         lambda d, P: d.Wishart(P["df"], P["L"]),
+         lambda r, p, n: _b_spd(np, r, n, 3), {"log_prob"}, None),
+        ("InverseWishart", dict(df=(7.5, 10), L=tril3),
+         lambda d, P: d.InverseWishart(P["df"], P["L"]),
+         lambda r, p, n: _b_spd(np, r, n, 3), {"log_prob"}, None),
+        ("BetaBinomial", dict(a=(0.5, 4), b=(0.5, 4), n=ints(1, 15)),
+         lambda d, P: d.BetaBinomial(P["a"], P["b"], P["n"]),
+         lambda r, p, n: np.floor(r.uniform(0, 1, n) * (p["n"] + 1)), set(),
+         (lambda d: d.BetaBinomial(2.0, 3.0, 10.0),
+          lambda r, p, n: r.integers(0, 11, n))),
+        ("DirichletMultinomial",
+         dict(alpha=lambda r, n: r.uniform(0.5, 4, (n, 3)), n=ints(1, 12)),
+         lambda d, P: d.DirichletMultinomial(P["alpha"], P["n"]),
+         counts(lambda p: p["n"], 3), set(), None),
+        ("GaussianRandomWalk", dict(s=(0.3, 2)),
+         lambda d, P: d.GaussianRandomWalk(P["s"], num_steps=5),
+         lambda r, p, n: np.cumsum(r.normal(size=(n, 5)), -1), set(),
+         (lambda d: d.GaussianRandomWalk(1.5, num_steps=5),
+          lambda r, p, n: np.cumsum(r.normal(size=(n, 5)), -1))),
+        ("VonMises", dict(loc=(-2, 2), k=(0.01, 10)),
+         lambda d, P: d.VonMises(P["loc"], P["k"]),
+         lambda r, p, n: r.uniform(-np.pi, np.pi, n),
+         {"log_prob", "variance"},
+         (lambda d: d.VonMises(1.0, 2.0), lambda r, p, n: r.uniform(
+             -np.pi, np.pi, n))),
+        ("ZeroInflatedDistribution", dict(g=(-2, 2), rate=(0.5, 6)),
+         lambda d, P: d.ZeroInflatedDistribution(
+             d.Poisson(P["rate"]), gate_logits=P["g"]),
+         lambda r, p, n: r.poisson(1.0, n), set(),
+         (lambda d: d.ZeroInflatedDistribution(d.Poisson(4.0),
+                                               gate_logits=-0.5),
+          lambda r, p, n: r.poisson(1.0, n))),
+        ("ZeroInflatedPoisson", dict(g=(0.05, 0.8), rate=(0.5, 6)),
+         lambda d, P: d.ZeroInflatedPoisson(P["g"], P["rate"]),
+         lambda r, p, n: r.poisson(1.0, n), set(),
+         (lambda d: d.ZeroInflatedPoisson(0.3, 4.0),
+          lambda r, p, n: r.poisson(1.0, n))),
+        ("ZeroInflatedNegativeBinomial",
+         dict(g=(0.05, 0.8), r=(0.5, 6), p=(0.1, 0.8)),
+         lambda d, P: d.ZeroInflatedNegativeBinomial(P["g"], P["r"],
+                                                     probs=P["p"]),
+         lambda r, p, n: r.poisson(1.5, n), set(),
+         (lambda d: d.ZeroInflatedNegativeBinomial(0.2, 5.0, probs=0.4),
+          lambda r, p, n: r.poisson(1.5, n))),
+        ("Censored",
+         dict(loc=(-1, 1), scale=(0.5, 2), lo=(-2, -0.5), hi=(0.5, 2)),
+         lambda d, P: d.Censored(d.Normal(P["loc"], P["scale"]),
+                                 lower=P["lo"], upper=P["hi"]),
+         lambda r, p, n: np.clip(2.0 * r.normal(size=n), p["lo"], p["hi"]),
+         set(),
+         (lambda d: d.Censored(d.Normal(0.5, 1.5), lower=-1.0, upper=2.0),
+          lambda r, p, n: np.clip(2.0 * r.normal(size=n), -1.0, 2.0))),
+        ("Truncated",
+         dict(loc=(-1, 1), scale=(0.5, 2), lo=(-2, -0.5), hi=(0.5, 2)),
+         lambda d, P: d.Truncated(d.Normal(P["loc"], P["scale"]),
+                                  lower=P["lo"], upper=P["hi"]),
+         lambda r, p, n: r.uniform(-2.5, 2.5, n), set(),
+         (lambda d: d.Truncated(d.Gamma(2.0, 1.0), lower=0.5, upper=3.0),
+          lambda r, p, n: r.uniform(0.0, 3.5, n))),
+        ("Delta", dict(v=(-2, 2)),
+         lambda d, P: d.Delta(P["v"]),
+         lambda r, p, n: np.where(r.uniform(size=n) < 0.5, p["v"],
+                                  p["v"] + 1.0), set(),
+         (lambda d: d.Delta(1.5), lambda r, p, n: np.where(
+             r.uniform(size=n) < 0.5, 1.5, 2.5))),
+        ("TransformedDistribution", dict(loc=(-1, 1), scale=(0.2, 1)),
+         lambda d, P: d.TransformedDistribution(
+             d.Normal(P["loc"], P["scale"]), d.transforms.Exp()),
+         lambda r, p, n: r.lognormal(size=n), set(),
+         (lambda d: d.TransformedDistribution(d.Normal(0.3, 0.5),
+                                              d.transforms.Exp()),
+          lambda r, p, n: r.lognormal(size=n))),
+    ]
+
+
+def _b_member(d, member, arg):
+    """``d``'s member where the class defines it, else None."""
+    try:
+        attr = getattr(d, member)
+        if member == "entropy":
+            return attr()
+        return attr(arg) if member in ("cdf", "icdf") else attr
+    except (NotImplementedError, AttributeError):
+        return None
+
+
+def _b_excess(torch, got, want, limits):
+    """max |got - want| / (atol + rtol |want|) over finite entries, and
+    whether the non-finite entries (NaN, +-inf) sit at the same places."""
+    rtol, atol = limits
+    got, want = got.double(), want.to(got.device).double()
+    fin = torch.isfinite(want)
+    same = bool(torch.equal(fin, torch.isfinite(got))) and bool(
+        torch.equal(got[~fin].nan_to_num(nan=7.0), want[~fin].nan_to_num(
+            nan=7.0)))
+    excess = ((got - want).abs() / (atol + rtol * want.abs()))[fin]
+    return (float(excess.max()) if excess.numel() else 0.0), same
+
+
+def _breadth_parity(torch, np, dev):
+    """28(a): every family's log_prob and members on 2^20 seeded points, the
+    card against the CPU; then each built from Python floats."""
+    import bayesic_tpu_torch.dist as dist
+
+    n = BREADTH_POINTS
+    worst, checked, older = {}, 0, {}
+    for name, pspec, build, points, special, floats in \
+            _breadth_families(np):
+        rng = np.random.default_rng(sum(map(ord, name)))
+        p = _b_params(np, rng, n, pspec)
+        x = np.asarray(points(rng, p, n), np.float32)
+        q = rng.uniform(0.02, 0.98, x.shape).astype(np.float32)
+        outs = {}
+        for where in ("cpu", dev):
+            P = {k: torch.as_tensor(v, device=where) for k, v in p.items()}
+            d = build(dist, P)
+            xt = torch.as_tensor(x, device=where)
+            if name in ("Categorical", "OrderedLogistic"):
+                xt = xt.long()
+            res = {"log_prob": d.log_prob(xt)}
+            for m in ("mean", "variance", "entropy", "cdf", "icdf"):
+                arg = torch.as_tensor(q if m == "icdf" else x, device=where)
+                res[m] = _b_member(d, m, arg)
+            outs[str(where)] = res
+        for m, g in outs[str(dev)].items():
+            c = outs["cpu"][m]
+            if (g is None) != (c is None):
+                raise AssertionError(f"phase 28(a): {name}.{m} defined on "
+                                     f"one device only")
+            if g is None:
+                continue
+            if g.device.type != dev.type:
+                raise AssertionError(f"phase 28(a): {name}.{m} computed on "
+                                     f"{g.device}, not the card")
+            lim = BREADTH_SPECIAL if m in special else BREADTH_LIMITS
+            ex, same = _b_excess(torch, g, c, lim)
+            if m == "log_prob" and name in OLDER_FAMILIES:
+                # a density the earlier slices ported, summed in float32:
+                # measured, and gated by its own path's phases
+                older[name] = (ex, same)
+                continue
+            if ex > 1.0 or not same:
+                raise AssertionError(
+                    f"phase 28(a): {name}.{m} on the card against the CPU: "
+                    f"{ex:.3g} x the limit rtol {lim[0]:g} / atol "
+                    f"{lim[1]:g} (non-finite entries alike: {same})")
+            worst[f"{name}.{m}"] = ex
+            checked += 1
+        if floats is None:
+            continue
+        make, fpoints = floats
+        xf = np.asarray(fpoints(rng, p, n), np.float32)
+        if name in OLDER_FAMILIES:
+            continue
+        got = make(dist).log_prob(torch.as_tensor(xf, device=dev))
+        want = make(dist).log_prob(torch.as_tensor(xf))
+        if got.device.type != dev.type:
+            raise AssertionError(f"phase 28(a): {name} from floats computed "
+                                 f"on {got.device}")
+        ex, same = _b_excess(torch, got, want, BREADTH_LIMITS)
+        if ex > 1.0 or not same:
+            raise AssertionError(f"phase 28(a): {name} from floats, card vs "
+                                 f"CPU: {ex:.3g} x the limit")
+        worst[f"{name}(floats).log_prob"] = ex
+        checked += 1
+    return worst, checked, older
+
+
+def _b_quantiles(torch, d, probs, lo, hi):
+    """Quantiles of a scalar family on the card by 60 bisection steps on
+    its cdf."""
+    q = torch.as_tensor(probs, dtype=torch.float32, device=d.loc.device)
+    lo, hi = torch.full_like(q, lo), torch.full_like(q, hi)
+    for _ in range(60):
+        mid = 0.5 * (lo + hi)
+        below = d.cdf(mid) < q
+        lo, hi = torch.where(below, mid, lo), torch.where(below, hi, mid)
+    return 0.5 * (lo + hi)
+
+
+def _breadth_samplers(np, torch, dev):
+    """28(b) families: (name, family on the card, check), the check one of
+    ("mv", mean, variance or None), ("q", quartiles), ("lkj",), ("vm",),
+    ("delta", value); the analytic values are float64 numpy arrays (the
+    class's own mean and variance where it has them)."""
+    import bayesic_tpu_torch.dist as dist
+
+    def c(v):
+        return torch.as_tensor(np.asarray(v, np.float32), device=dev)
+
+    def own(d, var=True):
+        d64 = d.to_float64()
+        return ("mv", d64.mean.cpu().numpy(),
+                d64.variance.cpu().numpy() if var else None)
+
+    def phi(z):
+        return np.exp(-0.5 * z * z) / np.sqrt(2 * np.pi)
+
+    def Phi(z):
+        return 0.5 * np.vectorize(math.erfc)(-np.asarray(z) / np.sqrt(2))
+
+    def trunc_norm(mu, sd, lo, hi):
+        a, b = (lo - mu) / sd, (hi - mu) / sd
+        z = Phi(b) - Phi(a)
+        r = (phi(a) - phi(b)) / z
+        return ("mv", mu + sd * r,
+                sd * sd * (1 + (a * phi(a) - b * phi(b)) / z - r * r))
+
+    def censored(mu, sd, lo, hi):
+        a, b = (lo - mu) / sd, (hi - mu) / sd
+        fa, fb, pa, pb = Phi(a), Phi(b), phi(a), phi(b)
+        m1 = lo * fa + hi * (1 - fb) + mu * (fb - fa) + sd * (pa - pb)
+        m2 = (lo * lo * fa + hi * hi * (1 - fb) + (mu * mu + sd * sd)
+              * (fb - fa) + 2 * mu * sd * (pa - pb)
+              + sd * sd * (a * pa - b * pb))
+        return ("mv", m1, m2 - m1 * m1)
+
+    def gamma_trunc(a, lo, hi):
+        xs = np.linspace(lo, hi, 400_001)
+        w = xs ** (a - 1) * np.exp(-xs)
+        w /= w.sum()
+        m = (w * xs).sum()
+        return ("mv", m, (w * (xs - m) ** 2).sum())
+
+    quart = np.array([0.25, 0.5, 0.75])
+    L3 = np.array([[1.0, 0, 0], [0.3, 0.8, 0], [-0.2, 0.4, 0.6]])
+    L2 = np.array([[1.0, 0], [0.5, 0.7]])
+    st = dist.StudentT(c(3.0), c(5.0), c(1.0))
+    ol = dist.OrderedLogistic(c(0.4), c([-1.0, 0.5, 2.0]))
+    olp = ol.probs.double().cpu().numpy()
+    k = np.arange(4)
+    mn_p = np.array([0.2, 0.3, 0.5])
+    dm_a = np.array([1.0, 2.0, 3.0])
+    dm_p = dm_a / dm_a.sum()
+    ig_a, ig_b = 6.0, 2.0
+    wb = [math.gamma(1 + i / 2.0) for i in (1, 2)]
+    return [
+        ("LogNormal", dist.LogNormal(c(0.3), c(0.5)), None),
+        ("Cauchy", dist.Cauchy(c(5.0), c(1.0)),
+         ("q", 5.0 + np.tan(np.pi * (quart - 0.5)))),
+        ("HalfCauchy", dist.HalfCauchy(c(2.0)),
+         ("q", 2.0 * np.tan(np.pi * quart / 2))),
+        ("StudentT(df 3)", st, ("q", _b_quantiles(
+            torch, st, quart, -50.0, 60.0).double().cpu().numpy())),
+        ("StudentT(df 8)", dist.StudentT(c(8.0), c(1.0), c(2.0)), None),
+        ("Laplace", dist.Laplace(c(1.0), c(2.0)), None),
+        ("Exponential", dist.Exponential(c(1.5)), None),
+        ("Gamma", dist.Gamma(c(2.5), c(1.5)), None),
+        ("InverseGamma", dist.InverseGamma(c(ig_a), c(ig_b)),
+         ("mv", ig_b / (ig_a - 1),
+          ig_b ** 2 / ((ig_a - 1) ** 2 * (ig_a - 2)))),
+        ("Beta", dist.Beta(c(2.0), c(3.0)), None),
+        ("Uniform", dist.Uniform(c(-1.0), c(3.0)), None),
+        ("TruncatedNormal", dist.TruncatedNormal(c(0.5), c(1.5), c(-1.0),
+                                                 c(2.0)),
+         trunc_norm(0.5, 1.5, -1.0, 2.0)),
+        ("Weibull", dist.Weibull(c(1.5), c(2.0)),
+         ("mv", 1.5 * wb[0], 1.5 ** 2 * (wb[1] - wb[0] ** 2))),
+        ("Gumbel", dist.Gumbel(c(0.5), c(1.2)), None),
+        ("Pareto", dist.Pareto(c(1.0), c(2.0)),
+         ("q", (1.0 - quart) ** (-1.0 / 2.0))),
+        ("Chi2", dist.Chi2(c(4.0)), None),
+        ("Binomial", dist.Binomial(c(12.0), probs=c(0.3)), None),
+        ("OrderedLogistic", ol,
+         ("mv", (olp * k).sum(), (olp * k * k).sum() - (olp * k).sum() ** 2)),
+        ("Poisson", dist.Poisson(c(3.5)), None),
+        ("Geometric", dist.Geometric(probs=c(0.3)), None),
+        ("NegativeBinomial", dist.NegativeBinomial(c(5.0), probs=c(0.4)),
+         None),
+        ("Multinomial", dist.Multinomial(10, probs=c(mn_p)),
+         ("mv", 10 * mn_p, 10 * mn_p * (1 - mn_p))),
+        ("MultivariateNormal", dist.MultivariateNormal(
+            c([1.0, -1.0, 0.5]), scale_tril=c(L3)), None),
+        ("LKJCholesky", dist.LKJCholesky(4, c(2.0)), ("lkj", 2.0, 4)),
+        ("MultivariateStudentT", dist.MultivariateStudentT(
+            c(8.0), c([1.0, -1.0, 0.5]), c(L3)), None),
+        ("MatrixNormal", dist.MatrixNormal(
+            c(np.arange(6.0).reshape(2, 3)), c(L2), c(L3)), None),
+        ("Wishart", dist.Wishart(c(8.0), c(L3)), None),
+        ("InverseWishart", dist.InverseWishart(c(16.0), c(L3)), None),
+        ("BetaBinomial", dist.BetaBinomial(c(2.0), c(3.0), c(10.0)), None),
+        ("DirichletMultinomial", dist.DirichletMultinomial(c(dm_a), c(10.0)),
+         ("mv", 10 * dm_p,
+          10 * dm_p * (1 - dm_p) * (10 + dm_a.sum()) / (1 + dm_a.sum()))),
+        ("GaussianRandomWalk", dist.GaussianRandomWalk(c(1.5), num_steps=5),
+         None),
+        ("VonMises", dist.VonMises(c(1.0), c(2.0)), ("vm",)),
+        ("ZeroInflatedPoisson", dist.ZeroInflatedPoisson(c(0.3), c(4.0)),
+         None),
+        ("ZeroInflatedNegativeBinomial", dist.ZeroInflatedNegativeBinomial(
+            c(0.2), c(5.0), probs=c(0.4)), None),
+        ("ZeroInflatedDistribution", dist.ZeroInflatedDistribution(
+            dist.Binomial(c(8.0), probs=c(0.6)), gate_logits=c(-0.5)), None),
+        ("Censored", dist.Censored(dist.Normal(c(0.5), c(1.5)),
+                                   lower=c(-1.0), upper=c(2.0)),
+         censored(0.5, 1.5, -1.0, 2.0)),
+        ("Truncated(Normal)", dist.Truncated(dist.Normal(c(0.5), c(1.5)),
+                                             lower=c(-1.0), upper=c(2.0)),
+         trunc_norm(0.5, 1.5, -1.0, 2.0)),
+        ("Truncated(Gamma)", dist.Truncated(dist.Gamma(c(2.0), c(1.0)),
+                                            lower=c(0.5), upper=c(3.0)),
+         gamma_trunc(2.0, 0.5, 3.0)),
+        ("Delta", dist.Delta(c(1.5)), ("delta", 1.5)),
+        ("TransformedDistribution", dist.TransformedDistribution(
+            dist.Normal(c(0.3), c(0.5)), dist.transforms.Exp()),
+         own(dist.LogNormal(c(0.3), c(0.5)))),
+    ]
+
+
+def _b_batch_z(torch, xb, want):
+    """|mean of the batch statistics - want| over its standard error from
+    the batch means (the statistics xb: (batches, ...))."""
+    mean = xb.mean(0)
+    se = xb.std(0) / math.sqrt(xb.shape[0])
+    gap = (mean - torch.as_tensor(want, dtype=torch.float64,
+                                  device=xb.device)).abs()
+    z = torch.where(se > 0, gap / se, torch.where(gap > 1e-9, math.inf,
+                                                   0.0))
+    return float(z.max())
+
+
+def _breadth_draws(torch, np, dev):
+    """28(b): 10^6 draws a family on the card, all in the support; the mean
+    and variance within 5 standard errors (batch means over 100 batches),
+    or the quartiles within 1% for the heavy tails."""
+    gen = torch.Generator(device=dev).manual_seed(28)
+    worst = {}
+    for name, d, check in _breadth_samplers(np, torch, dev):
+        x = d.sample(gen, (BREADTH_DRAWS,))
+        if x.device.type != dev.type:
+            raise AssertionError(f"phase 28(b): {name} drew on {x.device}")
+        if not bool(d.support(x).all()):
+            raise AssertionError(f"phase 28(b): {name} drew outside its "
+                                 f"support")
+        if check is None:
+            d64 = d.to_float64()
+            check = ("mv", d64.mean.cpu().numpy(),
+                     d64.variance.cpu().numpy())
+        xd = x.double()
+        xb = xd.reshape((BREADTH_BATCHES, -1) + tuple(xd.shape[1:]))
+        kind = check[0]
+        if kind == "q":
+            got = torch.quantile(xd.reshape(BREADTH_DRAWS, -1)[:, 0],
+                                 torch.tensor([0.25, 0.5, 0.75],
+                                              dtype=torch.float64,
+                                              device=dev)).cpu().numpy()
+            rel = float(np.max(np.abs(got - check[1]) / np.abs(check[1])))
+            if rel > 0.01:
+                raise AssertionError(f"phase 28(b): {name} quartiles {got} "
+                                     f"against {check[1]}")
+            worst[name] = f"quartiles rel {rel:.2e}"
+            continue
+        if kind == "delta":
+            if not bool((x == check[1]).all()):
+                raise AssertionError(f"phase 28(b): {name} drew off its "
+                                     f"value")
+            worst[name] = "exact"
+            continue
+        if kind == "lkj":
+            eta, dd = check[1], check[2]
+            r = (xb @ xb.transpose(-1, -2))
+            row, col = torch.tril_indices(dd, dd, -1, device=dev)
+            r = r[..., row, col]
+            zs = (_b_batch_z(torch, r.mean(1), 0.0),
+                  _b_batch_z(torch, (r * r).mean(1),
+                             1.0 / (2 * eta + dd - 1)))
+        elif kind == "vm":
+            d64 = d.to_float64()
+            ang = xb - float(d64.loc)
+            zs = (_b_batch_z(torch, torch.sin(ang).mean(1), 0.0),
+                  _b_batch_z(torch, torch.cos(ang).mean(1),
+                             1.0 - float(d64.variance)))
+        else:
+            mean, var = check[1], check[2]
+            zs = (_b_batch_z(torch, xb.mean(1), mean),)
+            if var is not None:
+                mt = torch.as_tensor(mean, dtype=torch.float64, device=dev)
+                zs += (_b_batch_z(torch, ((xb - mt) ** 2).mean(1), var),)
+        z = max(zs)
+        if z > 5.0:
+            raise AssertionError(f"phase 28(b): {name} moments {z:.2f} "
+                                 f"standard errors off (mean, variance: "
+                                 f"{zs})")
+        worst[name] = f"{z:.2f} SE"
+    return worst
+
+
+def _b_sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _breadth_schools(torch, dev, core, dist, diag, sizes):
+    """28(c) 8-schools, centered, non-centered by LocScaleReparam (JAX
+    tests/test_logjoint.py:262), through the generic MCMC on the card."""
+    from bayesic_tpu_torch.infer.mcmc import MCMC
+
+    y = torch.tensor(SCHOOLS_Y, device=dev)
+    sigma = torch.tensor(SCHOOLS_SIGMA, device=dev)
+
+    def eight_schools():
+        mu = core.sample("mu", dist.Normal(0.0, 5.0))
+        tau = core.sample("tau", dist.HalfCauchy(5.0))
+        theta = core.sample("theta",
+                            dist.Normal(mu, tau).expand((8,)).to_event(1))
+        core.sample("obs", dist.Normal(theta, sigma).to_event(1), obs=y)
+
+    model = core.reparam(eight_schools,
+                         config={"theta": core.LocScaleReparam()})
+    chains, warm, keep = sizes
+    t = time.perf_counter()
+    res = MCMC(model=model, num_warmup=warm, num_samples=keep,
+               num_chains=chains, target_accept=0.9, init_step_size=0.2,
+               device=dev).run(28)
+    _b_sync(torch, dev)
+    wall = time.perf_counter() - t
+    s = diag.summary(res.samples)
+    mu = float(s["mu"]["mean"])
+    rhat = max(float(v["rhat"].max()) for v in s.values())
+    div = float(res.extra["diverging"].float().mean())
+    if abs(mu - 4.4) > 0.8 or rhat >= 1.01 or div >= 0.03:
+        raise AssertionError(f"phase 28(c): 8-schools mu {mu:.3f} (4.4 +- "
+                             f"0.8), max split-R-hat {rhat:.4f} (< 1.01), "
+                             f"divergences {div:.4f} (< 0.03)")
+    text = core.render_model(model, rng_key=torch.Generator(
+        device=dev).manual_seed(0))
+    return (f"8-schools ({chains} chains, {warm}+{keep}, target 0.9) mu "
+            f"{mu:.3f} +- {float(s['mu']['std']):.3f}, tau "
+            f"{float(s['tau']['mean']):.3f}, max split-R-hat {rhat:.4f}, "
+            f"divergences {div:.4f}, {wall:.1f} s"), text
+
+
+def _breadth_wishart(torch, np, dev, core, dist, diag, sizes):
+    """28(c) the Wishart-precision conjugate (JAX
+    tests/test_multivariate_extra.py:131): the posterior mean against the
+    analytic (df0 + n)(S0^-1 + X^T X)^-1 within 5 MCSE."""
+    from bayesic_tpu_torch.infer.mcmc import MCMC
+
+    rng = np.random.default_rng(0)
+    dim, n, df0 = 2, 40, 3.0
+    s0 = np.eye(dim) * 0.5
+    lam_true = np.array([[2.0, 0.6], [0.6, 1.5]])
+    xs = rng.multivariate_normal(np.zeros(dim), np.linalg.inv(lam_true),
+                                 size=n)
+    x = torch.as_tensor(xs.astype(np.float32), device=dev)
+    s0_tril = torch.as_tensor(np.linalg.cholesky(s0).astype(np.float32),
+                              device=dev)
+    zero = torch.zeros(dim, device=dev)
+
+    def model():
+        lam = core.sample("lam", dist.Wishart(df0, s0_tril))
+        cov = torch.linalg.inv_ex(lam)[0]
+        chol = torch.linalg.cholesky_ex(cov)[0]
+        core.sample("obs", dist.MultivariateNormal(zero, scale_tril=chol)
+                    .expand((n,)).to_event(1), obs=x)
+
+    want = (df0 + n) * np.linalg.inv(np.linalg.inv(s0) + xs.T @ xs)
+    chains, warm, keep = sizes
+    t = time.perf_counter()
+    res = MCMC(model=model, num_warmup=warm, num_samples=keep,
+               num_chains=chains, device=dev).run(29)
+    _b_sync(torch, dev)
+    wall = time.perf_counter() - t
+    s = diag.summary(res.samples)["lam"]
+    got = s["mean"].double().cpu().numpy()
+    mcse = s["mcse"].double().cpu().numpy()
+    z = float(np.max(np.abs(got - want) / mcse))
+    rhat = float(s["rhat"].max())
+    if z > 5.0:
+        raise AssertionError(f"phase 28(c): Wishart posterior mean {got} "
+                             f"against {want}: {z:.2f} MCSE")
+    return (f"Wishart precision ({chains} chains, {warm}+{keep}) mean "
+            f"{np.round(got, 4).tolist()} against the analytic "
+            f"{np.round(want, 4).tolist()}, {z:.2f} MCSE at most, max "
+            f"split-R-hat {rhat:.4f}, {wall:.1f} s")
+
+
+def _breadth_lkj(torch, dev, core, dist, diag, sizes):
+    """28(c) LKJCholesky(d 4, eta 2) alone under NUTS: each off-diagonal
+    correlation is Beta(eta - 1 + d/2, eta - 1 + d/2) on (-1, 1), mean 0
+    and E[r^2] = 1/(2 eta + d - 1), each within 5 MCSE."""
+    from bayesic_tpu_torch.infer.mcmc import MCMC
+
+    d, eta = 4, 2.0
+
+    def model():
+        core.sample("L", dist.LKJCholesky(d, eta))
+
+    chains, warm, keep = sizes
+    t = time.perf_counter()
+    res = MCMC(model=model, num_warmup=warm, num_samples=keep,
+               num_chains=chains, device=dev).run(30)
+    _b_sync(torch, dev)
+    wall = time.perf_counter() - t
+    L = res.samples["L"]
+    r = L @ L.transpose(-1, -2)
+    row, col = torch.tril_indices(d, d, -1, device=dev)
+    r = r[..., row, col]
+    s = diag.summary({"r": r, "r2": r * r})
+    want2 = 1.0 / (2 * eta + d - 1)
+    z_r = float((s["r"]["mean"].abs() / s["r"]["mcse"]).max())
+    z_r2 = float(((s["r2"]["mean"] - want2).abs() / s["r2"]["mcse"]).max())
+    if z_r > 5.0 or z_r2 > 5.0:
+        raise AssertionError(f"phase 28(c): LKJ correlations mean "
+                             f"{s['r']['mean'].tolist()} ({z_r:.2f} MCSE), "
+                             f"E[r^2] {s['r2']['mean'].tolist()} against "
+                             f"{want2:.4f} ({z_r2:.2f} MCSE)")
+    return (f"LKJCholesky(d {d}, eta {eta}) prior ({chains} chains, "
+            f"{warm}+{keep}) E[r] {z_r:.2f} MCSE from 0, E[r^2] "
+            f"{float(s['r2']['mean'].mean()):.4f} against {want2:.4f} "
+            f"({z_r2:.2f} MCSE at most), {wall:.1f} s")
+
+
+def _breadth_negbin(torch, np, dev, core, dist, diag, cfg):
+    """28(c) a negative-binomial regression at N 100,000 x D 16 by SVI with
+    the mean-field guide, 2,000 full-batch Adam steps at lr 0.01."""
+    from bayesic_tpu_torch.infer.svi import SVI, Adam, MeanFieldGuide
+
+    rng = np.random.default_rng(31)
+    n, dim, conc = cfg["rows"], cfg["dim"], cfg["conc"]
+    xs = rng.normal(size=(n, dim)).astype(np.float32)
+    beta = rng.uniform(-0.5, 0.5, dim)
+    mu = np.exp(xs.astype(np.float64) @ beta)
+    ys = rng.negative_binomial(conc, conc / (conc + mu)).astype(np.float32)
+    x = torch.as_tensor(xs, device=dev)
+    y = torch.as_tensor(ys, device=dev)
+
+    def model(x, y):
+        b = core.sample("beta", dist.StudentT(3.0, 0.0, 1.0)
+                        .expand((x.shape[1],)).to_event(1))
+        r = core.sample("conc", dist.Gamma(2.0, 0.1))
+        # mean exp(x b): NegativeBinomial's mean is r exp(logits)
+        logits = x @ b - torch.log(r)
+        core.sample("obs", dist.NegativeBinomial(r, logits=logits)
+                    .to_event(1), obs=y)
+
+    svi = SVI(model, MeanFieldGuide, Adam(cfg["lr"]), model_args=(x, y),
+              device=dev)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    state = svi.init(gen)
+    svi.step(state)                                   # warm the path
+    _b_sync(torch, dev)
+    t = time.perf_counter()
+    res = svi.run(gen, cfg["steps"], state=state)
+    losses = res.losses.cpu().numpy()
+    wall = time.perf_counter() - t
+    loc, _ = svi.guide.stats(res.params)
+    b_hat = loc["beta"].double().cpu().numpy()
+    r_hat = float(torch.exp(loc["conc"]))
+    gap = float(np.max(np.abs(b_hat - beta)))
+    head, tail = float(losses[:100].mean()), float(losses[-100:].mean())
+    if not (tail < head) or gap > 0.05 or abs(r_hat / conc - 1.0) > 0.1:
+        raise AssertionError(
+            f"phase 28(c): negative-binomial SVI loss {head:.1f} -> "
+            f"{tail:.1f}, max |beta - truth| {gap:.4f} (0.05), conc "
+            f"{r_hat:.3f} against {conc} (10%)")
+    return (f"negative-binomial SVI (N {n}, D {dim}, {cfg['steps']} Adam "
+            f"steps, lr {cfg['lr']}) loss {head:.1f} -> {tail:.1f}, max "
+            f"|beta - truth| {gap:.4f}, conc {r_hat:.3f} (truth {conc}), "
+            f"{cfg['steps'] / wall:.1f} steps/s")
+
+
+def _breadth_child(which, device, sizes):
+    """One 28(c) run in a process of its own (``python -c "import
+    chip_smoke; chip_smoke._breadth_child(...)"``): the generic MCMC and
+    SVI are host-bound, so the four runs share the card from four
+    processes.  Prints one JSON line, the run's summary (and the render);
+    a failed gate raises, and the process exits non-zero."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import bayesic_tpu_torch.core as core
+    import bayesic_tpu_torch.dist as dist
+    from bayesic_tpu_torch.utils import diagnostics as diag
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)
+    dev = torch.device(device, 0) if device == "cuda" else \
+        torch.device(device)
+    run = {"schools": lambda: _breadth_schools(torch, dev, core, dist, diag,
+                                               sizes),
+           "wishart": lambda: (_breadth_wishart(torch, np, dev, core, dist,
+                                                diag, sizes), ""),
+           "lkj": lambda: (_breadth_lkj(torch, dev, core, dist, diag,
+                                        sizes), ""),
+           "negbin": lambda: (_breadth_negbin(torch, np, dev, core, dist,
+                                              diag, sizes), "")}[which]
+    line, text = run()
+    print(json.dumps({"line": line, "text": text}), flush=True)
+
+
+def _breadth_phase(torch, np, card, dev):
+    """Phase 28: the families, transforms and core pieces that the five
+    models do not use, on the card (dist and core breadth).  28(c)'s four
+    runs start first, each in a process of its own, and run while this
+    process checks (a) and (b)."""
+    sizes = dict(BREADTH_NUTS, negbin=NEGBIN)
+    t0 = time.perf_counter()
+    procs = {w: subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke._breadth_child({w!r}, "
+         f"{dev.type!r}, {sizes[w]!r})"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for w in BREADTH_RUNS}
+    # leave the children a core each while (a) computes on the CPU
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads - len(BREADTH_RUNS)))
+    try:
+        worst, checked, older = _breadth_parity(torch, np, dev)
+        ta = time.perf_counter() - t0
+        top = sorted(worst.items(), key=lambda kv: -kv[1])[:6]
+        print(f"phase 28(a) {checked} values of "
+              f"{len(_breadth_families(np))} families on {BREADTH_POINTS} "
+              f"points, card = CPU within rtol {BREADTH_LIMITS[0]:g} / atol "
+              f"{BREADTH_LIMITS[1]:g} (rtol {BREADTH_SPECIAL[0]:g} / atol "
+              f"{BREADTH_SPECIAL[1]:g} through the special functions), "
+              f"every result on the card; the largest shares of the limit: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in top)
+              + "; the earlier slices' float32 log_prob, not gated here: "
+              + ", ".join(f"{k} {v[0]:.3f} of the limit" for k, v in
+                          older.items())
+              + f" [{card}, {ta:.1f} s, beside 28(c)'s processes]",
+              flush=True)
+        t = time.perf_counter()
+        draws = _breadth_draws(torch, np, dev)
+        print(f"phase 28(b) {len(draws)} samplers, {BREADTH_DRAWS} draws "
+              f"each on the card, all in the support: "
+              + "; ".join(f"{k} {v}" for k, v in draws.items())
+              + f" [{card}, {time.perf_counter() - t:.1f} s]", flush=True)
+        results = {}
+        for w, p in procs.items():
+            left = BREADTH_DEADLINE - (time.perf_counter() - t0)
+            out, err = p.communicate(timeout=max(left, 1.0))
+            if p.returncode:
+                raise AssertionError(f"phase 28(c): the {w} run failed: "
+                                     f"{err[-3000:]}")
+            results[w] = json.loads(out.strip().splitlines()[-1])
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"phase 28(c): the runs passed the "
+                             f"{BREADTH_DEADLINE} s deadline") from None
+    finally:
+        torch.set_num_threads(threads)
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    print("phase 28(c) render_model of the 8-schools model:\n"
+          + results["schools"]["text"], flush=True)
+    print(f"phase 28 dist and core breadth ok [{card}]: "
+          + "; ".join(results[w]["line"] for w in BREADTH_RUNS)
+          + f" (the phase {time.perf_counter() - t0:.1f} s, 28(c)'s four "
+          f"runs in processes of their own, at once)", flush=True)
+
+
 def main():
     import numpy as np
     import torch
@@ -3261,6 +4146,7 @@ def main():
     records += _mf_phases(torch, np, card, dev)
     _dp_world1_phase(torch, np, card, dev)
     _dp_ranks_phase(torch, np, card, dev)
+    _breadth_phase(torch, np, card, dev)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": records}))
