@@ -1,25 +1,60 @@
 """bayesic_tpu_torch — the PyTorch/CUDA port of bayesic_tpu.
 
 Mirrors the JAX package's module tree; ``bayesic_tpu`` stays the reference
-each module is tested against.  Ported so far: the DLGM's SVI and
-local-posterior NUTS paths, the hierarchical logistic regression's SVI
-and full-batch NUTS paths, the Gaussian mixture's tempered SMC, the linear
-regression's SVI and the matrix factorization's mini-batch and dense SVI.
+each module is tested against.  Ported so far: the model DSL with every
+distribution family but the HMM and LGSS ones; SVI with the STL, IWAE and
+DReG bounds and mean-field, full-rank, low-rank, flow, amortized and
+DSL-authored guides; NUTS/HMC; tempered SMC; posterior predictives,
+pointwise log-likelihoods, WAIC/PSIS-LOO and SBC; the sharded paths; and
+the five models' paths (the DLGM's SVI, with its bf16 compute mode, and
+local-posterior NUTS, the hierarchical logistic regression's SVI and
+full-batch NUTS, the Gaussian mixture's tempered SMC, the linear
+regression's SVI and the matrix factorization's mini-batch and dense SVI).
 
 Layering:
   dist/      distributions + transforms
   core/      model DSL + joint log-prob compiler
-  infer/svi  STL ELBO, amortized, mean-field and full-rank guides, Adam
+  infer/svi  ELBOs (STL, IWAE, DReG), guides, Adam, the SVI loop
   infer/mcmc NUTS/HMC, adaptation, the MCMC driver
   infer/smc  adaptive tempered SMC with HMC mutation
-  parallel/  systematic resampling (one device)
+  infer/     Predictive, log_likelihood
+  parallel/  torch.distributed: data-parallel SVI, sharded chains and
+             particles, the ring resampler, the launcher
   ops/       hand-written Hopper kernels (csrc/) + plain PyTorch versions
   models/    the DLGM, the hierarchical logistic regression, the GMM,
              the linear regression, the matrix factorization
+  utils/     diagnostics, checkpoints, config, metrics, WAIC/LOO, SBC
+  io/        the native ratings loader
   interop    JAX parameters (as numpy) <-> the port's parameters
 """
 
 __version__ = "0.1.0"
 
 from . import dist  # noqa: F401
-from .core import param, plate, sample  # noqa: F401
+from .core import (  # noqa: F401
+    deterministic,
+    factor,
+    param,
+    plate,
+    sample,
+)
+
+
+def __getattr__(name):
+    # lazy imports so `import bayesic_tpu_torch` stays cheap
+    if name == "SVI":
+        from .infer.svi import SVI
+        return SVI
+    if name == "MCMC":
+        from .infer.mcmc import MCMC
+        return MCMC
+    if name == "SMC":
+        from .infer.smc import SMC
+        return SMC
+    if name == "Predictive":
+        from .infer.predictive import Predictive
+        return Predictive
+    if name == "log_likelihood":
+        from .infer.loglik import log_likelihood
+        return log_likelihood
+    raise AttributeError(name)

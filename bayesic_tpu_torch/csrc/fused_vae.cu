@@ -1,8 +1,10 @@
 // Whole-run fused DLGM/VAE trainer for Hopper (sm_90a): every product on the
-// tensor cores (mma.sync m16n8k8, TF32 with each operand split in two).
+// tensor cores (mma.sync m16n8k8, TF32 with each operand split in two; or,
+// in the bf16 instance, one pass on operands rounded to bf16).
 //
-// Replaces bayesic_tpu/ops/fused_vae.py:_train_kernel (Philox streams) and
-// :_injected_kernel (injected idx/eps streams).  One call of
+// Replaces bayesic_tpu/ops/fused_vae.py:_train_kernel (Philox streams, with
+// mm_dtype float32 or bfloat16) and :_injected_kernel (injected idx/eps
+// streams).  One call of
 // fused_vae_train enqueues every SVI step on the caller's stream; the data,
 // parameters and Adam state stay in device memory and no step waits on the
 // host.  A call first packs the weights (a memset and pack_kernel); then
@@ -61,6 +63,15 @@
 // top 10 mantissa bits).  The weight-gradient pass splits its operands as
 // it reads them from its staged rows, rounding both parts.
 //
+// The bf16 instance (template flag BF, fused_vae_train's `bf16`): the
+// function of the TPU kernel's mm_dtype=bfloat16, each product's operands
+// rounded to bf16 (to nearest even, as the plain version's .to(bfloat16)
+// does) and multiplied with float32 accumulation, every elementwise step in
+// float32.  A bf16 value is exact in TF32, so each product is ONE m16n8k8
+// TF32 pass on the hi parts, with hi = bf16_rn(x) and the lo passes dropped;
+// the layouts, rings and packing are the float32 instance's (the lo words
+// are packed as zeros and never read by an mma).
+//
 // Fragments.  In the row pass the k order inside each 8-step is permuted
 // (logical t, t+4 -> stored 2t, 2t+1), so an A fragment row is one float4
 // of two (hi, lo) pairs; rows are padded to 16 mod 32 floats so the loads
@@ -84,6 +95,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include "kernel_common.cuh"
 
@@ -284,6 +296,19 @@ __device__ __forceinline__ uint32_t tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
 
+// x rounded to bf16 (7 stored mantissa bits), to nearest with ties to even
+// as __float2bfloat16_rn and torch's .to(bfloat16) round finite values.
+__device__ __forceinline__ uint32_t bf16_rn(float x) {
+  const uint32_t u = __float_as_uint(x);
+  return (u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u;
+}
+
+// an operand's high part: bf16 in the bf16 instance, else TF32
+template <bool BF>
+__device__ __forceinline__ uint32_t round_hi(float x) {
+  return BF ? bf16_rn(x) : tf32(x);
+}
+
 // d += a b: 16 x 8 x 8 in TF32
 __device__ __forceinline__ void mma8(float (&d)[4], const uint32_t (&a)[4],
                                      uint32_t b0, uint32_t b1) {
@@ -293,11 +318,15 @@ __device__ __forceinline__ void mma8(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// d += a b, both split: lo hi + hi lo + hi hi; b = (hi0, hi1, lo0, lo1)
+// d += a b, both split: lo hi + hi lo + hi hi; b = (hi0, hi1, lo0, lo1).
+// The bf16 instance: hi hi alone.
+template <bool BF>
 __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
                                      const uint32_t (&al)[4], uint4 b) {
-  mma8(d, al, b.x, b.y);
-  mma8(d, ah, b.z, b.w);
+  if (!BF) {
+    mma8(d, al, b.x, b.y);
+    mma8(d, ah, b.z, b.w);
+  }
   mma8(d, ah, b.x, b.y);
 }
 
@@ -307,10 +336,11 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// buf[r][j] = v as a (hi, lo) pair: hi = tf32(v), lo = v - hi exactly
+// buf[r][j] = v as a (hi, lo) pair: hi = round_hi(v), lo = v - hi exactly
+template <bool BF>
 __device__ __forceinline__ void put(float* buf, int ld, int r, int j,
                                     float v) {
-  const float hi = __uint_as_float(tf32(v));
+  const float hi = __uint_as_float(round_hi<BF>(v));
   *reinterpret_cast<float2*>(buf + r * ld + 2 * j) = make_float2(hi, v - hi);
 }
 
@@ -321,15 +351,16 @@ __device__ __forceinline__ float get(const float* buf, int ld, int r, int j) {
 
 // Packed weights.  B[k][n] of a product with ks 8-steps goes to the group
 // of tile n / 8, step k / 8, lane 4 (n % 8) + (k % 8) / 2, word (k % 2)
-// (hi) and 2 + (k % 2) (lo).
+// (hi) and 2 + (k % 2) (lo; zero in the bf16 instance).
+template <bool BF>
 __device__ __forceinline__ void pack_put(float* pk, int ks, int k, int n,
                                          float v) {
   const size_t group = (size_t)((n >> 3) * ks + (k >> 3)) * 32 +
                        (n & 7) * 4 + ((k & 7) >> 1);
   const size_t at = group * 4 + (k & 1);
-  const uint32_t hi = tf32(v);
+  const uint32_t hi = round_hi<BF>(v);
   pk[at] = __uint_as_float(hi);
-  pk[at + 2] = __uint_as_float(tf32(v - __uint_as_float(hi)));
+  pk[at + 2] = BF ? 0.f : __uint_as_float(tf32(v - __uint_as_float(hi)));
 }
 
 // Leaf boundaries and each weight leaf's row length.
@@ -346,6 +377,7 @@ __device__ __forceinline__ int leaf_of(const LeafTable& T, int i) {
 }
 
 // Writes weight element i (value v) into every product that reads it.
+template <bool BF>
 __device__ __forceinline__ void pack_elem(float* packed, const Prods& Pr,
                                           const LeafTable& T, int z, int i,
                                           float v) {
@@ -360,7 +392,7 @@ __device__ __forceinline__ void pack_elem(float* packed, const Prods& Pr,
     }
   const int e = i - off, r = e / cols, c = e - r * cols;
   auto put_in = [&](int p, int k, int n) {
-    pack_put(packed + Pr.off[p], ceil_div(Pr.k[p], 8), k, n, v);
+    pack_put<BF>(packed + Pr.off[p], ceil_div(Pr.k[p], 8), k, n, v);
   };
   switch (leaf) {
     case 0: put_in(0, r, c); break;                       // w1e
@@ -371,13 +403,14 @@ __device__ __forceinline__ void pack_elem(float* packed, const Prods& Pr,
   }
 }
 
+template <bool BF>
 __global__ void __launch_bounds__(NT)
 pack_kernel(const float* __restrict__ p, float* __restrict__ packed,
             Prods Pr, LeafTable T, int z) {
   const int P = T.off[NLEAVES];
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < P;
        i += gridDim.x * blockDim.x)
-    pack_elem(packed, Pr, T, z, i, p[i]);
+    pack_elem<BF>(packed, Pr, T, z, i, p[i]);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -397,7 +430,7 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
 // reads zero-filled B groups and a zeroed A fragment.  Each step of an
 // iteration has its own accumulators (fewer dependent mma in a row),
 // summed in order at the end.  Writes the tiles to dst.
-template <int NT_>
+template <int NT_, bool BF>
 __device__ __forceinline__ void row_tiles(const float* A, int lda,
                                           const uint4* __restrict__ Bp,
                                           int ks, int tile0, int tstride,
@@ -447,7 +480,7 @@ __device__ __forceinline__ void row_tiles(const float* A, int lda,
                               __float_as_uint(r0.w), __float_as_uint(r1.w)};
 #pragma unroll
       for (int i = 0; i < NT_; ++i)
-        mma3(acc[u][i], ah, al, st[(u * NT_ + i) * 32]);
+        mma3<BF>(acc[u][i], ah, al, st[(u * NT_ + i) * 32]);
     }
   }
 #pragma unroll
@@ -467,6 +500,7 @@ __device__ __forceinline__ void row_tiles(const float* A, int lda,
 // block's 16 rows; out has stride ldo and RB * ldo floats a slice.  A warp
 // takes its tiles TPW at a time, or one tile when the warps split k.  Ends
 // without a barrier.
+template <bool BF>
 __device__ void row_mm(const float* A, int lda, int K,
                        const float* packed, int N, float* out, int ldo,
                        uint4* rings) {
@@ -478,16 +512,16 @@ __device__ void row_mm(const float* A, int lda, int K,
   if (S > 1) {
     if (warp >= nt * S) return;
     const int s = warp / nt;
-    row_tiles<1>(A, lda, Bp, ks, warp - s * nt, 0, s * ks / S,
+    row_tiles<1, BF>(A, lda, Bp, ks, warp - s * nt, 0, s * ks / S,
                  (s + 1) * ks / S, out + (size_t)s * RB * ldo, ldo, ring,
                  lane);
     return;
   }
   for (int c0 = warp; c0 < nt; c0 += TPW * RW) {
     if (c0 + RW < nt)
-      row_tiles<2>(A, lda, Bp, ks, c0, RW, 0, ks, out, ldo, ring, lane);
+      row_tiles<2, BF>(A, lda, Bp, ks, c0, RW, 0, ks, out, ldo, ring, lane);
     else
-      row_tiles<1>(A, lda, Bp, ks, c0, RW, 0, ks, out, ldo, ring, lane);
+      row_tiles<1, BF>(A, lda, Bp, ks, c0, RW, 0, ks, out, ldo, ring, lane);
   }
 }
 
@@ -521,8 +555,9 @@ __device__ __forceinline__ void zero_pads(float* buf, int ld, int k,
 // block's buffers in shared memory, else in S.rowbuf (the warps' B rings
 // are in shared memory either way).  A wide epilogue takes four rows of
 // one column a thread, a latent-wide one one element a thread in turn; a
-// masked row is computed on zeros and written nowhere.
-template <bool IN_SMEM>
+// masked row is computed on zeros and written nowhere.  BF: the bf16
+// instance.
+template <bool IN_SMEM, bool BF>
 __global__ void __launch_bounds__(RT, 1)
 row_kernel(const float* __restrict__ x, Leaves P, Scratch S, Dims D,
            const int* __restrict__ idx_in, const float* __restrict__ eps_in,
@@ -598,7 +633,7 @@ row_kernel(const float* __restrict__ x, Leaves P, Scratch S, Dims D,
     for (int u = 0; u < 8; ++u) {
       const int e = e0 + u * RT, r = e / d;
       if (e < rows * d) {
-        put(xs, L.l_d, r, e - r * d, v[u]);
+        put<BF>(xs, L.l_d, r, e - r * d, v[u]);
         S.xb[(size_t)row0 * d + e] = v[u];
       }
     }
@@ -606,14 +641,14 @@ row_kernel(const float* __restrict__ x, Leaves P, Scratch S, Dims D,
   __syncthreads();
 
   // -- encoder hidden layer: h1 = tanh(xb W1e + b1e)
-  row_mm(xs, L.l_d, d, pk + Pr.off[0], h, out, ldp(h), rings);
+  row_mm<BF>(xs, L.l_d, d, pk + Pr.off[0], h, out, ldp(h), rings);
   __syncthreads();
   for (int jj = tid; jj < h * (RB / 4); jj += RT) {
     const int j = jj % h, r0 = 4 * (jj / h);
     const float bj = __ldg(P.b1e + j);
     for (int r = r0; r < r0 + 4; ++r) {
       const float v = tanhf(row_out(out, ldp(h), Sh, r, j) + bj);
-      put(h1, L.l_h, r, j, v);
+      put<BF>(h1, L.l_h, r, j, v);
       if (r < rows) S.h1[(size_t)(row0 + r) * h + j] = v;
     }
   }
@@ -621,7 +656,7 @@ row_kernel(const float* __restrict__ x, Leaves P, Scratch S, Dims D,
 
   // -- mu | pre = h1 [Wmu | Wsig] + [bmu | bsig]; reparameterised z, prior
   //    and -log q terms; pre kept in gzp's second half
-  row_mm(h1, L.l_h, h, pk + Pr.off[1], 2 * z, out, ldp(2 * z), rings);
+  row_mm<BF>(h1, L.l_h, h, pk + Pr.off[1], 2 * z, out, ldp(2 * z), rings);
   __syncthreads();
   for (int e = tid; e < RB * z; e += RT) {
     const int r = e / z, j = e - r * z;
@@ -631,8 +666,8 @@ row_kernel(const float* __restrict__ x, Leaves P, Scratch S, Dims D,
     const float lsv = fminf(fmaxf(pre, -6.f), 3.f);
     const float eps = ep[r * L.lp_z + j];
     const float zv = mu + expf(lsv) * eps;
-    put(zl, L.l_z, r, j, zv);
-    put(gzp, L.l_2z, r, z + j, pre);
+    put<BF>(zl, L.l_z, r, j, zv);
+    put<BF>(gzp, L.l_2z, r, z + j, pre);
     if (r < rows) {
       S.zl[(size_t)row0 * z + e] = zv;
       pe += (-0.5f * zv * zv - kC) - (-lsv - 0.5f * eps * eps - kC);
@@ -641,14 +676,14 @@ row_kernel(const float* __restrict__ x, Leaves P, Scratch S, Dims D,
   __syncthreads();
 
   // -- decoder hidden layer: hd = tanh(z W1d + b1d)
-  row_mm(zl, L.l_z, z, pk + Pr.off[2], h, out, ldp(h), rings);
+  row_mm<BF>(zl, L.l_z, z, pk + Pr.off[2], h, out, ldp(h), rings);
   __syncthreads();
   for (int jj = tid; jj < h * (RB / 4); jj += RT) {
     const int j = jj % h, r0 = 4 * (jj / h);
     const float bj = __ldg(P.b1d + j);
     for (int r = r0; r < r0 + 4; ++r) {
       const float v = tanhf(row_out(out, ldp(h), Sh, r, j) + bj);
-      put(hd, L.l_h, r, j, v);
+      put<BF>(hd, L.l_h, r, j, v);
       if (r < rows) S.hd[(size_t)(row0 + r) * h + j] = v;
     }
   }
@@ -658,7 +693,7 @@ row_kernel(const float* __restrict__ x, Leaves P, Scratch S, Dims D,
   //    place)
   const float us = __ldg(P.usig);
   const float inv_s2 = expf(-2.f * us);
-  row_mm(hd, L.l_h, h, pk + Pr.off[3], d, out, ldp(d), rings);
+  row_mm<BF>(hd, L.l_h, h, pk + Pr.off[3], d, out, ldp(d), rings);
   __syncthreads();
   for (int jj = tid; jj < d * (RB / 4); jj += RT) {
     const int j = jj % d, r0 = 4 * (jj / d);
@@ -668,7 +703,7 @@ row_kernel(const float* __restrict__ x, Leaves P, Scratch S, Dims D,
       const float res =
           (row_out(out, ldp(d), Sd, r, j) + bj) - get(xs, L.l_d, r, j);
       const float g = -scale * res * inv_s2;
-      put(xs, L.l_d, r, j, g);
+      put<BF>(xs, L.l_d, r, j, g);
       if (r < rows) {
         S.gmx[(size_t)(row0 + r) * d + j] = g;
         pe += -0.5f * res * res * inv_s2 - us - kC;
@@ -679,21 +714,21 @@ row_kernel(const float* __restrict__ x, Leaves P, Scratch S, Dims D,
   __syncthreads();
 
   // -- g_a1d = (g_mx W2d^T) * (1 - hd^2), in hd's place
-  row_mm(xs, L.l_d, d, pk + Pr.off[4], h, out, ldp(h), rings);
+  row_mm<BF>(xs, L.l_d, d, pk + Pr.off[4], h, out, ldp(h), rings);
   __syncthreads();
   for (int jj = tid; jj < h * (RB / 4); jj += RT) {
     const int j = jj % h, r0 = 4 * (jj / h);
     for (int r = r0; r < r0 + 4; ++r) {
       const float hv = get(hd, L.l_h, r, j);
       const float g = row_out(out, ldp(h), Sh, r, j) * (1.f - hv * hv);
-      put(hd, L.l_h, r, j, g);
+      put<BF>(hd, L.l_h, r, j, g);
       if (r < rows) S.ga1d[(size_t)(row0 + r) * h + j] = g;
     }
   }
   __syncthreads();
 
   // -- g_z = g_a1d W1d^T - s z + s eps e^{-ls};  g_pre = g_z eps e^ls mask
-  row_mm(hd, L.l_h, h, pk + Pr.off[5], z, out, ldp(z), rings);
+  row_mm<BF>(hd, L.l_h, h, pk + Pr.off[5], z, out, ldp(z), rings);
   __syncthreads();
   for (int e = tid; e < RB * z; e += RT) {
     const int r = e / z, j = e - r * z;
@@ -704,8 +739,8 @@ row_kernel(const float* __restrict__ x, Leaves P, Scratch S, Dims D,
                     scale * get(zl, L.l_z, r, j) + scale * eps * expf(-lsv);
     const float mask = (pre > -6.f && pre < 3.f) ? 1.f : 0.f;
     const float gp = g * eps * expf(lsv) * mask;
-    put(gzp, L.l_2z, r, j, g);
-    put(gzp, L.l_2z, r, z + j, gp);
+    put<BF>(gzp, L.l_2z, r, j, g);
+    put<BF>(gzp, L.l_2z, r, z + j, gp);
     if (r < rows) {
       S.gzp[(size_t)(row0 + r) * 2 * z + j] = g;
       S.gzp[(size_t)(row0 + r) * 2 * z + z + j] = gp;
@@ -714,7 +749,7 @@ row_kernel(const float* __restrict__ x, Leaves P, Scratch S, Dims D,
   __syncthreads();
 
   // -- g_a1e = ([g_z | g_pre] [Wmu | Wsig]^T) * (1 - h1^2)
-  row_mm(gzp, L.l_2z, 2 * z, pk + Pr.off[6], h, out, ldp(h), rings);
+  row_mm<BF>(gzp, L.l_2z, 2 * z, pk + Pr.off[6], h, out, ldp(h), rings);
   __syncthreads();
   for (int jj = tid; jj < h * (RB / 4); jj += RT) {
     const int j = jj % h, r0 = 4 * (jj / h);
@@ -789,30 +824,32 @@ __device__ __forceinline__ void stage(float* s, const float* a, int M, int m0,
   }
 }
 
+template <bool BF>
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
+  hi = round_hi<BF>(x);
+  lo = BF ? 0u : tf32(x - __uint_as_float(hi));
 }
 
 // One k step of a warp's four 16 x 8 tiles from the staged rows: A^T's
 // fragment (rows mr + g, +8 at k t, t+4) and G's per tile, each split into
 // (hi, lo) as it is read.
+template <bool BF>
 __device__ __forceinline__ void wg_kstep(float (&acc)[4][4], const float* As,
                                          const float* Gs, int k, int mr,
                                          int nc, int g, int t) {
   const float* ar = As + (k + t) * WLD + mr + g;
   uint32_t ah[4], al[4];
-  split(ar[0], ah[0], al[0]);
-  split(ar[8], ah[1], al[1]);
-  split(ar[4 * WLD], ah[2], al[2]);
-  split(ar[4 * WLD + 8], ah[3], al[3]);
+  split<BF>(ar[0], ah[0], al[0]);
+  split<BF>(ar[8], ah[1], al[1]);
+  split<BF>(ar[4 * WLD], ah[2], al[2]);
+  split<BF>(ar[4 * WLD + 8], ah[3], al[3]);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float* gr = Gs + (k + t) * WLD + nc + 8 * i + g;
     uint4 b;
-    split(gr[0], b.x, b.z);
-    split(gr[4 * WLD], b.y, b.w);
-    mma3(acc[i], ah, al, b);
+    split<BF>(gr[0], b.x, b.z);
+    split<BF>(gr[4 * WLD], b.y, b.w);
+    mma3<BF>(acc[i], ah, al, b);
   }
 }
 
@@ -822,6 +859,7 @@ __device__ __forceinline__ void wg_kstep(float (&acc)[4][4], const float* As,
 // each chunk, the sum in row block order of that chunk's share of the row
 // blocks' g_usig and elbo partials.  Warp (wm, wn) owns rows 16 wm and
 // columns 32 wn: four 16 x 8 tiles.
+template <bool BF>
 __global__ void __launch_bounds__(NT)
 wgrad_kernel(WJobs J, float* __restrict__ wpart) {
   extern __shared__ float4 smem4[];
@@ -877,10 +915,10 @@ wgrad_kernel(WJobs J, float* __restrict__ wpart) {
       const int steps = ceil_div(min(KC, ke - k0), 8);
       int ks = 0;
       for (; ks + 1 < steps; ks += 2) {
-        wg_kstep(acc0, As, Gs, 8 * ks, mr, nc, g, t);
-        wg_kstep(acc1, As, Gs, 8 * ks + 8, mr, nc, g, t);
+        wg_kstep<BF>(acc0, As, Gs, 8 * ks, mr, nc, g, t);
+        wg_kstep<BF>(acc1, As, Gs, 8 * ks + 8, mr, nc, g, t);
       }
-      if (ks < steps) wg_kstep(acc0, As, Gs, 8 * ks, mr, nc, g, t);
+      if (ks < steps) wg_kstep<BF>(acc0, As, Gs, 8 * ks, mr, nc, g, t);
     }
     if (bias) {
 #pragma unroll
@@ -916,6 +954,7 @@ wgrad_kernel(WJobs J, float* __restrict__ wpart) {
 // Sums each gradient's split-K partials in order, then Adam, then packs
 // the updated weights for the next step's row pass; the step's loss from
 // the elbo partials.
+template <bool BF>
 __global__ void __launch_bounds__(NT)
 adam_kernel(float* __restrict__ p, float* __restrict__ m,
             float* __restrict__ v, const float* __restrict__ wpart,
@@ -935,7 +974,7 @@ adam_kernel(float* __restrict__ p, float* __restrict__ m,
     p[i] = pv;
     m[i] = mv;
     v[i] = vv;
-    pack_elem(packed, Pr, T, z, i, pv);
+    pack_elem<BF>(packed, Pr, T, z, i, pv);
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     float e = 0.f;
@@ -961,12 +1000,14 @@ const char* bt_error_string(int err) {
 // counter (t0+i, row, lane); else injected streams (steps*b) and
 // (steps*b*z).  losses[i / thin] = -elbo of step i (later steps overwrite).
 // scale: the likelihood's plate scale (N / B, or n_total / B for a shard).
+// bf16: nonzero runs the bf16 instance (products on operands rounded to
+// bf16), zero the float32 one.
 // Returns a cudaError_t (0 on success); launches only, never synchronises.
 int fused_vae_train(const float* x, float* params, float* m, float* v,
                     float* losses, float* scratch, const int* idx,
                     const float* eps, int n, int d, int h, int z, int b,
                     int steps, long long t0, int thin, float lr, float scale,
-                    unsigned long long seed, void* stream_ptr) {
+                    unsigned long long seed, int bf16, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (n <= 0 || d <= 0 || h <= 0 || z <= 0 || b <= 0 || b % 8 ||
       steps < 0 || thin < 1 || t0 < 0)
@@ -980,20 +1021,6 @@ int fused_vae_train(const float* x, float* params, float* m, float* v,
   const size_t row_smem =
       (in_smem ? RL.total * sizeof(float) : 0) + kRingBytes;
   const size_t wg_smem = 4 * (size_t)KC * WLD * sizeof(float);
-  cudaError_t err;
-  err = in_smem ? cudaFuncSetAttribute(
-                     row_kernel<true>,
-                     cudaFuncAttributeMaxDynamicSharedMemorySize,
-                     (int)row_smem)
-               : cudaFuncSetAttribute(
-                     row_kernel<false>,
-                     cudaFuncAttributeMaxDynamicSharedMemorySize,
-                     (int)row_smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(wgrad_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)wg_smem);
-  if (err != cudaSuccess) return err;
 
   const Leaves P{params + o.w1e, params + o.b1e,  params + o.wmu,
                  params + o.bmu, params + o.wsig, params + o.bsig,
@@ -1050,29 +1077,38 @@ int fused_vae_train(const float* x, float* params, float* m, float* v,
   for (int i = 0; i < NLEAVES; ++i) T.cols[i] = cols[i];
 
   const int p_blocks = ceil_div((int)o.total, NT);
-  err = cudaMemsetAsync(S.packed, 0, Pr.off[NPROD] * sizeof(float), stream);
-  if (err != cudaSuccess) return err;
-  pack_kernel<<<p_blocks, NT, 0, stream>>>(params, S.packed, Pr, T, z);
   const uint32_t k0 = (uint32_t)seed, k1 = (uint32_t)(seed >> 32);
-  for (int i = 0; i < steps; ++i) {
-    const unsigned long long t = (unsigned long long)t0 + i;
-    const int* ii = idx ? idx + (size_t)i * b : nullptr;
-    const float* ee = eps ? eps + (size_t)i * b * z : nullptr;
-    if (in_smem)
-      row_kernel<true><<<nblk, RT, row_smem, stream>>>(x, P, S, D, ii, ee, t,
-                                                       k0, k1, scale);
-    else
-      row_kernel<false><<<nblk, RT, row_smem, stream>>>(x, P, S, D, ii, ee,
-                                                        t, k0, k1, scale);
-    wgrad_kernel<<<dim3(tiles + 1, nsplit), NT, wg_smem, stream>>>(J,
-                                                                  S.wpart);
-    adam_kernel<<<p_blocks, NT, 0, stream>>>(params, m, v, S.wpart, S.packed,
-                                             Pr, T, z, nsplit, (float)(t + 1),
-                                             lr, losses, i / thin);
-    err = cudaGetLastError();
+  // every launch of one instance: BF_ is std::true_type for bf16
+  auto enqueue = [&](auto BF_) -> cudaError_t {
+    constexpr bool BF = decltype(BF_)::value;
+    auto row = in_smem ? row_kernel<true, BF> : row_kernel<false, BF>;
+    cudaError_t err = cudaFuncSetAttribute(
+        row, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)row_smem);
     if (err != cudaSuccess) return err;
-  }
-  return cudaGetLastError();
+    err = cudaFuncSetAttribute(wgrad_kernel<BF>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)wg_smem);
+    if (err != cudaSuccess) return err;
+    err = cudaMemsetAsync(S.packed, 0, Pr.off[NPROD] * sizeof(float), stream);
+    if (err != cudaSuccess) return err;
+    pack_kernel<BF><<<p_blocks, NT, 0, stream>>>(params, S.packed, Pr, T, z);
+    for (int i = 0; i < steps; ++i) {
+      const unsigned long long t = (unsigned long long)t0 + i;
+      const int* ii = idx ? idx + (size_t)i * b : nullptr;
+      const float* ee = eps ? eps + (size_t)i * b * z : nullptr;
+      row<<<nblk, RT, row_smem, stream>>>(x, P, S, D, ii, ee, t, k0, k1,
+                                          scale);
+      wgrad_kernel<BF><<<dim3(tiles + 1, nsplit), NT, wg_smem, stream>>>(
+          J, S.wpart);
+      adam_kernel<BF><<<p_blocks, NT, 0, stream>>>(
+          params, m, v, S.wpart, S.packed, Pr, T, z, nsplit, (float)(t + 1),
+          lr, losses, i / thin);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+    return cudaGetLastError();
+  };
+  return bf16 ? enqueue(std::true_type{}) : enqueue(std::false_type{});
 }
 
 }  // extern "C"

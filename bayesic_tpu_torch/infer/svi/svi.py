@@ -7,8 +7,9 @@ autograd replaces ``jax.value_and_grad``, and ``Adam`` below replaces
 so on a GPU this path is bound by the host; the fused trainer in
 ``ops/fused_vae.py`` is the fast path for the DLGM.
 
-Parameters are nested dicts of tensors.  A model with ``param`` sites gets
-``{"guide": guide_params, "model": {name: unconstrained value}}``.
+Parameters are nested dicts (and lists, a flow guide's layers) of
+tensors.  A model with ``param`` sites gets ``{"guide": guide_params,
+"model": {name: unconstrained value}}``.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ...core.logjoint import build_logjoint, default_device
+from ...core.logjoint import build_logjoint, default_device, init_to_prior
 from .elbo import draw_subsample, make_elbo
 from .guides import Guide
 
@@ -27,21 +28,21 @@ __all__ = ["Adam", "AdamState", "SVIState", "SVIResult", "SVI",
 
 
 def tree_map(fn, tree, *rest):
-    """Map ``fn`` over the tensor leaves of nested dicts (of equal keys)
-    and tuples (of equal lengths)."""
+    """Map ``fn`` over the tensor leaves of nested dicts (of equal keys),
+    tuples and lists (of equal lengths)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}
-    if type(tree) is tuple:
-        return tuple(tree_map(fn, t, *(r[i] for r in rest))
-                     for i, t in enumerate(tree))
+    if type(tree) in (tuple, list):
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
+                          for i, t in enumerate(tree))
     return fn(tree, *rest)
 
 
 def tree_leaves(tree):
     if isinstance(tree, dict):
         return [x for k in tree for x in tree_leaves(tree[k])]
-    if type(tree) is tuple:
+    if type(tree) in (tuple, list):
         return [x for t in tree for x in tree_leaves(t)]
     return [tree]
 
@@ -118,11 +119,14 @@ class SVI:
     in ``model_args``, or ``"cuda"`` if there is none.  Generators passed
     to ``init``/``run`` must live on that device too.
     ``grad_transform``, when given, maps the gradient tree before the
-    optimizer sees it (clipping, or a data-parallel all-reduce)."""
+    optimizer sees it (clipping, or a data-parallel all-reduce).
+    ``iwae``/``dreg``: the importance-weighted bound and its
+    doubly-reparameterized gradient (``make_elbo``)."""
 
     def __init__(self, model, guide, optimizer, model_args=(),
-                 model_kwargs=None, num_particles=1, stl=True,
-                 device=None, grad_transform=None):
+                 model_kwargs=None, num_particles=1, stl=True, iwae=False,
+                 dreg=False, device=None, grad_transform=None):
+        self.model = model
         self.optimizer = optimizer
         self.grad_transform = grad_transform
         self.num_particles = int(num_particles)
@@ -137,15 +141,26 @@ class SVI:
             self.guide = guide(self.info)  # class or factory taking info
         self.elbo = make_elbo(self.logdensity, self.guide,
                               num_particles=num_particles, stl=stl,
-                              info=self.info)
+                              info=self.info, iwae=iwae, dreg=dreg)
+        self.iwae, self.dreg = bool(iwae), bool(dreg)
+        self._model_args = model_args
+        self._model_kwargs = model_kwargs
 
     # -- functional stepping ----------------------------------------------
     @property
     def has_model_params(self):
         return bool(self.info.param_names)
 
-    def init(self, generator) -> SVIState:
-        guide_params = self.guide.init(generator)
+    def init(self, generator, init_loc_from_prior=False) -> SVIState:
+        """Guide params from ``generator``; ``init_loc_from_prior`` puts the
+        guide's loc at one prior draw of the model (``init_to_prior``, from
+        the same generator)."""
+        if init_loc_from_prior:
+            loc = init_to_prior(self.model, self.info, *self._model_args,
+                                rng_key=generator, **self._model_kwargs)
+            guide_params = self.guide.init(generator, loc=loc)
+        else:
+            guide_params = self.guide.init(generator)
         if self.has_model_params:
             params = {"guide": guide_params,
                       "model": dict(self.info.param_init)}
@@ -209,3 +224,16 @@ class SVI:
             state, loss = self.step(state, model_args=model_args)
             losses.append(loss)
         return SVIResult(state.params, torch.stack(losses), state)
+
+    # -- posterior access ---------------------------------------------------
+    def posterior_stats(self, params):
+        """Unconstrained-space posterior mean/std per latent site."""
+        return self.guide.stats(self.guide_params(params))
+
+    def sample_posterior(self, params, generator, num_samples=1000):
+        """``num_samples`` guide draws, constrained: a dict of
+        (num_samples, *site shape) tensors.  The constrain map runs under
+        ``torch.func.vmap`` over the draws."""
+        uparams, _ = self.guide.sample_and_log_prob(
+            self.guide_params(params), generator, (int(num_samples),))
+        return torch.func.vmap(self.constrain)(uparams)

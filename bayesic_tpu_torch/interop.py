@@ -10,6 +10,9 @@ D-1], b).  The dense MF params are ``{site: (loc, log_scale)}`` on both
 sides.  The GMM's SMC particles are (P, dim) rows in
 unraveler order (K-1 stick-breaking weights, K*D means, K log-scales) on
 both sides; the JAX fused mutation kernel pads them to (P, 128) lanes.
+The low-rank, flow and DSL-authored guides' params keep their layouts
+(flow kernels (in, out) on both sides); ``tree_to_torch`` takes a dtype,
+so a parity test can run both packages in float64.
 Pass pytrees through ``jax.tree.map(np.asarray,
 tree)`` first; this module imports no JAX.
 """
@@ -22,7 +25,8 @@ import torch
 __all__ = ["flax_to_state_dict", "state_dict_to_flax", "svi_params",
            "fused_leaves", "adam_state", "mean_field_params",
            "mean_field_to_jax", "lanes_to_flat", "flat_to_lanes",
-           "smc_particles", "mf_dense_params", "mf_dense_to_jax"]
+           "smc_particles", "mf_dense_params", "mf_dense_to_jax",
+           "tree_to_torch", "tree_to_jax"]
 
 
 def _t(a, device):
@@ -126,3 +130,28 @@ def mf_dense_to_jax(params):
     """Inverse of ``mf_dense_params``, as numpy arrays."""
     return {site: tuple(v.detach().cpu().numpy() for v in pair)
             for site, pair in params.items()}
+
+
+def tree_to_torch(tree, device="cpu", dtype=torch.float32):
+    """Nested dicts and lists of numpy arrays -> the same nesting of
+    tensors: the JAX ``LowRankGuide`` (``loc``, ``w`` (dim, rank),
+    ``log_diag``), ``FlowGuide`` (``loc``, ``log_scale``, ``flows``: kernels
+    (in, out) on both sides; the MADE masks are no params, both packages
+    build the same ones from the widths) and ``TraceGuide`` (unconstrained,
+    one array a ``param`` site) params all keep their layouts."""
+    if isinstance(tree, dict):
+        return {k: tree_to_torch(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to_torch(v, device, dtype) for v in tree)
+    return torch.as_tensor(np.array(tree), dtype=dtype, device=device)
+
+
+def tree_to_jax(tree):
+    """Nested dicts and lists of the port's tensors -> the same nesting of
+    numpy arrays (the inverse of ``tree_to_torch``)."""
+    if isinstance(tree, dict):
+        return {k: tree_to_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to_jax(v) for v in tree)
+    return tree.detach().cpu().numpy()
+

@@ -17,6 +17,11 @@ Two entry points sample the local posterior of z for a batch of rows:
   ``batched_transition`` hook running ``ops/fused_nuts``, which on a GPU
   runs each whole transition of every chain in one kernel launch.
 
+``Config.compute_dtype = "bfloat16"`` runs the decoder's and encoder's
+dense layers in bf16 (flax ``Dense(dtype=)`` semantics; the parameters stay
+float32) in ``run_svi``.  As in the JAX package, ``run_svi_fused`` does not
+read it: the fused trainer takes ``compute_dtype`` as its own argument.
+
 Run: ``python -m bayesic_tpu_torch.models.dlgm --smoke true --device cuda``
 """
 
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 from torch.func import functional_call
+from torch.nn import functional as F
 
 from .. import dist
 from ..core import param, plate, sample
@@ -66,6 +72,7 @@ class Config:
     smoke: bool = False
     bench: bool = False
     device: str = "cuda"
+    compute_dtype: str = "float32"   # "bfloat16": the MLPs' products in bf16
 
 
 def _lecun_init(layer: nn.Linear, generator):
@@ -78,11 +85,22 @@ def _lecun_init(layer: nn.Linear, generator):
         layer.bias.zero_()
 
 
-class Decoder(nn.Module):
-    """z -> tanh(Dense_0) -> Dense_1 (submodule names follow flax)."""
+def _dense(layer, x, dtype):
+    """flax ``Dense(dtype=)``: input, kernel and bias cast to ``dtype``,
+    the product and the bias add in it; the parameters stay float32."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype),
+                    layer.bias.to(dtype))
 
-    def __init__(self, latent_dim, hidden, data_dim, generator=None):
+
+class Decoder(nn.Module):
+    """z -> tanh(Dense_0) -> Dense_1 (submodule names follow flax).
+    ``dtype``: the layers' compute dtype (``torch.bfloat16`` keeps the
+    hidden activations in bf16); the output is float32."""
+
+    def __init__(self, latent_dim, hidden, data_dim, generator=None,
+                 dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.Dense_0 = nn.Linear(latent_dim, hidden)
         self.Dense_1 = nn.Linear(hidden, data_dim)
         if generator is not None:
@@ -90,14 +108,19 @@ class Decoder(nn.Module):
             _lecun_init(self.Dense_1, generator)
 
     def forward(self, z):
-        return self.Dense_1(torch.tanh(self.Dense_0(z)))
+        h = torch.tanh(_dense(self.Dense_0, z, self.dtype))
+        return _dense(self.Dense_1, h, self.dtype).to(torch.float32)
 
 
 class Encoder(nn.Module):
-    """x -> tanh(Dense_0) -> (mu = Dense_1, clip(Dense_2, -6, 3))."""
+    """x -> tanh(Dense_0) -> (mu = Dense_1, clip(Dense_2, -6, 3)).
+    ``dtype`` as the ``Decoder``'s; mu and the log-scale are cast to
+    float32 before the clip."""
 
-    def __init__(self, data_dim, hidden, latent_dim, generator=None):
+    def __init__(self, data_dim, hidden, latent_dim, generator=None,
+                 dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.Dense_0 = nn.Linear(data_dim, hidden)
         self.Dense_1 = nn.Linear(hidden, latent_dim)
         self.Dense_2 = nn.Linear(hidden, latent_dim)
@@ -106,8 +129,10 @@ class Encoder(nn.Module):
                 _lecun_init(layer, generator)
 
     def forward(self, x):
-        h = torch.tanh(self.Dense_0(x))
-        return self.Dense_1(h), torch.clamp(self.Dense_2(h), -6.0, 3.0)
+        h = torch.tanh(_dense(self.Dense_0, x, self.dtype))
+        mu = _dense(self.Dense_1, h, self.dtype).to(torch.float32)
+        log_sigma = _dense(self.Dense_2, h, self.dtype).to(torch.float32)
+        return mu, torch.clamp(log_sigma, -6.0, 3.0)
 
 
 def _params_of(module, device):
@@ -140,9 +165,15 @@ def make_model_and_guide(cfg: Config, x, rows=None):
     its gradient are the unsharded ones, row for row."""
     device = x.device
     n = int(x.shape[0]) if rows is None else int(cfg.num_data)
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', "
+                         f"got {cfg.compute_dtype!r}")
+    cdtype = getattr(torch, cfg.compute_dtype)
     dec = Decoder(cfg.latent_dim, cfg.hidden, cfg.data_dim,
-                  torch.Generator().manual_seed(cfg.seed)).to(device)
-    enc = Encoder(cfg.data_dim, cfg.hidden, cfg.latent_dim).to(device)
+                  torch.Generator().manual_seed(cfg.seed),
+                  dtype=cdtype).to(device)
+    enc = Encoder(cfg.data_dim, cfg.hidden, cfg.latent_dim,
+                  dtype=cdtype).to(device)
     dec_init = _params_of(dec, device)
     b = cfg.batch_size
     scale = n / b

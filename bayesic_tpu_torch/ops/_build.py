@@ -56,7 +56,7 @@ def _declare(lib):
     lib.fused_vae_scratch_floats.restype = ctypes.c_size_t
     lib.fused_vae_train.argtypes = (
         [vp] * 8 + [i32] * 6 + [ctypes.c_longlong, i32, ctypes.c_float,
-                                ctypes.c_float, ctypes.c_ulonglong, vp])
+                                ctypes.c_float, ctypes.c_ulonglong, i32, vp])
     lib.fused_vae_train.restype = i32
     lib.bt_error_string.argtypes = [i32]
     lib.bt_error_string.restype = ctypes.c_char_p

@@ -16,6 +16,13 @@ mini-batch is an exact iid with-replacement gather of rows; the TPU
 package's "onehot", "loop" and "block" gather modes were workarounds for
 the TPU compiler and are not ported.
 
+``compute_dtype="bfloat16"`` (the JAX kernel's ``mm_dtype=bfloat16``)
+rounds every product's operands to bf16 and multiplies them with float32
+accumulation; parameters, Adam state and all elementwise math stay
+float32.  On a CUDA tensor it runs the kernel's bf16 instance, on a CPU
+tensor the plain version in the same mode (the JAX package's interpret
+path ignores the mode; this one does not).
+
 Math (B=batch, D=data dim, H=hidden, Z=latent, s=N/B, sigma=exp(usig)):
 
     h1  = tanh(xb W1e + b1e)          mu = h1 Wmu + bmu
@@ -48,8 +55,12 @@ LEAVES = ("w1e", "b1e", "wmu", "bmu", "wsig", "bsig",
 # calls of the kernel's C entry, through either entry point: one per call,
 # though each call packs the weights once (a memset and a launch) and
 # enqueues three kernels (rows, split-K A^T G tiles, the partial sums and
-# Adam) for every one of its steps
+# Adam) for every one of its steps; LAUNCHES counts the float32 instance,
+# LAUNCHES_BF16 the bf16 one
 LAUNCHES = 0
+LAUNCHES_BF16 = 0
+
+COMPUTE_DTYPES = ("float32", "bfloat16")
 
 _ROWS = 8          # the batch a CUDA call takes is a multiple of this
 
@@ -75,21 +86,43 @@ def leaf_shapes(dims: FusedVAEDims):
 # plain step math (the kernel's oracle; same hand-derived backward as JAX)
 # ---------------------------------------------------------------------------
 
-def _step_math(params, xb, eps, scale):
+def _is_bf16(compute_dtype):
+    """Whether ``compute_dtype`` names the bf16 mode; raises on a name
+    that is neither mode."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
+                         f"got {compute_dtype!r}")
+    return compute_dtype == "bfloat16"
+
+
+def _step_math(params, xb, eps, scale, compute_dtype="float32"):
     """One STL ELBO step on a gathered batch.  Returns (elbo, grads) where
-    grads[k] = d elbo / d params[k] (ascent direction), all hand-derived."""
+    grads[k] = d elbo / d params[k] (ascent direction), all hand-derived.
+
+    ``compute_dtype="bfloat16"`` rounds each product's operands to bf16
+    (to nearest even) and multiplies them in float32 (a product of two bf16
+    values is exact in float32); the elementwise math stays float32."""
     (w1e, b1e, wmu, bmu, wsig, bsig, w1d, b1d, w2d, b2d, usig) = params
     csum = lambda a: torch.sum(a, dim=0, keepdim=True)  # noqa: E731
+    if _is_bf16(compute_dtype):
+        def cv(a):
+            return a.to(torch.bfloat16).to(torch.float32)
+    else:
+        def cv(a):
+            return a
+
+    def mm(a, b):
+        return cv(a) @ cv(b)
 
     # forward
-    h1 = torch.tanh(xb @ w1e + b1e)                    # (B,H)
-    mu = h1 @ wmu + bmu                                # (B,Z)
-    pre = h1 @ wsig + bsig
+    h1 = torch.tanh(mm(xb, w1e) + b1e)                 # (B,H)
+    mu = mm(h1, wmu) + bmu                             # (B,Z)
+    pre = mm(h1, wsig) + bsig
     ls = torch.clamp(pre, -6.0, 3.0)                   # (B,Z)
     e_ls = torch.exp(ls)
     zl = mu + e_ls * eps                               # (B,Z)
-    hd = torch.tanh(zl @ w1d + b1d)                    # (B,H)
-    mx = hd @ w2d + b2d                                # (B,D)
+    hd = torch.tanh(mm(zl, w1d) + b1d)                 # (B,H)
+    mx = mm(hd, w2d) + b2d                             # (B,D)
     u = usig[0, 0]
     inv_s2 = torch.exp(-2.0 * u)
     r = mx - xb
@@ -101,25 +134,25 @@ def _step_math(params, xb, eps, scale):
     # backward (d elbo; STL: d(-logq)/dz = + eps e^{-ls})
     g_mx = -scale * r * inv_s2                         # (B,D)
     g_usig = (scale * torch.sum(r * r * inv_s2 - 1.0)).reshape(1, 1)
-    g_w2d = hd.T @ g_mx
+    g_w2d = mm(hd.T, g_mx)
     g_b2d = csum(g_mx)
-    g_hd = g_mx @ w2d.T
+    g_hd = mm(g_mx, w2d.T)
     g_a1d = g_hd * (1.0 - hd * hd)
-    g_w1d = zl.T @ g_a1d
+    g_w1d = mm(zl.T, g_a1d)
     g_b1d = csum(g_a1d)
-    g_z = (g_a1d @ w1d.T - scale * zl
+    g_z = (mm(g_a1d, w1d.T) - scale * zl
            + scale * eps * torch.exp(-ls))             # (B,Z)
     clip_mask = ((pre > -6.0) & (pre < 3.0)).to(torch.float32)
     # STL stops q-params inside logq, so ls gets gradient only through the
     # z = mu + e^ls eps path
     g_pre = g_z * eps * e_ls * clip_mask
-    g_wmu = h1.T @ g_z
+    g_wmu = mm(h1.T, g_z)
     g_bmu = csum(g_z)
-    g_wsig = h1.T @ g_pre
+    g_wsig = mm(h1.T, g_pre)
     g_bsig = csum(g_pre)
-    g_h1 = g_z @ wmu.T + g_pre @ wsig.T
+    g_h1 = mm(g_z, wmu.T) + mm(g_pre, wsig.T)
     g_a1e = g_h1 * (1.0 - h1 * h1)
-    g_w1e = xb.T @ g_a1e
+    g_w1e = mm(xb.T, g_a1e)
     g_b1e = csum(g_a1e)
 
     grads = (g_w1e, g_b1e, g_wmu, g_bmu, g_wsig, g_bsig,
@@ -147,11 +180,13 @@ def _scale(n, b, n_total):
 
 
 def reference_train(x, params, m, v, *, idx_stream, eps_stream, lr, t0=0,
-                    n_total=None):
+                    n_total=None, compute_dtype="float32"):
     """Run the plain ``_step_math`` + ``_adam`` over injected (steps, B)
     index and (steps, B, Z) noise streams.  Returns (params, m, v, losses
     (steps,)) — the kernel's parity oracle.  ``n_total``: the global data
-    size when x is one shard of it (None: x's own)."""
+    size when x is one shard of it (None: x's own); ``compute_dtype``: the
+    products' mode (see ``_step_math``)."""
+    _is_bf16(compute_dtype)
     n = x.shape[0]
     b = idx_stream.shape[1]
     scale = _scale(n, b, n_total)
@@ -161,7 +196,8 @@ def reference_train(x, params, m, v, *, idx_stream, eps_stream, lr, t0=0,
     losses = []
     for i in range(idx_stream.shape[0]):
         xb = x[idx_stream[i]]
-        elbo, grads = _step_math(p, xb, eps_stream[i], scale)
+        elbo, grads = _step_math(p, xb, eps_stream[i], scale,
+                                 compute_dtype)
         p, mm, vv = _adam(p, mm, vv, grads, float(t0 + i + 1), lr)
         losses.append(-elbo)
     return (dict(zip(LEAVES, p)), dict(zip(LEAVES, mm)),
@@ -208,7 +244,9 @@ def _unpack(flat, dims):
 
 
 def _launch(x, params, m, v, dims, *, steps, lr, seed, t0, thin, idx, eps,
-            scale):
+            scale, bf16=False):
+    """One call of the kernel's C entry (no launch count); ``bf16`` runs
+    its bf16 instance.  ``idx``/``eps`` None: in-kernel Philox streams."""
     lib = _build.load()
     x = x.contiguous()
     p, mf, vf = _pack(params), _pack(m), _pack(v)
@@ -225,7 +263,7 @@ def _launch(x, params, m, v, dims, *, steps, lr, seed, t0, thin, idx, eps,
             ptr(x), ptr(p), ptr(mf), ptr(vf), ptr(losses), ptr(scratch),
             ptr(idx), ptr(eps), dims.n, dims.d, dims.h, dims.z, dims.b,
             int(steps), int(t0), int(thin), float(lr), float(scale),
-            int(seed) & 0xFFFFFFFFFFFFFFFF,
+            int(seed) & 0xFFFFFFFFFFFFFFFF, int(bool(bf16)),
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(
@@ -235,7 +273,7 @@ def _launch(x, params, m, v, dims, *, steps, lr, seed, t0, thin, idx, eps,
 
 
 def fused_train(x, params, m, v, *, steps, lr, seed, batch=256, t0=0,
-                n_total=None):
+                n_total=None, compute_dtype="float32"):
     """Run ``steps`` fused DLGM ELBO steps.
 
     x (N,D) f32; params/m/v: dicts over LEAVES (see leaf_shapes), on x's
@@ -244,22 +282,28 @@ def fused_train(x, params, m, v, *, steps, lr, seed, batch=256, t0=0,
     a stream); n_total: the global data size when x is one data-parallel
     shard of it, so the likelihood is scaled by n_total / batch (None: N /
     batch).  Returns (params, m, v, losses), losses thinned to at most
-    2048 entries by the JAX kernel's rule.
+    2048 entries by the JAX kernel's rule.  ``compute_dtype``: "float32"
+    or "bfloat16" (each product on operands rounded to bf16; the kernel's
+    bf16 instance on a CUDA tensor).
 
     CUDA tensors run the kernel with in-kernel Philox streams; CPU tensors
     run ``reference_train`` with streams from a ``torch.Generator`` seeded
     from (seed, t0) — a different, equally uniform stream, so the two agree
     in distribution, not bitwise.
     """
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_BF16
     steps = int(steps)
     thin = _thin(steps)
+    bf16 = _is_bf16(compute_dtype)
     if x.device.type == "cuda":
         dims = _check(x, params, m, v, batch)
         out = _launch(x, params, m, v, dims, steps=steps, lr=lr, seed=seed,
                       t0=t0, thin=thin, idx=None, eps=None,
-                      scale=_scale(dims.n, dims.b, n_total))
-        LAUNCHES += 1
+                      scale=_scale(dims.n, dims.b, n_total), bf16=bf16)
+        if bf16:
+            LAUNCHES_BF16 += 1
+        else:
+            LAUNCHES += 1
         return out
     if x.device.type != "cpu":
         raise ValueError(f"fused_train: unsupported device {x.device}")
@@ -271,7 +315,8 @@ def fused_train(x, params, m, v, *, steps, lr, seed, batch=256, t0=0,
     eps = torch.randn((steps, int(batch), z), generator=gen)
     p, mm, vv, losses = reference_train(x, params, m, v, idx_stream=idx,
                                         eps_stream=eps, lr=lr, t0=t0,
-                                        n_total=n_total)
+                                        n_total=n_total,
+                                        compute_dtype=compute_dtype)
     return p, mm, vv, thin_losses(losses, steps)
 
 

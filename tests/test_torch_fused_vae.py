@@ -578,3 +578,146 @@ def test_kernel_repeats_bit_for_bit():
         for ta, tb in zip(a[:3], b[:3]):
             for k in tfv.LEAVES:
                 assert torch.equal(ta[k], tb[k]), k
+
+
+# ---------------------------------------------------------------------------
+# the bf16 compute mode (JAX mm_dtype=jnp.bfloat16): each product's operands
+# rounded to bf16, float32 accumulation and elementwise math.  The two
+# packages round the same float32 activations, which can part by an ulp
+# before rounding, so an operand may round to the neighbouring bf16 value:
+# limits are shares of each gradient leaf's max (BF16_GRAD_SHARE: 20x the
+# largest seen here, 4x the largest the kernel showed against the plain
+# version at the DLGM bench on an H100; the float32 mode parts from the
+# bf16 one by more than 3x that), as chip_smoke.py's phase 29(a)
+# ---------------------------------------------------------------------------
+
+BF16_GRAD_SHARE = 1e-3
+BF16_DIMS = (DIMS, tfv.FusedVAEDims(n=500, d=40, h=64, z=8, b=64))
+
+
+def _bf16_case(dims, seed):
+    rng = np.random.default_rng(seed)
+    params = {k: (rng.normal(size=s) / np.sqrt(s[0]) if k.startswith("w")
+                  else 0.1 * rng.normal(size=s)).astype(np.float32)
+              for k, s in tfv.leaf_shapes(dims).items()}
+    x = rng.normal(size=(dims.n, dims.d)).astype(np.float32)
+    idx = rng.integers(0, dims.n, dims.b)
+    eps = rng.normal(size=(dims.b, dims.z)).astype(np.float32)
+    return params, x[idx], eps, dims.n / dims.b
+
+
+@pytest.mark.parametrize("dims", BF16_DIMS, ids=["d12", "d40"])
+def test_bf16_step_math_matches_jax(dims):
+    params, xb, eps, scale = _bf16_case(dims, 31)
+    je, jg = jfv._step_math(tuple(jnp.asarray(params[k]) for k in jfv.LEAVES),
+                            jnp.asarray(xb), jnp.asarray(eps), scale,
+                            mm_dtype=jnp.bfloat16)
+    tp = tuple(torch.as_tensor(params[k]) for k in tfv.LEAVES)
+    te, tg = tfv._step_math(tp, torch.as_tensor(xb), torch.as_tensor(eps),
+                            scale, compute_dtype="bfloat16")
+    _, fg = tfv._step_math(tp, torch.as_tensor(xb), torch.as_tensor(eps),
+                           scale)
+    np.testing.assert_allclose(float(te), float(je), rtol=1e-5)
+    gap = 0.0
+    for name, a, b, f in zip(tfv.LEAVES, tg, jg, fg):
+        b = np.asarray(b)
+        share = np.abs(a.numpy() - b).max() / np.abs(b).max()
+        assert share <= BF16_GRAD_SHARE, (name, share)
+        gap = max(gap, np.abs(f.numpy() - b).max() / np.abs(b).max())
+    assert gap > 3 * BF16_GRAD_SHARE      # the mode changes the gradients
+
+
+def test_bf16_reference_train_matches_jax_step_math():
+    """Five steps of the port's ``reference_train(compute_dtype=
+    "bfloat16")`` against the JAX package's bf16 ``_step_math`` and
+    ``_adam`` in a loop (its ``reference_train`` has no mode)."""
+    params, m, v = _init(41)
+    x = _data(42)
+    idx, eps = _streams(43, 5)
+    lr, scale = 1e-2, DIMS.n / DIMS.b
+    jp, jm, jv = (tuple(jnp.asarray(t[k]) for k in jfv.LEAVES)
+                  for t in (params, m, v))
+    jl = []
+    for i in range(5):
+        e, g = jfv._step_math(jp, jnp.asarray(x[idx[i]]),
+                              jnp.asarray(eps[i]), scale,
+                              mm_dtype=jnp.bfloat16)
+        jp, jm, jv = jfv._adam(jp, jm, jv, g, float(i + 1), lr)
+        jl.append(-float(e))
+    tp, _, tv, tl = tfv.reference_train(
+        torch.as_tensor(x), _t(params), _t(m), _t(v),
+        idx_stream=torch.as_tensor(idx), eps_stream=torch.as_tensor(eps),
+        lr=lr, compute_dtype="bfloat16")
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4)
+    for name, a, b in zip(jfv.LEAVES, jp, jv):
+        # params within 1e-3 (25x the largest gap seen over three seeds;
+        # five Adam steps move an entry by up to 5 lr = 0.05), Adam's v
+        # within 5e-3 of the leaf's max (10x)
+        assert np.abs(tp[name].numpy() - np.asarray(a)).max() <= 1e-3, name
+        b = np.asarray(b)
+        assert np.abs(tv[name].numpy() - b).max() <= 5e-3 * np.abs(b).max()
+
+
+def test_bf16_fused_train_on_cpu_and_mode_checks():
+    params, m, v = _init(44)
+    x = torch.as_tensor(_data(45))
+    out = tfv.fused_train(x, _t(params), _t(m), _t(v), steps=30, lr=1e-2,
+                          seed=1, batch=DIMS.b, compute_dtype="bfloat16")
+    f32 = tfv.fused_train(x, _t(params), _t(m), _t(v), steps=30, lr=1e-2,
+                          seed=1, batch=DIMS.b)
+    assert bool(torch.isfinite(out[3]).all())
+    assert not torch.equal(out[3], f32[3])          # the mode is honoured
+    np.testing.assert_allclose(out[3].numpy(), f32[3].numpy(), rtol=0.05)
+    for bad in ("float16", "bf16", None):
+        with pytest.raises(ValueError, match="compute_dtype"):
+            tfv.fused_train(x, _t(params), _t(m), _t(v), steps=1, lr=1e-2,
+                            seed=1, batch=DIMS.b, compute_dtype=bad)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        tfv.reference_train(x, _t(params), _t(m), _t(v),
+                            idx_stream=torch.zeros((1, 8), dtype=torch.long),
+                            eps_stream=torch.zeros((1, 8, DIMS.z)), lr=1e-2,
+                            compute_dtype="half")
+
+
+@pytest.mark.gpu
+def test_bf16_kernel_matches_plain():
+    """On a CUDA card: the bf16 instance's one injected step against the
+    plain bf16 version (every gradient leaf within BF16_GRAD_SHARE of its
+    max, loss rel 1e-5), a 5-step trajectory's losses at rtol 1e-4, and
+    ``fused_train(compute_dtype="bfloat16")`` counted in LAUNCHES_BF16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    params, m, v = _init(46)
+    x = torch.as_tensor(_data(47), device=dev)
+    tp, tm, tv = ({k: a.to(dev) for k, a in _t(tree).items()}
+                  for tree in (params, m, v))
+    idx, eps = _streams(48, 5)
+    idx, eps = torch.as_tensor(idx, device=dev), torch.as_tensor(
+        eps, device=dev)
+    dims = tfv._check(x, tp, tm, tv, DIMS.b)
+    run = dict(seed=0, t0=0, thin=1, scale=DIMS.n / DIMS.b, bf16=True)
+    _, m1, _, l1 = tfv._launch(x, tp, tm, tv, dims, steps=1, lr=1e-2,
+                               idx=idx[:1].to(torch.int32).contiguous(),
+                               eps=eps[:1].contiguous(), **run)
+    elbo, grads = tfv._step_math(tuple(tp[k] for k in tfv.LEAVES),
+                                 x[idx[0]], eps[0], DIMS.n / DIMS.b,
+                                 "bfloat16")
+    for k, g in zip(tfv.LEAVES, grads):
+        share = float((-m1[k] / 0.1 - g).abs().max() / g.abs().max())
+        assert share <= BF16_GRAD_SHARE, (k, share)
+    assert abs(float(l1[0]) + float(elbo)) <= 1e-5 * abs(float(elbo))
+    got = tfv._launch(x, tp, tm, tv, dims, steps=5, lr=1e-2,
+                      idx=idx.to(torch.int32).contiguous(),
+                      eps=eps.contiguous(), **run)
+    want = tfv.reference_train(x, tp, tm, tv, idx_stream=idx,
+                               eps_stream=eps, lr=1e-2,
+                               compute_dtype="bfloat16")
+    np.testing.assert_allclose(got[3].cpu().numpy(), want[3].cpu().numpy(),
+                               rtol=1e-4)
+    before = tfv.LAUNCHES_BF16
+    out = tfv.fused_train(x, tp, tm, tv, steps=20, lr=1e-2, seed=3,
+                          batch=DIMS.b, compute_dtype="bfloat16")
+    assert tfv.LAUNCHES_BF16 == before + 1
+    assert bool(torch.isfinite(out[3]).all())
