@@ -5,7 +5,9 @@ each module is tested against.  Ported so far: the model DSL with every
 distribution family but the HMM and LGSS ones; SVI with the STL, IWAE and
 DReG bounds and mean-field, full-rank, low-rank, flow, amortized and
 DSL-authored guides; NUTS/HMC; tempered SMC; posterior predictives,
-pointwise log-likelihoods, WAIC/PSIS-LOO and SBC; the sharded paths; and
+pointwise log-likelihoods, WAIC/PSIS-LOO and SBC; discrete enumeration
+and ``infer_discrete``; elliptical slice, parallel tempering, NUTS within
+Gibbs, SG-MCMC, MAP/Laplace and SVGD; the sharded paths; and
 the five models' paths (the DLGM's SVI, with its bf16 compute mode, and
 local-posterior NUTS, the hierarchical logistic regression's SVI and
 full-batch NUTS, the Gaussian mixture's tempered SMC, the linear
@@ -15,9 +17,11 @@ Layering:
   dist/      distributions + transforms
   core/      model DSL + joint log-prob compiler
   infer/svi  ELBOs (STL, IWAE, DReG), guides, Adam, the SVI loop
-  infer/mcmc NUTS/HMC, adaptation, the MCMC driver
+  infer/mcmc NUTS/HMC, adaptation, the MCMC driver, elliptical slice,
+             parallel tempering, NUTS within Gibbs
   infer/smc  adaptive tempered SMC with HMC mutation
-  infer/     Predictive, log_likelihood
+  infer/     Predictive, log_likelihood, infer_discrete, SG-MCMC,
+             MAP/Laplace, SVGD
   parallel/  torch.distributed: data-parallel SVI, sharded chains and
              particles, the ring resampler, the launcher
   ops/       hand-written Hopper kernels (csrc/) + plain PyTorch versions
@@ -57,4 +61,19 @@ def __getattr__(name):
     if name == "log_likelihood":
         from .infer.loglik import log_likelihood
         return log_likelihood
+    if name == "Laplace":
+        from .infer.laplace import Laplace
+        return Laplace
+    if name == "map_estimate":
+        from .infer.laplace import map_estimate
+        return map_estimate
+    if name == "ParallelTempering":
+        from .infer.mcmc import ParallelTempering
+        return ParallelTempering
+    if name == "SGMCMC":
+        from .infer.sgmcmc import SGMCMC
+        return SGMCMC
+    if name == "SVGD":
+        from .infer.svgd import SVGD
+        return SVGD
     raise AttributeError(name)

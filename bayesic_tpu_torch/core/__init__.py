@@ -1,5 +1,5 @@
-"""Model DSL + joint log-prob compiler: the port of ``bayesic_tpu.core``
-(discrete enumeration aside)."""
+"""Model DSL + joint log-prob compiler (discrete enumeration included):
+the port of ``bayesic_tpu.core``."""
 
 from . import handlers
 from .logjoint import (ModelInfo, Potential, build_logjoint, init_to_prior,

@@ -97,8 +97,8 @@ def sample(name, fn, obs=None, rng_key=None, sample_shape=(), infer=None):
     """Declare a random variable ``name`` with distribution ``fn``; if
     ``obs`` is given the site is an observed likelihood term.  ``rng_key``
     is a ``torch.Generator``.  ``infer`` carries inference hints and is
-    recorded in the trace; ``build_logjoint`` refuses a latent site marked
-    ``{"enumerate": True}`` (discrete enumeration is not ported)."""
+    recorded in the trace; ``build_logjoint`` sums a discrete latent site
+    marked ``{"enumerate": True}`` out of the density."""
     if not isinstance(fn, Distribution):
         raise TypeError(f"sample({name!r}): fn must be a Distribution")
     if not HANDLER_STACK and obs is None and rng_key is None:

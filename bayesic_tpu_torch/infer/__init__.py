@@ -1,7 +1,15 @@
-"""Inference backends: SVI, MCMC (NUTS, HMC), SMC, and the predictive
-tools (``Predictive``, ``log_likelihood``)."""
+"""Inference backends: SVI, MCMC (NUTS, HMC, elliptical slice, parallel
+tempering, NUTS within Gibbs), SMC, SG-MCMC, MAP/Laplace, SVGD,
+``infer_discrete`` and the predictive tools (``Predictive``,
+``log_likelihood``).  ``pathfinder`` is not ported yet."""
 
+from .discrete import infer_discrete
+from .laplace import Laplace, MAPResult, map_estimate
 from .loglik import log_likelihood
 from .predictive import Predictive
+from .sgmcmc import SGMCMC, SGMCMCResult
+from .svgd import SVGD, SVGDResult
 
-__all__ = ["Predictive", "log_likelihood"]
+__all__ = ["Laplace", "MAPResult", "Predictive", "SGMCMC", "SGMCMCResult",
+           "SVGD", "SVGDResult", "infer_discrete", "log_likelihood",
+           "map_estimate"]

@@ -19,7 +19,7 @@ from typing import Any, NamedTuple
 import torch
 
 from ...core.logjoint import build_logjoint, default_device, init_to_uniform
-from ...parallel.mesh import all_gather, axis_index, axis_size, local_slice
+from ...parallel.mesh import all_gather, local_chains
 from ...utils import diagnostics as diag
 from ..svi.guides import unraveler
 from .adapt import (
@@ -37,9 +37,40 @@ from .nuts import make_nuts_kernel
 from .streams import INIT, SAMPLE, WARMUP, StreamKey, init_uniforms, \
     nuts_streams
 
-__all__ = ["MCMC", "MCMCResult", "gather_chains"]
+__all__ = ["MCMC", "MCMCResult", "gather_chains", "flat_model",
+           "constrained_draws"]
 
 _PER_CHAIN = ("diverging", "accept_prob", "tree_depth", "num_steps")
+
+
+class FlatModel(NamedTuple):
+    info: Any             # ModelInfo
+    logdensity: Any       # build_logjoint's log-density (with .parts, ...)
+    dim: int              # length of the flat unconstrained vector
+    unravel: Any          # flat (dim,) -> unconstrained site dict
+    ravel: Any            # unconstrained site dict -> flat
+    constrain: Any        # flat (..., dim) -> constrained site dict
+
+
+def flat_model(model, model_args=(), model_kwargs=None, device=None):
+    """``model``'s log-joint over flat unconstrained vectors, as every
+    sampler of this package runs it: ``build_logjoint`` with its discovery
+    trace drawn on ``device``, and the flattening of its latent sites."""
+    info, logdensity, constrain_fn, _ = build_logjoint(
+        model, *model_args,
+        rng_key=torch.Generator(device=device).manual_seed(0),
+        **(model_kwargs or {}))
+    dim, unravel_fn, ravel_fn = unraveler(info)
+    return FlatModel(info, logdensity, dim, unravel_fn, ravel_fn,
+                     lambda q: constrain_fn(unravel_fn(q)))
+
+
+def constrained_draws(constrain, qs):
+    """site -> (chains, samples, *event) constrained draws of the flat
+    unconstrained draws ``qs`` (chains, samples, dim)."""
+    cons = constrain(qs.reshape(-1, qs.shape[-1]))
+    return {name: v.reshape(tuple(qs.shape[:2]) + tuple(v.shape[1:]))
+            for name, v in cons.items()}
 
 
 class MCMCResult(NamedTuple):
@@ -88,7 +119,9 @@ class MCMC:
     there is none.  ``batched_transition``, when given, replaces the kernel:
     ``(key, states, step_size, inv_mass) -> (states, NUTSInfo)`` on all
     chains, where ``key`` is the transition's ``streams.StreamKey`` from
-    which it draws its own per-chain streams.
+    which it draws its own per-chain streams.  ``unravel`` (beside
+    ``potential_and_grad``) is stored and read nowhere, as in the JAX
+    driver.
 
     ``chain_sharding`` (a ``parallel.mesh.Sharding`` or ``(mesh, axis)``)
     splits the ``num_chains`` chains over a mesh axis of S ranks: this
@@ -103,7 +136,7 @@ class MCMC:
     """
 
     def __init__(self, model=None, *, potential_and_grad=None, example_q=None,
-                 constrain=None,
+                 unravel=None, constrain=None,
                  kernel="nuts", num_warmup=1000, num_samples=1000,
                  num_chains=4, max_depth=10, target_accept=0.8,
                  dense_mass=False, init_step_size=0.1, thin=1,
@@ -128,13 +161,7 @@ class MCMC:
                                  device=self.device)
         )
         self.chain_sharding = chain_sharding
-        start, self._n = 0, self.num_chains
-        if chain_sharding is not None:
-            mesh, axis = chain_sharding
-            start, self._n = local_slice(self.num_chains,
-                                         axis_size(mesh, axis),
-                                         axis_index(mesh, axis))
-        self._start, self._chains = start, None
+        self._chains = None
         self.batched_transition = batched_transition
         if batched_transition is not None and not self.shared_adapt:
             raise ValueError(
@@ -144,14 +171,12 @@ class MCMC:
 
         if model is not None:
             # the discovery trace draws on the chains' device
-            info, logdensity, constrain_fn, _ = build_logjoint(
-                model, *model_args,
-                rng_key=torch.Generator(device=self.device).manual_seed(0),
-                **(model_kwargs or {}))
-            dim, unravel_fn, ravel_fn = unraveler(info)
-            self.info = info
-            self.dim = dim
-            self._ravel = ravel_fn
+            fm = flat_model(model, model_args, model_kwargs, self.device)
+            self.info = fm.info
+            self.dim = fm.dim
+            self._ravel = fm.ravel
+            self._unravel = unravel_fn = fm.unravel
+            logdensity = fm.logdensity
             value_and_grad = torch.func.vmap(torch.func.grad_and_value(
                 lambda qq: -logdensity(unravel_fn(qq))))
 
@@ -160,7 +185,7 @@ class MCMC:
                 return pe, grad
 
             self._potential_and_grad = pag
-            self._constrain = lambda q: constrain_fn(unravel_fn(q))
+            self._constrain = fm.constrain
         else:
             if potential_and_grad is None or example_q is None:
                 raise ValueError(
@@ -169,6 +194,8 @@ class MCMC:
             self.info = None
             self.dim = int(torch.as_tensor(example_q).numel())
             self._potential_and_grad = potential_and_grad
+            # stored, as in the JAX driver, which reads it nowhere else
+            self._unravel = unravel or (lambda q: q)
             self._constrain = constrain or (lambda q: {"q": q})
 
         if self.init_params is not None and tuple(self.init_params.shape) \
@@ -180,7 +207,7 @@ class MCMC:
                 "UNCONSTRAINED-space points, one per chain."
             )
         if self.init_params is not None:
-            self.init_params = self.init_params[start:start + self._n]
+            self.init_params = self.init_params[self.chains]
 
         if kernel == "nuts":
             self._kernel = make_nuts_kernel(
@@ -201,8 +228,8 @@ class MCMC:
         """Global indices of the chains this process runs, on the chains'
         device (made at first use: a card need not exist before a run)."""
         if self._chains is None:
-            self._chains = torch.arange(self._start, self._start + self._n,
-                                        device=self.device)
+            self._chains = local_chains(self.num_chains, self.chain_sharding,
+                                        self.device)
         return self._chains
 
     # ------------------------------------------------------------------
@@ -223,7 +250,8 @@ class MCMC:
         return torch.ones(self.dim, device=self.device)
 
     def _welford_init(self):
-        batch = () if self.shared_adapt else (self._n,)
+        n = self.chains.shape[0]
+        batch = () if self.shared_adapt else (n,)
         return welford_init(self.dim, dense=self.dense_mass, batch=batch,
                             device=self.device)
 
@@ -233,8 +261,9 @@ class MCMC:
         if self.shared_adapt:
             step0 = torch.tensor(self.init_step_size, device=self.device)
         else:
-            mass = mass.expand((self._n,) + mass.shape).clone()
-            step0 = torch.full((self._n,), self.init_step_size,
+            n = self.chains.shape[0]
+            mass = mass.expand((n,) + mass.shape).clone()
+            step0 = torch.full((n,), self.init_step_size,
                                device=self.device)
         return _WarmupCarry(states, da_init(step0), self._welford_init(),
                             mass, step0)
@@ -295,11 +324,29 @@ class MCMC:
             carry = self._warm_step(seed, carry, t)
         return carry
 
-    def run(self, seed) -> MCMCResult:
-        """Warmup then sampling from the integer ``seed``."""
-        return self.run_segmented(seed, self.num_warmup or 1,
+    def warmup_and_sample(self, seed, with_states=False):
+        """The whole run, warmup then sampling from the integer ``seed``,
+        as a callable returning the raw tuple ``(qs, divs, accs, depths,
+        nsteps, step_size, inv_mass)`` (``qs`` (samples, chains, dim)).
+        With ``with_states=True`` returns ``(run_all, carry0)``, where
+        ``run_all(carry0)`` takes the initial carry (this rank's chains
+        under ``chain_sharding``) as an argument; else a zero-argument
+        callable.  :meth:`run` is ``_package(*run_all(carry0))``."""
+        carry0 = self._initial_carry(seed)
+
+        def run_all(c0):
+            return self._run_from(seed, c0, self.num_warmup or 1,
                                   self.num_samples or 1,
                                   fence=lambda _: None, to_host=False)
+
+        if with_states:
+            return run_all, carry0
+        return lambda: run_all(carry0)
+
+    def run(self, seed) -> MCMCResult:
+        """Warmup then sampling from the integer ``seed``."""
+        run_all, carry0 = self.warmup_and_sample(seed, with_states=True)
+        return self._package(*run_all(carry0))
 
     def run_segmented(self, seed, warmup_chunk=100, sample_chunk=100,
                       fence=None, to_host=True) -> MCMCResult:
@@ -313,7 +360,12 @@ class MCMC:
             def fence(leaf):
                 return leaf.cpu()
 
-        carry = self._initial_carry(seed)
+        return self._package(*self._run_from(
+            seed, self._initial_carry(seed), warmup_chunk, sample_chunk,
+            fence, to_host))
+
+    def _run_from(self, seed, carry, warmup_chunk, sample_chunk, fence,
+                  to_host):
         for lo in range(0, self.num_warmup, warmup_chunk):
             carry = self._warmup(seed, carry,
                                  lo, min(lo + warmup_chunk, self.num_warmup))
@@ -332,17 +384,13 @@ class MCMC:
             fence(coll[0])
             chunks.append([a.cpu() for a in coll] if to_host else coll)
         cat = [torch.cat([c[i] for c in chunks]) for i in range(5)]
-        return self._package(*cat, step_size, inv_mass)
+        return (*cat, step_size, inv_mass)
 
     def _package(self, qs, divs, accs, depths, nsteps, step_size,
                  inv_mass) -> MCMCResult:
         # qs: (num_samples, chains, dim) -> (chains, num_samples, dim)
         qs = qs.transpose(0, 1)
-        cons = self._constrain(qs.reshape(-1, self.dim))
-        samples = {
-            name: v.reshape(tuple(qs.shape[:2]) + tuple(v.shape[1:]))
-            for name, v in cons.items()
-        }
+        samples = constrained_draws(self._constrain, qs)
         extra = {
             "diverging": divs.transpose(0, 1),
             "accept_prob": accs.transpose(0, 1),

@@ -9,8 +9,10 @@ Philox4x32-10 word block (``ops/_kernel_common.philox4x32_10``) with
 
 where ``phase`` is init, warmup or sample, ``t`` the transition's absolute
 step in that phase, and ``kind`` names the stream (momentum, doubling
-directions, merge and leaf uniforms, init uniforms).  Chain c's draws are
-therefore a function of ``(seed, phase, t, c)`` alone.  The words are
+directions, merge and leaf uniforms, init uniforms; the other samplers'
+streams from ``ESS_NU`` on, a subsampled plate's from ``SUBSAMPLE``).
+Chain c's draws are therefore a function of ``(seed, phase, t, c)``
+alone.  The words are
 computed with torch integer ops on the chains' device.
 
 Uniforms are ``((bits >> 9) + 0.5) / 2^23``: strictly inside (0, 1) in
@@ -29,10 +31,16 @@ import torch
 from ...ops._kernel_common import philox4x32_10, uniform24
 
 __all__ = ["StreamKey", "NUTSStreams", "INIT", "WARMUP", "SAMPLE",
-           "open_uniform", "init_uniforms", "nuts_streams"]
+           "open_uniform", "init_uniforms", "nuts_streams", "uniforms",
+           "normals", "gumbels", "subsample_uniforms"]
 
 INIT, WARMUP, SAMPLE = 0, 1, 2
 _MOMENTUM, _DIRECTION, _MERGE, _LEAF, _INIT = range(5)
+# the streams of elliptical slice, tempering, SG-MCMC, SVGD and the
+# enumerated sites' draws; a subsampled plate i draws kind SUBSAMPLE + i
+(ESS_NU, ESS_SLICE, ESS_ANGLE, ESS_SHRINK, PT_MOMENTUM, PT_ACCEPT, PT_SWAP,
+ SG_NOISE, GUMBEL) = range(5, 14)
+SUBSAMPLE = 32
 _MASK32 = 0xFFFFFFFF
 
 
@@ -103,3 +111,39 @@ def nuts_streams(key: StreamKey, chains, dim, max_doublings,
     sign_dir = torch.where((d_w0 >> 31) == 1, 1.0, -1.0)
     return NUTSStreams(mom, sign_dir, torch.log(open_uniform(a_w0)),
                        torch.log(open_uniform(l_w0)))
+
+
+def uniforms(key: StreamKey, chains, n, kind, device="cpu"):
+    """(C, n) open uniforms of the stream ``kind``, lanes 0..n-1."""
+    chains = _chains(chains, device)
+    lanes = torch.arange(n, dtype=torch.int64, device=device)
+    return open_uniform(_words(key, chains, lanes,
+                               torch.full_like(lanes, kind))[0])
+
+
+def normals(key: StreamKey, chains, n, kind, device="cpu"):
+    """(C, n) standard normals of the stream ``kind`` (Box-Muller, cosine
+    branch, on an open u1, as the momenta)."""
+    chains = _chains(chains, device)
+    lanes = torch.arange(n, dtype=torch.int64, device=device)
+    w0, w1, _, _ = _words(key, chains, lanes, torch.full_like(lanes, kind))
+    return torch.sqrt(-2.0 * torch.log(open_uniform(w0))) * torch.cos(
+        (2.0 * math.pi) * uniform24(w1))
+
+
+def gumbels(key: StreamKey, chains, n, kind=GUMBEL, device="cpu"):
+    """(C, n) standard Gumbel draws -log(-log u) of the stream ``kind``."""
+    return -torch.log(-torch.log(uniforms(key, chains, n, kind, device)))
+
+
+def subsample_uniforms(info, key: StreamKey, chains, device="cpu"):
+    """The uniforms ``svi.elbo.draw_subsample`` turns into each chain's
+    mini-batch indices: per subsampled plate (sorted by name, the i-th
+    drawing kind SUBSAMPLE + i), (C, subsample size) with replacement,
+    else (C, plate size)."""
+    out = {}
+    for i, (name, (size, ssize, replacement)) in enumerate(
+            sorted(info.subsample_sites.items())):
+        out[name] = uniforms(key, chains, ssize if replacement else size,
+                             SUBSAMPLE + i, device)
+    return out

@@ -18,13 +18,24 @@ import torch
 __all__ = ["draw_subsample", "make_elbo"]
 
 
-def draw_subsample(info, generator):
+def draw_subsample(info, generator, uniforms=None):
     """Draw one index array per subsampled plate (shared across particles),
-    on the generator's device.  Honors the plate's ``replacement`` flag."""
+    on the generator's device.  Honors the plate's ``replacement`` flag.
+
+    ``uniforms`` (a dict plate -> (..., n) open uniforms, as
+    ``infer.mcmc.streams.subsample_uniforms`` draws them) takes the place
+    of the generator: each leading index gets its own mini-batch,
+    ``floor(u * size)`` with replacement (n the subsample size), else the
+    first ``subsample size`` places of the uniforms' sort order (n the
+    plate size, a uniform permutation)."""
     out = {}
     for name, (size, ssize, replacement) in sorted(
             info.subsample_sites.items()):
-        if replacement:
+        if uniforms is not None:
+            u = uniforms[name]
+            out[name] = torch.clamp((u * size).long(), max=size - 1) \
+                if replacement else torch.argsort(u, -1)[..., :ssize]
+        elif replacement:
             out[name] = torch.randint(0, size, (ssize,), generator=generator,
                                       device=generator.device)
         else:

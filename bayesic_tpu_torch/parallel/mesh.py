@@ -36,7 +36,8 @@ import torch.distributed as dist
 from ..infer.svi.svi import _tree_unflatten, tree_leaves, tree_map
 
 __all__ = ["AXES", "Sharding", "make_mesh", "shard_leading", "replicate",
-           "put_sharded", "put_replicated", "local_slice", "axis_size",
+           "put_sharded", "put_replicated", "local_slice", "local_chains",
+           "axis_size",
            "axis_index", "psum", "pmean", "pmax", "all_gather",
            "ppermute", "group_device"]
 
@@ -100,6 +101,20 @@ def local_slice(global_size: int, axis_size: int, axis_index: int):
                          f"{axis_size}")
     per = global_size // axis_size
     return axis_index * per, per
+
+
+def local_chains(num_chains: int, sharding, device):
+    """The global indices of the chains this rank runs, on ``device``:
+    all ``num_chains`` without ``sharding``, else this rank's contiguous
+    share along the axis of ``sharding`` (a ``Sharding`` or ``(mesh,
+    axis)``).  Every chain-sharded sampler keys its draws by these
+    indices, so a chain's draws do not depend on the rank that runs it."""
+    start, n = 0, int(num_chains)
+    if sharding is not None:
+        mesh, axis = sharding
+        start, n = local_slice(n, axis_size(mesh, axis),
+                               axis_index(mesh, axis))
+    return torch.arange(start, start + n, device=device)
 
 
 def put_sharded(tree, mesh, axis: str):

@@ -5,8 +5,9 @@ and full-batch NUTS, the Gaussian mixture's tempered SMC, the linear
 regression's SVI, the matrix factorization's mini-batch and dense SVI,
 the sharded (multi-rank) forms of the DLGM, hier, linreg, GMM and dense MF
 paths, the model DSL's breadth (every distribution family, the generic
-MCMC and SVI on further models), and the DLGM's bf16 mode, the SVI
-breadth and the model-checking tools.
+MCMC and SVI on further models), the DLGM's bf16 mode, the SVI breadth
+and the model-checking tools, and discrete enumeration with the rest of
+the samplers.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
 hand-written kernels from ``bayesic_tpu_torch/csrc/``.
@@ -107,6 +108,21 @@ against mean-field, through the generic ``SVI`` on the card; (d)
 ``Predictive``, ``log_likelihood`` (the card against the CPU), PSIS-LOO
 against exact LOO, ``compare`` and SBC (an exact sampler calibrated, a
 shifted one caught), on exact conjugate posterior draws on the card.
+
+Phase 30, discrete enumeration and the rest of the inference algorithms
+(no new kernel), in six processes started beside phase 28(c)'s and done
+before phase 29 times anything: (a) the enumerated mixture density and
+gradient at 65,536 points against the CPU in float64 and against
+``MixtureSameFamily``, and ``infer_discrete`` against Bayes' rule; (b)
+``DiscreteGibbs`` against marginal NUTS; (c) ``EllipticalSlice`` against
+NUTS; (d) ``ParallelTempering`` on a bimodal target and an analytic
+evidence; (e) ``SGMCMC``'s three methods, and sgld on a 100,000-row
+regression against (f) ``map_estimate`` / ``Laplace`` (the gradient at
+the mode, ``cov`` against the float64 inverse Hessian, exact on a
+linear-Gaussian model); (g) ``SVGD``; (h) ``MCMC.warmup_and_sample`` on
+the two fused NUTS paths equal to ``run`` bit for bit, the kernels'
+launches counted; (i) the chain-sharded samplers at world size 1 on NCCL
+equal to their unsharded runs.
 
 Phases 26-27, the sharded paths (``bayesic_tpu_torch.parallel``,
 ``MCMC(chain_sharding=)``): at world size 1 on NCCL in this process,
@@ -329,6 +345,74 @@ BF16_STEPS, BF16_FINAL_GAP, BF16_TIMED = 3000, 0.01, (30, 6)
 BF16_GENERIC_STEPS, BF16_SPIN_MS = 200, 10.0
 BREADTH_SVI = dict(iwae=700, corr=2000, trace=1000)
 CHECK_DRAWS, CHECK_SIMS = 2000, 200
+# phase 30, discrete enumeration and the further samplers, in the
+# _breadth_child processes P30_RUNS started beside phase 28(c)'s at nice
+# P30_NICE, so that 28(c)'s runs keep their cores (sizes in P30_SIZES, one
+# dict a group's runs):
+# (a) enum: tests/test_logjoint.py:339's mixture (a per-point enumerated
+#     Categorical over two locations) at n 65,536 points: the marginal
+#     density and gradient on the card against the CPU in float64 and
+#     against MixtureSameFamily on the card, rel err <= P30_ENUM_RTOL, at
+#     mu -2 and 3 (away from the mode, where the gradient is a sum of
+#     terms of one sign); infer_discrete at mu 0.5, 4,096 draws in chunks
+#     of 512, the 16 least certain points' frequencies within 4 SE of
+#     Bayes' rule (tests/test_infer_discrete.py:20)
+# (b) gibbs: tests/test_gibbs.py:42's mixture at n 10,000, 16 chains,
+#     150 + 150 (cut from 200 + 200, the gates held on three seeds):
+#     DiscreteGibbs against marginal NUTS on the same model,
+#     each draw's means sorted (a chain may take either labeling), within
+#     5 MCSE of each other, split-R-hat < 1.01
+# (c) ess: the whitened logistic regression of tests/test_ess_sampler.py:48
+#     at 10,000 rows x D 16, 32 chains, 200 + 500: EllipticalSlice's means
+#     and sds within 5 MCSE of the port's NUTS at 150 + 150 (cut from
+#     200 + 200; the sd's MCSE as sd / sqrt(2 ESS))
+# (d) pt: tests/test_tempering.py:69's bimodal target (8 rungs, 16 chains;
+#     mass at q > 0 in 0.3-0.7, more than 0.6 of the chains hopping) and
+#     :115's Beta-Bernoulli evidence (11 + 1 rungs, 16 leapfrogs as in
+#     the JAX test; SS within 0.1, TI 0.3 of the analytic log Z); the
+#     draws cut from the JAX tests' 400 + 600 (bimodal, 8 leapfrogs) and
+#     400 + 1,500 (evidence) to 300 + 400 each, the gates held on three
+#     seeds
+# (e) sg: tests/test_sgmcmc.py:38's three methods at its tolerances, cut
+#     from its 2,000 + 1,500 steps to 1,000 + 750 (the gates held on three
+#     seeds); sgld on a logistic regression of 100,000 rows x D 16 with a
+#     subsampled plate of 1,000, each mean within P30_SGLD_SDS of (f)'s
+#     Laplace sds from (f)'s mode (step 3e-6: at 1e-6 the chains had not
+#     mixed in 1,000 + 1,000, one seed 1.67 sds off, R-hat 2.07)
+# (f) map: map_estimate / Laplace on the same regression (full batch),
+#     800 Adam steps on a cosine decay (cut from 1,500; on the card the
+#     gradient ratio read 3.9e-8 at 1,500, 6.0e-8 at 800): the gradient
+#     norm at the mode <= 1e-3 of the start, cov within rel 1e-3 of the
+#     float64 inverse Hessian by autograd on the CPU; Laplace exact on
+#     tests/test_laplace.py:49's model
+# (g) svgd: tests/test_svgd.py:35's correlated Gaussian at 256 particles
+#     and :55's subsampled plate, at the JAX tests' tolerances
+# (h) kernels: MCMC.warmup_and_sample on hier_logistic.fused_nuts_mcmc
+#     (row 4, phase 15's shapes) and dlgm.local_posterior_mcmc_fused (row
+#     3, phase 10's shapes, a random decoder) at 100 + 100, equal to run
+#     on the seed bit for bit, the kernels' launches counted
+# (i) sharded: EllipticalSlice, ParallelTempering and SGMCMC with
+#     chain_sharding at world size 1 on NCCL, equal to their unsharded
+#     runs bit for bit
+P30_RUNS = ("p30_enum", "p30_gibbs", "p30_ess", "p30_pt", "p30_sg_map",
+            "p30_kernels")
+P30_SIZES = dict(
+    enum=dict(n=65_536, draws=4096, points=16, chunk=512),
+    svgd=dict(particles=256, corr_steps=2000, sub_steps=1200),
+    gibbs=dict(n=10_000, chains=16, warmup=150, samples=150),
+    ess=dict(n=10_000, d=16, chains=32, burnin=200, samples=500, nuts=150),
+    pt=dict(bimodal=dict(replicas=8, chains=16, warmup=300, samples=400,
+                         leapfrog=8),
+            evidence=dict(rungs=11, chains=8, warmup=300, samples=400,
+                          leapfrog=16)),
+    map=dict(rows=100_000, dim=16, steps=800, lr=0.05, grad_ratio=1e-3,
+             cov_rtol=1e-3),
+    sg=dict(conj=dict(chains=8, burnin=1000, samples=750),
+            logit=dict(rows=100_000, dim=16, batch=1000, chains=8,
+                       burnin=1500, samples=1500, step=3e-6)),
+    kernels=dict(warmup=100, samples=100),
+    sharded=dict(n=2000, d=4, batch=100, chains=8, steps=20))
+P30_ENUM_RTOL, P30_SGLD_SDS, P30_NICE = 1e-5, 1.0, 10
 # published peaks of one H100 SXM (NVIDIA data sheet): FP32 outside the
 # tensor cores, dense bf16 and TF32 on them, and HBM3; the SFU does 16
 # exp/log/rcp per SM per clock, at the 1.98 GHz boost clock on 132 SMs
@@ -4090,6 +4174,10 @@ def _breadth_child(which, device, sizes):
     torch.set_num_threads(1)
     dev = torch.device(device, 0) if device == "cuda" else \
         torch.device(device)
+    if which.startswith("p30_"):
+        line, text = _phase30_child(which, device, sizes)
+        print(json.dumps({"line": line, "text": text}), flush=True)
+        return
     run = {"schools": lambda: _breadth_schools(torch, dev, core, dist, diag,
                                                sizes),
            "wishart": lambda: (_breadth_wishart(torch, np, dev, core, dist,
@@ -4136,10 +4224,12 @@ def _breadth_phase(torch, np, card, dev):
     sizes = dict(BREADTH_NUTS, negbin=NEGBIN)
     t0 = time.perf_counter()
     procs = {w: _spawn_child(w, dev, sizes[w]) for w in BREADTH_RUNS}
+    # phase 30's groups run beside them
+    procs.update({w: _spawn_child(w, dev, P30_SIZES) for w in P30_RUNS})
     # leave the children (and phase 29's) a core each while (a) computes
     # on the CPU
     threads = torch.get_num_threads()
-    torch.set_num_threads(max(1, threads - len(BREADTH_RUNS) - 1))
+    torch.set_num_threads(max(1, threads - len(procs) - 1))
     try:
         worst, checked, older = _breadth_parity(torch, np, dev)
         ta = time.perf_counter() - t0
@@ -4163,8 +4253,10 @@ def _breadth_phase(torch, np, card, dev):
               + "; ".join(f"{k} {v}" for k, v in draws.items())
               + f" [{card}, {time.perf_counter() - t:.1f} s]", flush=True)
         results = {w: _child_result(p, t0 + BREADTH_DEADLINE,
-                                    f"phase 28(c) {w}")
+                                    f"phase 28(c) {w}" if w in BREADTH_RUNS
+                                    else f"phase 30 {w}")
                    for w, p in procs.items()}
+        wall30 = time.perf_counter() - t0
     finally:
         torch.set_num_threads(threads)
         for p in procs.values():
@@ -4176,7 +4268,9 @@ def _breadth_phase(torch, np, card, dev):
     print(f"phase 28 dist and core breadth ok [{card}]: "
           + "; ".join(results[w]["line"] for w in BREADTH_RUNS)
           + f" (the phase {time.perf_counter() - t0:.1f} s, 28(c)'s four "
-          f"runs in processes of their own, at once)", flush=True)
+          f"runs in processes of their own, at once, beside phase 30's "
+          f"{len(P30_RUNS)} groups)", flush=True)
+    return {w: results[w] for w in P30_RUNS}, wall30
 
 
 def _bf16_trainer(torch, np, card, dev):
@@ -4608,6 +4702,681 @@ def _phase29(torch, np, card, dev, checks=None):
     return record
 
 
+# ---------------------------------------------------------------------------
+# phase 30: discrete enumeration and the further samplers (no kernel but
+# (h)'s: the generic engines on the card, each run in a _breadth_child
+# process of its own beside phase 28(c)'s)
+# ---------------------------------------------------------------------------
+
+def _p30_sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _p30_mixture(torch, np, dev, core, dist, n, dtype=None):
+    """tests/test_logjoint.py:339's mixture at n points: a per-point
+    enumerated Categorical assignment over two locations, and the same
+    marginal by MixtureSameFamily."""
+    dtype = dtype or torch.float32
+    y = torch.as_tensor(np.random.default_rng(1).normal(0.5, 1.3, n)
+                        .astype(np.float32), device=dev).to(dtype)
+    pi = torch.tensor([0.3, 0.7], device=dev, dtype=dtype)
+    locs = torch.tensor([-1.0, 2.0], device=dev, dtype=dtype)
+
+    def model():
+        mu = core.sample("mu", dist.Normal(torch.tensor(0.0, dtype=dtype,
+                                                        device=dev), 3.0))
+        z = core.sample("z", dist.Categorical(probs=pi), sample_shape=(n,),
+                        infer={"enumerate": True})
+        core.sample("obs", dist.Normal(mu + locs[z], 1.0), obs=y)
+
+    def model_mix():
+        mu = core.sample("mu", dist.Normal(torch.tensor(0.0, dtype=dtype,
+                                                        device=dev), 3.0))
+        core.sample("obs", dist.MixtureSameFamily(
+            dist.Categorical(probs=pi), dist.Normal(mu + locs, 1.0)), obs=y)
+    return model, model_mix, y, pi, locs
+
+
+def _p30_enum(torch, np, dev, core, dist, sizes):
+    """30(a): the enumerated density and gradient on the card against the
+    CPU in float64 and against the MixtureSameFamily marginal on the card;
+    infer_discrete's assignment frequencies against Bayes' rule."""
+    from bayesic_tpu_torch.infer import infer_discrete
+
+    n, draws, points, chunk = (sizes["n"], sizes["draws"], sizes["points"],
+                               sizes["chunk"])
+    t0 = time.perf_counter()
+    model, model_mix, y, pi, locs = _p30_mixture(torch, np, dev, core, dist,
+                                                 n)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    _, ld, _, _ = core.build_logjoint(model, rng_key=gen)
+    _, ld_mix, _, _ = core.build_logjoint(model_mix, rng_key=gen)
+    m64, _, _, _, _ = _p30_mixture(torch, np, torch.device("cpu"), core,
+                                   dist, n, torch.float64)
+    _, ld64, _, _ = core.build_logjoint(m64)
+    worst = {"cpu64": 0.0, "mix": 0.0}
+    # away from the mode, where the gradient is a sum of terms of one sign
+    for mu0 in (-2.0, 3.0):
+        g, v = torch.func.grad_and_value(lambda m: ld({"mu": m}))(
+            torch.tensor(mu0, device=dev))
+        g64, v64 = torch.func.grad_and_value(lambda m: ld64({"mu": m}))(
+            torch.tensor(mu0, dtype=torch.float64))
+        gm, vm = torch.func.grad_and_value(lambda m: ld_mix({"mu": m}))(
+            torch.tensor(mu0, device=dev))
+        for k, (a, b) in (("cpu64", ((v, g), (v64, g64))),
+                          ("mix", ((v, g), (vm, gm)))):
+            for u, w in zip(a, b):
+                worst[k] = max(worst[k], abs(float(u) - float(w))
+                               / abs(float(w)))
+    if max(worst.values()) > P30_ENUM_RTOL:
+        raise AssertionError(f"phase 30(a): enumerated density rel err "
+                             f"{worst} > {P30_ENUM_RTOL}")
+    # infer_discrete at mu = 0.5: the chosen points are those whose
+    # assignment is least certain
+    mu0 = 0.5
+    yn = y.double().cpu().numpy()
+    lp0 = np.log(0.3) - 0.5 * (yn - mu0 + 1.0) ** 2
+    lp1 = np.log(0.7) - 0.5 * (yn - mu0 - 2.0) ** 2
+    p1 = 1.0 / (1.0 + np.exp(lp0 - lp1))
+    chosen = np.argsort(np.abs(p1 - 0.5))[:points]
+    t = time.perf_counter()
+    counts = torch.zeros(points, device=dev)
+    for i in range(draws // chunk):
+        out = infer_discrete(model, {"mu": torch.full((chunk,), mu0,
+                                                      device=dev)}, 100 + i)
+        if out["z"].shape != (chunk, n) or out["z"].device != y.device:
+            raise AssertionError(f"phase 30(a): infer_discrete gave "
+                                 f"{tuple(out['z'].shape)} on "
+                                 f"{out['z'].device}")
+        counts += out["z"][:, torch.as_tensor(chosen, device=dev)].float() \
+            .sum(0)
+    _p30_sync(torch, dev)
+    t_inf = time.perf_counter() - t
+    freq = counts.cpu().numpy() / draws
+    pc = p1[chosen]
+    z = np.abs(freq - pc) / np.sqrt(pc * (1 - pc) / draws)
+    if z.max() > 4.0:
+        raise AssertionError(f"phase 30(a): infer_discrete frequencies "
+                             f"{z.max():.2f} SE from Bayes' rule (> 4)")
+    return (f"30(a) enumeration at N {n}: value and gradient rel err "
+            f"{worst['cpu64']:.2e} against the CPU in float64, "
+            f"{worst['mix']:.2e} against MixtureSameFamily (<= "
+            f"{P30_ENUM_RTOL:g}); infer_discrete {draws} draws x {n} "
+            f"points in {t_inf:.1f} s ({draws * n / t_inf / 1e6:.1f} M "
+            f"assignments/s), {points} chosen points' frequencies within "
+            f"{z.max():.2f} SE of Bayes' rule (<= 4) "
+            f"[{time.perf_counter() - t0:.1f} s]")
+
+
+def _p30_gibbs(torch, np, dev, core, dist, diag, sizes):
+    """30(b): DiscreteGibbs against marginal NUTS on tests/test_gibbs.py:42's
+    mixture at n points."""
+    from bayesic_tpu_torch.infer.mcmc import MCMC, DiscreteGibbs
+
+    n, chains, warm, keep = (sizes["n"], sizes["chains"], sizes["warmup"],
+                             sizes["samples"])
+    rng = np.random.default_rng(0)
+    y = torch.as_tensor(np.concatenate([
+        rng.normal(-2.0, 0.5, n // 2), rng.normal(2.0, 0.5, n - n // 2)])
+        .astype(np.float32), device=dev)
+    prior_loc = torch.tensor([-1.0, 1.0], device=dev)
+    half = torch.tensor([0.5, 0.5], device=dev)
+
+    def model():
+        mu = core.sample("mu", dist.Normal(prior_loc, 2.0).to_event(1))
+        with core.plate("data", n):
+            z = core.sample("z", dist.Categorical(half), sample_shape=(n,),
+                            infer={"enumerate": True})
+            core.sample("obs", dist.Normal(mu[z], 0.5), obs=y)
+
+    t = time.perf_counter()
+    g = DiscreteGibbs(model, num_warmup=warm, num_samples=keep,
+                      num_chains=chains, device=dev).run(30)
+    _p30_sync(torch, dev)
+    wall_g = time.perf_counter() - t
+    t = time.perf_counter()
+    m = MCMC(model=model, num_warmup=warm, num_samples=keep,
+             num_chains=chains, device=dev).run(31)
+    _p30_sync(torch, dev)
+    wall_m = time.perf_counter() - t
+    # label-invariant: each draw's two means sorted (a chain may settle on
+    # either labeling)
+    sg = diag.summary({"mu": torch.sort(g.samples["mu"], -1)[0].cpu()})["mu"]
+    sm = diag.summary({"mu": torch.sort(m.samples["mu"], -1)[0].cpu()})["mu"]
+    gap = ((sg["mean"] - sm["mean"]).abs()
+           / torch.sqrt(sg["mcse"] ** 2 + sm["mcse"] ** 2))
+    rhat = max(float(sg["rhat"].max()), float(sm["rhat"].max()))
+    z = g.samples["z"]
+    acc = float(g.extra["accept_prob"].float().mean())
+    if float(gap.max()) > 5.0 or rhat >= 1.01:
+        raise AssertionError(f"phase 30(b): Gibbs vs marginal NUTS sorted "
+                             f"means {gap.tolist()} MCSE (<= 5), max "
+                             f"split-R-hat {rhat:.4f} (< 1.01)")
+    return (f"30(b) DiscreteGibbs at N {n}, {chains} chains, {warm}+{keep}: "
+            f"sorted means {[round(float(v), 4) for v in sg['mean']]} "
+            f"against marginal NUTS's "
+            f"{[round(float(v), 4) for v in sm['mean']]}, "
+            f"{float(gap.max()):.2f} MCSE apart (<= 5), max split-R-hat "
+            f"{rhat:.4f} (< 1.01), z {tuple(z.shape)} {z.dtype}, mean accept "
+            f"{acc:.3f}; {chains * (warm + keep) / wall_g:.1f} chain-"
+            f"transitions/s Gibbs ({wall_g:.1f} s), "
+            f"{chains * (warm + keep) / wall_m:.1f} marginal NUTS "
+            f"({wall_m:.1f} s)")
+
+
+def _p30_logistic_data(torch, np, dev, n, d, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    w_true = np.linspace(1.0, -1.0, d).astype(np.float32)
+    p = 1 / (1 + np.exp(-x @ w_true))
+    y = (rng.uniform(size=n) < p).astype(np.float32)
+    return (torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev),
+            w_true)
+
+
+def _p30_logistic(core, dist, x, y):
+    """The whitened logistic regression of tests/test_ess_sampler.py:48."""
+    def model():
+        w = core.sample("w", dist.Normal(0.0, 1.0).expand((x.shape[1],))
+                        .to_event(1))
+        core.sample("obs", dist.Bernoulli(logits=x @ w).to_event(1), obs=y)
+    return model
+
+
+def _p30_ess(torch, np, dev, core, dist, diag, sizes):
+    """30(c): EllipticalSlice against the port's NUTS on the whitened
+    logistic regression."""
+    from bayesic_tpu_torch.infer.mcmc import MCMC, EllipticalSlice
+
+    x, y, _ = _p30_logistic_data(torch, np, dev, sizes["n"], sizes["d"], 1)
+    model = _p30_logistic(core, dist, x, y)
+    chains, burn, keep = sizes["chains"], sizes["burnin"], sizes["samples"]
+    t = time.perf_counter()
+    es = EllipticalSlice(model, num_samples=keep, num_burnin=burn,
+                         num_chains=chains, device=dev).run(32)
+    _p30_sync(torch, dev)
+    wall_e = time.perf_counter() - t
+    t = time.perf_counter()
+    nu = MCMC(model=model, num_warmup=sizes["nuts"], num_samples=sizes["nuts"],
+              num_chains=chains, device=dev).run(33)
+    _p30_sync(torch, dev)
+    wall_n = time.perf_counter() - t
+    se = diag.summary({"w": es.samples["w"].cpu()})["w"]
+    sn = diag.summary({"w": nu.samples["w"].cpu()})["w"]
+    mean_gap = ((se["mean"] - sn["mean"]).abs()
+                / torch.sqrt(se["mcse"] ** 2 + sn["mcse"] ** 2))
+    # the sd's Monte-Carlo error, sd / sqrt(2 ESS)
+    sd_gap = ((se["std"] - sn["std"]).abs() / torch.sqrt(
+        se["std"] ** 2 / (2 * se["ess"]) + sn["std"] ** 2 / (2 * sn["ess"])))
+    iters = es.extra["shrink_iters"].float()
+    # the loop runs until the slowest chain accepts: one host read of the
+    # done mask an iteration
+    syncs = torch.clamp(iters.max(0).values + 1, max=30).mean()
+    if float(mean_gap.max()) > 5.0 or float(sd_gap.max()) > 5.0:
+        raise AssertionError(f"phase 30(c): ESS vs NUTS means "
+                             f"{float(mean_gap.max()):.2f}, sds "
+                             f"{float(sd_gap.max()):.2f} MCSE (<= 5)")
+    return (f"30(c) EllipticalSlice at N {sizes['n']}, D {sizes['d']}, "
+            f"{chains} chains, {burn}+{keep}: means and sds within "
+            f"{float(mean_gap.max()):.2f} / {float(sd_gap.max()):.2f} MCSE of "
+            f"NUTS ({sizes['nuts']}+{sizes['nuts']}) (<= 5), min ESS "
+            f"{float(se['ess'].min()):.0f} (NUTS {float(sn['ess'].min()):.0f}),"
+            f" shrink iterations {float(iters.mean()):.2f} a transition (max "
+            f"{int(iters.max())}), {float(syncs):.2f} loop iterations and host "
+            f"syncs a transition (of 30); "
+            f"{chains * (burn + keep) / wall_e:.1f} "
+            f"chain-transitions/s ({wall_e:.1f} s, "
+            f"{(burn + keep) / wall_e:.1f} transitions/s, each with "
+            f"shrink-loop host syncs), NUTS "
+            f"{2 * chains * sizes['nuts'] / wall_n:.1f} ({wall_n:.1f} s)")
+
+
+def _p30_pt(torch, np, dev, core, dist, sizes):
+    """30(d): ParallelTempering on tests/test_tempering.py:69's bimodal
+    target and :115's Beta-Bernoulli evidence."""
+    from bayesic_tpu_torch.infer.mcmc import (ParallelTempering,
+                                              geometric_ladder)
+
+    def bimodal():
+        q = core.sample("q", dist.Normal(0.0, 10.0))
+        lp = torch.logaddexp(dist.Normal(-4.0, 0.5).log_prob(q),
+                             dist.Normal(4.0, 0.5).log_prob(q))
+        core.factor("modes", lp)
+
+    b = sizes["bimodal"]
+    t = time.perf_counter()
+    res = ParallelTempering(bimodal, num_replicas=b["replicas"],
+                            beta_min=0.01, num_warmup=b["warmup"],
+                            num_samples=b["samples"], num_chains=b["chains"],
+                            num_leapfrog=b["leapfrog"], init_step_size=0.3,
+                            device=dev).run(34)
+    _p30_sync(torch, dev)
+    wall_b = time.perf_counter() - t
+    q = res.samples["q"].cpu().numpy()
+    frac = float((q > 0).mean())
+    per_chain = (q > 0).mean(axis=1)
+    hop = float((np.minimum(per_chain, 1 - per_chain) > 0.05).mean())
+    if not 0.30 < frac < 0.70 or hop <= 0.6:
+        raise AssertionError(f"phase 30(d): bimodal mass {frac:.3f} (0.3 - "
+                             f"0.7), chains hopping {hop:.3f} (> 0.6)")
+    e = sizes["evidence"]
+    heads, trials = 37, 50
+    yb = torch.cat([torch.ones(heads, device=dev),
+                    torch.zeros(trials - heads, device=dev)])
+
+    def coin():
+        p = core.sample("p", dist.Beta(1.0, 1.0))
+        core.sample("obs", dist.Bernoulli(p).expand((trials,)).to_event(1),
+                    obs=yb)
+
+    betas = torch.cat([geometric_ladder(e["rungs"], 0.01, dev),
+                       torch.zeros(1, device=dev)])
+    t = time.perf_counter()
+    ev = ParallelTempering(coin, betas=betas, num_warmup=e["warmup"],
+                           num_samples=e["samples"], num_chains=e["chains"],
+                           num_leapfrog=e["leapfrog"], device=dev).run(35)
+    _p30_sync(torch, dev)
+    wall_e = time.perf_counter() - t
+    # Bernoulli sequence: Z = B(heads + 1, trials - heads + 1)
+    ref = (math.lgamma(heads + 1) + math.lgamma(trials - heads + 1)
+           - math.lgamma(trials + 2))
+    ss, ti = (float(ev.extra["log_evidence_ss"]),
+              float(ev.extra["log_evidence_ti"]))
+    if abs(ss - ref) >= 0.1 or abs(ti - ref) >= 0.3:
+        raise AssertionError(f"phase 30(d): evidence SS {ss:.4f} / TI "
+                             f"{ti:.4f} against {ref:.4f} (0.1 / 0.3)")
+    sw = [round(float(v), 3) for v in res.extra["swap_accept"]]
+    steps_b = b["warmup"] + b["samples"]
+    steps_e = e["warmup"] + e["samples"]
+    return (f"30(d) ParallelTempering: bimodal ({b['replicas']} rungs, "
+            f"{b['chains']} chains, {b['warmup']}+{b['samples']}) mass "
+            f"{frac:.3f} at q > 0 (0.3 - 0.7), {hop:.3f} of chains hop "
+            f"(> 0.6), swap rates {sw}; Beta-Bernoulli ({e['rungs'] + 1} "
+            f"rungs, {e['chains']} chains, {e['warmup']}+{e['samples']}) log Z "
+            f"SS {ss:.4f}, TI {ti:.4f} against {ref:.4f} (0.1 / 0.3); "
+            f"{steps_b / wall_b:.1f} / {steps_e / wall_e:.1f} steps/s "
+            f"({wall_b:.1f} / {wall_e:.1f} s; a step = every rung of every "
+            f"chain, L + 1 gradient evaluations)")
+
+
+def _p30_regression(torch, np, dev, core, dist, rows, dim, batch=None):
+    """A logistic regression at ``rows`` x ``dim`` (prior N(0, 1)); with
+    ``batch``, its likelihood on a subsampled plate of that size."""
+    x, y, _ = _p30_logistic_data(torch, np, dev, rows, dim, 5)
+
+    def model():
+        w = core.sample("w", dist.Normal(0.0, 1.0).expand((dim,))
+                        .to_event(1))
+        with core.plate("data", rows, subsample_size=batch) as idx:
+            core.sample("obs", dist.Bernoulli(logits=x[idx] @ w), obs=y[idx])
+    return model, x, y
+
+
+def _p30_map(torch, np, dev, core, dist, sizes):
+    """30(f): map_estimate and Laplace on the 100,000 x 16 regression (the
+    cov against the float64 inverse Hessian by autograd on the CPU), and
+    Laplace exact on tests/test_laplace.py:49's linear-Gaussian model.
+    Returns the line and the mode and sds (e)'s gate reads."""
+    from bayesic_tpu_torch.infer import Laplace, map_estimate
+    from bayesic_tpu_torch.infer.svi import Adam, cosine_decay_schedule
+
+    rows, dim, steps = sizes["rows"], sizes["dim"], sizes["steps"]
+    model, x, y = _p30_regression(torch, np, dev, core, dist, rows, dim)
+    init = {"w": torch.zeros(dim, device=dev)}
+    opt = lambda: Adam(cosine_decay_schedule(sizes["lr"], steps))  # noqa
+    t = time.perf_counter()
+    lap = Laplace(model, device=dev).fit(optimizer=opt(), num_steps=steps,
+                                         init=init)
+    _p30_sync(torch, dev)
+    wall = time.perf_counter() - t
+    _, ld, _, _ = core.build_logjoint(model, rng_key=torch.Generator(
+        device=dev).manual_seed(0))
+
+    def gnorm(w):
+        return float(torch.linalg.vector_norm(torch.func.grad(
+            lambda ww: ld({"w": ww}))(w)))
+    ratio = gnorm(lap.mean) / gnorm(init["w"])
+    # the float64 Hessian at the card's mode, by autograd on the CPU
+    x64, y64 = x.double().cpu(), y.double().cpu()
+
+    def pot64(w):
+        logits = x64 @ w
+        return -(torch.sum(y64 * logits - torch.nn.functional.softplus(
+            logits)) - 0.5 * torch.sum(w * w))
+    h64 = torch.func.hessian(pot64)(lap.mean.double().cpu())
+    cov64 = torch.linalg.inv(h64)
+    cov_err = float((lap.cov.double().cpu() - cov64).abs().max()
+                    / cov64.abs().max())
+    if ratio > sizes["grad_ratio"] or cov_err > sizes["cov_rtol"]:
+        raise AssertionError(f"phase 30(f): gradient norm at the mode "
+                             f"{ratio:.2e} of the start (<= "
+                             f"{sizes['grad_ratio']:g}), cov rel err "
+                             f"{cov_err:.2e} (<= {sizes['cov_rtol']:g})")
+    # Laplace exact on the linear-Gaussian model (float64 closed form)
+    sigma, prior_sd = 0.5, 2.0
+    rng = np.random.default_rng(1)
+    xl = rng.normal(0.0, 1.0, 40).astype(np.float32) + 0.5
+    yl = (1.2 * xl - 0.4 + rng.normal(0, sigma, 40)).astype(np.float32)
+    xt, yt = (torch.as_tensor(a, device=dev) for a in (xl, yl))
+
+    def lin():
+        w = core.sample("w", dist.Normal(0.0, prior_sd))
+        b = core.sample("b", dist.Normal(0.0, prior_sd))
+        core.sample("obs", dist.Normal(w * xt + b, sigma).to_event(1),
+                    obs=yt)
+    xm = np.stack([np.ones_like(xl), xl], 1).astype(np.float64)
+    cov_l = np.linalg.inv(xm.T @ xm / sigma ** 2 + np.eye(2) / prior_sd ** 2)
+    mean_l = cov_l @ (xm.T @ yl.astype(np.float64)) / sigma ** 2
+    from scipy import stats as st
+    log_z = st.multivariate_normal.logpdf(
+        yl.astype(np.float64), np.zeros(40),
+        sigma ** 2 * np.eye(40) + prior_sd ** 2 * (xm @ xm.T))
+    lap_l = Laplace(lin, device=dev).fit(num_steps=3000)
+    m_err = float(np.abs(lap_l.mean.cpu().numpy() - mean_l).max())
+    c_err = float(np.abs(lap_l.cov.cpu().numpy() - cov_l).max()
+                  / np.abs(cov_l).max())
+    z_err = abs(lap_l.log_evidence - log_z)
+    if m_err > 5e-3 or c_err > 0.02 or z_err > 0.02:
+        raise AssertionError(f"phase 30(f): linear-Gaussian Laplace mean "
+                             f"{m_err:.2e} (<= 5e-3), cov {c_err:.2e} (<= "
+                             f"0.02), log Z {z_err:.2e} (<= 0.02)")
+    mode = lap.mean
+    sds = torch.sqrt(torch.diagonal(lap.cov))
+    line = (f"30(f) MAP/Laplace at {rows} x {dim}: {steps} Adam steps "
+            f"(cosine from {sizes['lr']:g}) in {wall:.1f} s "
+            f"({steps / wall:.1f} steps/s, the Hessian included), gradient "
+            f"norm at the mode {ratio:.2e} of the start (<= "
+            f"{sizes['grad_ratio']:g}), cov rel err {cov_err:.2e} against "
+            f"the float64 inverse Hessian (<= {sizes['cov_rtol']:g}); "
+            f"linear-Gaussian exact: mean {m_err:.1e}, cov {c_err:.1e}, log Z "
+            f"{z_err:.1e} (5e-3 / 0.02 / 0.02)")
+    return line, mode, sds
+
+
+def _p30_sg(torch, np, dev, core, dist, sizes, mode, sds):
+    """30(e): the three SG-MCMC updates on tests/test_sgmcmc.py:38's
+    conjugate model at its sizes and tolerances, and sgld on the 100,000 x
+    16 regression with a subsampled plate, against (f)'s mode and sds."""
+    from bayesic_tpu_torch.infer import SGMCMC
+
+    c = sizes["conj"]
+    rng = np.random.default_rng(0)
+    xc = torch.as_tensor(rng.normal(0.7, 1.0, 256).astype(np.float32),
+                         device=dev)
+    post_var = 1.0 / (1.0 / 4.0 + 256.0)
+    post_mean = post_var * float(xc.sum())
+
+    def conj(x):
+        mu = core.sample("mu", dist.Normal(0.0, 2.0))
+        with core.plate("data", x.shape[0], subsample_size=64) as idx:
+            core.sample("obs", dist.Normal(mu, 1.0), obs=x[idx])
+
+    parts, t_conj = [], time.perf_counter()
+    for method, step in (("sgld", 2e-4), ("psgld", 1e-2), ("sghmc", 5e-5)):
+        r = SGMCMC(conj, method=method, step_size=step,
+                   num_chains=c["chains"], num_burnin=c["burnin"],
+                   num_samples=c["samples"], model_args=(xc,),
+                   device=dev).run(36)
+        d = r.samples["mu"].reshape(-1).cpu().numpy()
+        sd = np.sqrt(post_var)
+        if not (np.isfinite(d).all() and abs(d.mean() - post_mean) < 6 * sd
+                and 0.3 * sd < d.std() < 6 * sd):
+            raise AssertionError(f"phase 30(e): {method} mean "
+                                 f"{d.mean():.4f} (want {post_mean:.4f} "
+                                 f"+- {6 * sd:.4f}), sd {d.std():.4f}")
+        parts.append(f"{method} {(d.mean() - post_mean) / sd:+.2f} sd, sd "
+                     f"x{d.std() / sd:.2f}")
+    _p30_sync(torch, dev)
+    t_conj = time.perf_counter() - t_conj
+    g = sizes["logit"]
+    model, _, _ = _p30_regression(torch, np, dev, core, dist, g["rows"],
+                                  g["dim"], g["batch"])
+    t = time.perf_counter()
+    r = SGMCMC(model, method="sgld", step_size=g["step"],
+               num_chains=g["chains"], num_burnin=g["burnin"],
+               num_samples=g["samples"], device=dev).run(37)
+    _p30_sync(torch, dev)
+    wall = time.perf_counter() - t
+    w = r.samples["w"].reshape(-1, g["dim"])
+    gap = ((w.mean(0) - mode).abs() / sds).max()
+    if not float(gap) <= P30_SGLD_SDS:
+        raise AssertionError(f"phase 30(e): sgld means {float(gap):.3f} "
+                             f"Laplace sds from the mode (<= "
+                             f"{P30_SGLD_SDS})")
+    steps = g["burnin"] + g["samples"]
+    return (f"30(e) SG-MCMC: conjugate ({c['chains']} chains, "
+            f"{c['burnin']}+{c['samples']}) " + "; ".join(parts)
+            + f" (6 sd; 0.3 - 6 sd) in {t_conj:.1f} s; sgld at "
+            f"{g['rows']} x {g['dim']}, batch {g['batch']}, {g['chains']} "
+            f"chains, {g['burnin']}+{g['samples']}: means within "
+            f"{float(gap):.3f} Laplace sds of the mode (<= {P30_SGLD_SDS}), "
+            f"sd x{float((w.std(0) / sds).mean()):.2f} of Laplace's; "
+            f"{steps / wall:.1f} steps/s ({wall:.1f} s)")
+
+
+def _p30_svgd(torch, np, dev, core, dist, sizes):
+    """30(g): SVGD on tests/test_svgd.py:35's correlated Gaussian and :55's
+    subsampled plate, at the JAX tests' tolerances."""
+    from bayesic_tpu_torch.infer import SVGD
+    from bayesic_tpu_torch.infer.svi import Adam
+
+    cov = np.array([[1.0, 0.95], [0.95, 1.0]])
+    prec = torch.as_tensor(np.linalg.inv(cov), dtype=torch.float32,
+                           device=dev)
+
+    def corr():
+        w = core.sample("w", dist.Normal(0.0, 10.0).expand((2,)).to_event(1))
+        core.factor("target", -0.5 * w @ prec @ w
+                    - dist.Normal(0.0, 10.0).log_prob(w).sum())
+
+    t = time.perf_counter()
+    r = SVGD(corr, num_particles=sizes["particles"],
+             num_steps=sizes["corr_steps"], optimizer=Adam(5e-2),
+             device=dev).run(38)
+    _p30_sync(torch, dev)
+    wall = time.perf_counter() - t
+    w = r.samples["w"].cpu().numpy()
+    cc = float(np.corrcoef(w.T)[0, 1])
+    sd = float(w.std(0).mean())
+    y = torch.as_tensor(np.random.default_rng(2).normal(-0.5, 1.0, 256)
+                        .astype(np.float32), device=dev)
+
+    def sub():
+        mu = core.sample("mu", dist.Normal(0.0, 2.0))
+        with core.plate("data", 256, subsample_size=64) as idx:
+            core.sample("obs", dist.Normal(mu, 1.0), obs=y[idx])
+    rs = SVGD(sub, num_particles=64, num_steps=sizes["sub_steps"],
+              optimizer=Adam(3e-2), device=dev).run(39)
+    gap = abs(float(rs.samples["mu"].mean()) - float(y.mean()))
+    if abs(cc - 0.95) >= 0.1 or abs(sd - 1.0) >= 0.35 or gap >= 0.1 \
+            or not bool(torch.isfinite(rs.extra["phi_norm"]).all()):
+        raise AssertionError(f"phase 30(g): SVGD corr {cc:.3f} (0.95 +- "
+                             f"0.1), sd {sd:.3f} (1 +- 0.35), subsampled "
+                             f"mean gap {gap:.3f} (< 0.1)")
+    return (f"30(g) SVGD: correlated Gaussian at {sizes['particles']} "
+            f"particles, {sizes['corr_steps']} steps: corr {cc:.3f} (0.95 +- "
+            f"0.1), sd {sd:.3f} (1 +- 0.35), {sizes['corr_steps'] / wall:.1f}"
+            f" steps/s; subsampled plate (64 particles, {sizes['sub_steps']} "
+            f"steps) mean {gap:.4f} from ybar (< 0.1)")
+
+
+def _p30_kernels(torch, np, dev, sizes):
+    """30(h): MCMC.warmup_and_sample on the two fused NUTS paths (rows 3
+    and 4) against run on the same seed, bit for bit, with each kernel's
+    launches."""
+    from bayesic_tpu_torch.models import dlgm
+    from bayesic_tpu_torch.models import hier_logistic as hl
+    from bayesic_tpu_torch.ops import _build
+    from bayesic_tpu_torch.ops import fused_nuts as fn
+    from bayesic_tpu_torch.ops import fused_nuts_hier as fnh
+
+    if dev.type == "cuda":
+        _build.load()
+    warm, keep = sizes["warmup"], sizes["samples"]
+    out = {}
+    # row 4: the hier posterior at phase 15's shapes
+    cfg = hl.Config(device=str(dev))
+    xn, yn, gn, _ = hl.make_data(cfg)
+    x, y, group = (torch.as_tensor(a, device=dev) for a in (xn, yn, gn))
+
+    def hier():
+        return hl.fused_nuts_mcmc(cfg.num_groups, cfg.num_features, x, y,
+                                  group, num_warmup=warm, num_samples=keep,
+                                  num_chains=HIER_CHAINS, target_accept=0.85,
+                                  max_doublings=HIER_K)
+    # row 3: the DLGM local posterior at phase 10's shapes, random decoder
+    ncfg = dlgm.Config(**NUTS_SVI, num_chains=NUTS_CHAINS, num_warmup=warm,
+                       num_samples=keep, seed=0, device=str(dev))
+    dec = dlgm.Decoder(ncfg.latent_dim, ncfg.hidden, ncfg.data_dim,
+                       torch.Generator().manual_seed(0)).to(dev)
+    dparams = {k: p.detach() for k, p in dec.named_parameters()}
+    xb = torch.as_tensor(dlgm.make_data(ncfg)[:NUTS_ROWS], device=dev)
+
+    def local():
+        return dlgm.local_posterior_mcmc_fused(ncfg, dec, dparams, 0.3, xb,
+                                               max_doublings=NUTS_K)
+    for name, make, mod in (("fused_nuts_hier", hier, fnh),
+                            ("fused_nuts", local, fn)):
+        mod.LAUNCHES = 0
+        t = time.perf_counter()
+        raw = make().warmup_and_sample(40)()
+        _p30_sync(torch, dev)
+        wall = time.perf_counter() - t
+        launches = mod.LAUNCHES
+        res = make().run(40)
+        same = torch.equal(raw[0].transpose(0, 1), res.unconstrained) and all(
+            torch.equal(a.transpose(0, 1), res.extra[k]) for a, k in zip(
+                raw[1:5], ("diverging", "accept_prob", "tree_depth",
+                           "num_steps"))) \
+            and torch.equal(raw[5], res.extra["step_size"]) \
+            and torch.equal(raw[6], res.extra["inv_mass"])
+        if not same or launches < warm + keep:
+            raise AssertionError(f"phase 30(h): {name} warmup_and_sample "
+                                 f"equal to run: {same}, launches "
+                                 f"{launches} (>= {warm + keep})")
+        out[name] = (launches, wall)
+    return "30(h) MCMC.warmup_and_sample = run bit for bit at " + \
+        f"{warm}+{keep}: " + "; ".join(
+            f"{k} {v[0]} launches, {(warm + keep) / v[1]:.1f} transitions/s"
+            for k, v in out.items()), out
+
+
+def _p30_sharded(torch, np, dev, core, dist, sizes):
+    """30(i): EllipticalSlice, ParallelTempering and SGMCMC with
+    chain_sharding at world size 1 (NCCL on a card), each against its
+    unsharded run bit for bit."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from bayesic_tpu_torch.infer import SGMCMC
+    from bayesic_tpu_torch.infer.mcmc import (EllipticalSlice,
+                                              ParallelTempering)
+    from bayesic_tpu_torch.parallel import make_mesh
+    from bayesic_tpu_torch.parallel.mesh import shard_leading
+
+    x, y, _ = _p30_logistic_data(torch, np, dev, sizes["n"], sizes["d"], 7)
+    model = _p30_logistic(core, dist, x, y)
+    reg, _, _ = _p30_regression(torch, np, dev, core, dist, sizes["n"],
+                                sizes["d"], sizes["batch"])
+    c, s = sizes["chains"], sizes["steps"]
+    runs = {
+        "EllipticalSlice": lambda sh: EllipticalSlice(
+            model, num_samples=s, num_burnin=s, num_chains=c,
+            chain_sharding=sh, device=dev).run(41),
+        "ParallelTempering": lambda sh: ParallelTempering(
+            model, num_replicas=4, num_warmup=s, num_samples=s,
+            num_chains=c, num_leapfrog=4, chain_sharding=sh,
+            device=dev).run(42),
+        "SGMCMC": lambda sh: SGMCMC(
+            reg, method="sghmc", step_size=1e-6, num_burnin=s,
+            num_samples=s, num_chains=c, chain_sharding=sh,
+            device=dev).run(43)}
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tdist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0,
+            timeout=datetime.timedelta(seconds=RANK_TIMEOUT))
+        try:
+            chain = shard_leading(make_mesh({"chain": 1}), "chain")
+            for name, run in runs.items():
+                a, b = run(None), run(chain)
+                same = torch.equal(a.unconstrained, b.unconstrained) and \
+                    torch.equal(b.chains, torch.arange(c, device=dev))
+                if name == "ParallelTempering":
+                    same = same and all(torch.equal(a.extra[k], b.extra[k])
+                                        for k in ("swap_accept",
+                                                  "log_evidence_ss"))
+                if not same:
+                    raise AssertionError(f"phase 30(i): sharded {name} "
+                                         f"differs from its unsharded run")
+                out.append(name)
+        finally:
+            tdist.destroy_process_group()
+    return (f"30(i) chain_sharding at world size 1 "
+            f"({'NCCL' if dev.type == 'cuda' else 'gloo'}), {c} chains, "
+            f"{s}+{s}: " + ", ".join(out) + " = unsharded bit for bit")
+
+
+def _phase30_child(which, device, sizes):
+    """One phase-30 run group (``_breadth_child``'s ``p30_*`` names):
+    returns (line, text)."""
+    import numpy as np
+    import torch
+
+    import bayesic_tpu_torch.core as core
+    import bayesic_tpu_torch.dist as dist
+    from bayesic_tpu_torch.utils import diagnostics as diag
+
+    dev = torch.device(device, 0) if device == "cuda" else \
+        torch.device(device)
+    # yield the host's cores to phase 28(c)'s runs beside this one: their
+    # 8-schools run sets the phase's wall
+    os.nice(P30_NICE)
+    t = time.perf_counter()
+    if which == "p30_enum":
+        lines = [_p30_enum(torch, np, dev, core, dist, sizes["enum"]),
+                 _p30_svgd(torch, np, dev, core, dist, sizes["svgd"])]
+    elif which == "p30_gibbs":
+        lines = [_p30_gibbs(torch, np, dev, core, dist, diag,
+                            sizes["gibbs"])]
+    elif which == "p30_ess":
+        lines = [_p30_ess(torch, np, dev, core, dist, diag, sizes["ess"])]
+    elif which == "p30_pt":
+        lines = [_p30_pt(torch, np, dev, core, dist, sizes["pt"])]
+    elif which == "p30_sg_map":
+        line_f, mode, sds = _p30_map(torch, np, dev, core, dist,
+                                     sizes["map"])
+        lines = [_p30_sg(torch, np, dev, core, dist, sizes["sg"], mode, sds),
+                 line_f]
+    else:
+        line_h, counts = _p30_kernels(torch, np, dev, sizes["kernels"])
+        lines = [line_h, _p30_sharded(torch, np, dev, core, dist,
+                                      sizes["sharded"])]
+        return (f"{which} {time.perf_counter() - t:.1f} s",
+                {"lines": lines, "launches": {k: v[0] for k, v in
+                                              counts.items()}})
+    return (f"{which} {time.perf_counter() - t:.1f} s", {"lines": lines})
+
+
+def _phase30_report(card, results, wall):
+    """Print phase 30's lines from its children's results."""
+    for which in P30_RUNS:
+        for line in results[which]["text"]["lines"]:
+            print(f"phase {line} [{card}]", flush=True)
+    launches = results["p30_kernels"]["text"]["launches"]
+    print(f"phase 30 ok [{card}]: the kernels' launches under "
+          f"warmup_and_sample: " + ", ".join(
+              f"{k} {v}" for k, v in launches.items())
+          + "; each group's wall: "
+          + ", ".join(results[w]["line"] for w in P30_RUNS)
+          + f" (the groups in processes of their own beside phase 28(c)'s; "
+          f"{wall:.1f} s from their start to the last result)", flush=True)
+
+
 def main():
     import numpy as np
     import torch
@@ -4645,12 +5414,15 @@ def main():
     # phase 29(c)-(d) runs beside phase 28(c)'s host-bound runs
     checks = _spawn_child("checks", dev, None)
     try:
-        _breadth_phase(torch, np, card, dev)
+        p30, wall30 = _breadth_phase(torch, np, card, dev)
         records.append(_phase29(torch, np, card, dev, checks))
     finally:
         if checks.poll() is None:
             checks.kill()
             checks.wait()
+    # phase 30 ran in its own processes beside phase 28(c), all of them
+    # done before phase 29 timed anything
+    _phase30_report(card, p30, wall30)
     print(f"chip_smoke total {time.perf_counter() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": records}))

@@ -171,13 +171,22 @@ def test_uncondition_resamples_observed_sites():
 
 
 def test_enumerated_latent_site_raises_naming_it():
-    def model():
-        tcore.sample("z", tdist.Categorical(probs=torch.tensor([0.2, 0.8])),
-                     infer={"enumerate": True})
-        tcore.sample("x", tdist.Normal(0.0, 1.0), obs=torch.tensor(0.5))
-    with pytest.raises(ValueError, match="'z'.*enumerat"):
-        tcore.build_logjoint(model)
-    tr = th.trace(th.seed(model, rng_key=torch.Generator().manual_seed(0))
+    """A site marked for enumeration whose support size is unknown (a
+    Poisson) raises and names the site, in both packages; the mark stays
+    in the trace."""
+    def model_of(d, core, rate, obs):
+        def model():
+            core.sample("z", d.Poisson(rate), infer={"enumerate": True})
+            core.sample("x", d.Normal(0.0, 1.0), obs=obs)
+        return model
+
+    tmodel = model_of(tdist, tcore, torch.tensor(3.0), torch.tensor(0.5))
+    jmodel = model_of(jdist, jcore, jnp.asarray(3.0), jnp.asarray(0.5))
+    with pytest.raises(ValueError, match="enumerate 'z'.*support size"):
+        tcore.build_logjoint(tmodel)
+    with pytest.raises(ValueError, match="enumerate 'z'.*support size"):
+        jcore.build_logjoint(jmodel)
+    tr = th.trace(th.seed(tmodel, rng_key=torch.Generator().manual_seed(0))
                   ).get_trace()
     assert tr["z"]["infer"] == {"enumerate": True}
 
