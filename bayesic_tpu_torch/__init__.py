@@ -1,17 +1,20 @@
 """bayesic_tpu_torch — the PyTorch/CUDA port of bayesic_tpu.
 
 Mirrors the JAX package's module tree; ``bayesic_tpu`` stays the reference
-each module is tested against.  Ported so far: the model DSL with every
-distribution family but the HMM and LGSS ones; SVI with the STL, IWAE and
-DReG bounds and mean-field, full-rank, low-rank, flow, amortized and
-DSL-authored guides; NUTS/HMC; tempered SMC; posterior predictives,
-pointwise log-likelihoods, WAIC/PSIS-LOO and SBC; discrete enumeration
-and ``infer_discrete``; elliptical slice, parallel tempering, NUTS within
-Gibbs, SG-MCMC, MAP/Laplace and SVGD; the sharded paths; and
-the five models' paths (the DLGM's SVI, with its bf16 compute mode, and
-local-posterior NUTS, the hierarchical logistic regression's SVI and
-full-batch NUTS, the Gaussian mixture's tempered SMC, the linear
-regression's SVI and the matrix factorization's mini-batch and dense SVI).
+each module is tested against.  Every module of it is ported but the
+``"model"``-axis tensor-parallel layer: the model DSL with every
+distribution family (the hidden-Markov and linear-Gaussian state-space
+models among them); SVI with the STL, IWAE and DReG bounds and mean-field,
+full-rank, low-rank, flow, amortized and DSL-authored guides; NUTS/HMC;
+tempered SMC; posterior predictives, pointwise log-likelihoods,
+WAIC/PSIS-LOO and SBC; discrete enumeration and ``infer_discrete``;
+elliptical slice, parallel tempering, NUTS within Gibbs, SG-MCMC,
+MAP/Laplace, SVGD and Pathfinder; the sharded paths; and the eight
+models (the DLGM's SVI, with its bf16 compute mode, and local-posterior
+NUTS, the hierarchical logistic regression's SVI and full-batch NUTS,
+the Gaussian mixture's tempered SMC, the linear regression's SVI, the
+matrix factorization's mini-batch and dense SVI, the GP regression, the
+structural time series and the sparse variational GP).
 
 Layering:
   dist/      distributions + transforms
@@ -21,12 +24,13 @@ Layering:
              parallel tempering, NUTS within Gibbs
   infer/smc  adaptive tempered SMC with HMC mutation
   infer/     Predictive, log_likelihood, infer_discrete, SG-MCMC,
-             MAP/Laplace, SVGD
+             MAP/Laplace, SVGD, Pathfinder (L-BFGS with a zoom line search)
   parallel/  torch.distributed: data-parallel SVI, sharded chains and
              particles, the ring resampler, the launcher
   ops/       hand-written Hopper kernels (csrc/) + plain PyTorch versions
   models/    the DLGM, the hierarchical logistic regression, the GMM,
-             the linear regression, the matrix factorization
+             the linear regression, the matrix factorization, the GP,
+             the structural time series, the sparse variational GP
   utils/     diagnostics, checkpoints, config, metrics, WAIC/LOO, SBC
   io/        the native ratings loader
   interop    JAX parameters (as numpy) <-> the port's parameters

@@ -1,6 +1,5 @@
 """Distributions library and transforms: the port of ``bayesic_tpu.dist``
-(every family of the JAX package's ``__all__`` except the hidden-Markov
-and linear-Gaussian state-space models)."""
+(every family of the JAX package's ``__all__``)."""
 
 from . import constraints
 from .compound import (BetaBinomial, Censored, DirichletMultinomial,
@@ -16,6 +15,8 @@ from .discrete import (Bernoulli, Binomial, Categorical, Geometric,
                        Poisson)
 from .distribution import (Delta, Distribution, Independent,
                            TransformedDistribution)
+from .hmm import HiddenMarkovModel
+from .lgss import LinearGaussianStateSpace
 from .mixture import MixtureSameFamily
 from .multivariate import (Dirichlet, InverseWishart, LKJCholesky,
                            MatrixNormal, MultivariateNormal,
@@ -71,6 +72,8 @@ __all__ = [
     "ZeroInflatedDistribution",
     "ZeroInflatedPoisson",
     "ZeroInflatedNegativeBinomial",
+    "HiddenMarkovModel",
+    "LinearGaussianStateSpace",
     "MixtureSameFamily",
     # transforms the earlier slices exported at the package level
     "Transform",
