@@ -1,15 +1,16 @@
 """bayesic_tpu_torch — the PyTorch/CUDA port of bayesic_tpu.
 
 Mirrors the JAX package's module tree; ``bayesic_tpu`` stays the reference
-each module is tested against.  Every module of it is ported but the
-``"model"``-axis tensor-parallel layer: the model DSL with every
+each module is tested against.  Every module of it is ported: the model DSL with every
 distribution family (the hidden-Markov and linear-Gaussian state-space
 models among them); SVI with the STL, IWAE and DReG bounds and mean-field,
 full-rank, low-rank, flow, amortized and DSL-authored guides; NUTS/HMC;
 tempered SMC; posterior predictives, pointwise log-likelihoods,
 WAIC/PSIS-LOO and SBC; discrete enumeration and ``infer_discrete``;
 elliptical slice, parallel tempering, NUTS within Gibbs, SG-MCMC,
-MAP/Laplace, SVGD and Pathfinder; the sharded paths; and the eight
+MAP/Laplace, SVGD and Pathfinder; the sharded paths over the
+``"data"``, ``"chain"``, ``"particle"`` and ``"model"`` mesh axes (the
+last splits parameters and observations: ``parallel.tp``); and the eight
 models (the DLGM's SVI, with its bf16 compute mode, and local-posterior
 NUTS, the hierarchical logistic regression's SVI and full-batch NUTS,
 the Gaussian mixture's tempered SMC, the linear regression's SVI, the
@@ -26,7 +27,9 @@ Layering:
   infer/     Predictive, log_likelihood, infer_discrete, SG-MCMC,
              MAP/Laplace, SVGD, Pathfinder (L-BFGS with a zoom line search)
   parallel/  torch.distributed: data-parallel SVI, sharded chains and
-             particles, the ring resampler, the launcher
+             particles, the ring resampler, the launcher, the "model"
+             axis (split parameters and observations, differentiable
+             collectives)
   ops/       hand-written Hopper kernels (csrc/) + plain PyTorch versions
   models/    the DLGM, the hierarchical logistic regression, the GMM,
              the linear regression, the matrix factorization, the GP,

@@ -17,6 +17,11 @@ Two entry points sample the local posterior of z for a batch of rows:
   ``batched_transition`` hook running ``ops/fused_nuts``, which on a GPU
   runs each whole transition of every chain in one kernel launch.
 
+``run_svi(data_sharding=)`` splits the rows over a mesh axis;
+``run_svi(model_sharding=)`` splits the decoder's two kernels by output
+units over the ``"model"`` axis (``sharded_decoder``), JAX's ``P(None,
+"model")`` on the flax kernels.
+
 ``Config.compute_dtype = "bfloat16"`` runs the decoder's and encoder's
 dense layers in bf16 (flax ``Dense(dtype=)`` semantics; the parameters stay
 float32) in ``run_svi``.  As in the JAX package, ``run_svi_fused`` does not
@@ -43,7 +48,9 @@ from ..infer.mcmc import MCMC
 from ..infer.svi import SVI, Adam, NeuralGuide
 from ..ops import fused_vae as fv
 from ..ops.fused_nuts import make_batched_transition
-from ..parallel.mesh import axis_index, axis_size, local_slice, psum
+from ..parallel.mesh import (axis_index, axis_size, enter, gather,
+                             local_slice, psum)
+from ..parallel.tp import shard_params
 from ..utils import diagnostics as diag
 from ..utils.config import dump_config, parse_config
 from .common import bench_line, timed_steps
@@ -112,6 +119,43 @@ class Decoder(nn.Module):
         return _dense(self.Dense_1, h, self.dtype).to(torch.float32)
 
 
+def decoder_kernels(path, leaf):
+    """``shard_params`` / ``gather_params``'s ``select`` for the DLGM's
+    ``"model"`` split: the decoder's two 2-D kernels, in the SVI params and
+    in their Adam moments."""
+    return "decoder" in path and leaf.dim() == 2
+
+
+def sharded_decoder(params, z, sharding, dtype=torch.float32):
+    """The ``Decoder``'s forward with ``Dense_0.weight`` and
+    ``Dense_1.weight`` split by rows (output units) over the axis of
+    ``sharding`` (``(mesh, axis)``; each rank's slice in ``params``, the
+    biases whole).  ``z`` is replicated; the result, the whole mu, is the
+    same on every rank:
+
+        h_r  = tanh(enter(z) W0_r^T + b0[r])     this rank's hidden units
+        h    = enter(gather(h_r))                every hidden unit
+        mu   = gather(h W1_r^T + b1[r])          every output column
+
+    A replicated bias is used by its slice through ``enter``, so its
+    gradient, like ``z``'s and ``h``'s, is the sum of the ranks' parts and
+    the same on every rank.  ``dtype`` as ``Decoder``'s: the gathers move
+    float32 (bf16 to float32 and back is exact)."""
+    mesh, axis = sharding
+    index = axis_index(mesh, axis)
+    w0, w1 = params["Dense_0.weight"], params["Dense_1.weight"]
+
+    def bias(name, n):
+        return enter(params[name], mesh, axis).narrow(0, index * n, n)
+
+    h = torch.tanh(F.linear(enter(z, mesh, axis).to(dtype), w0.to(dtype),
+                            bias("Dense_0.bias", w0.shape[0]).to(dtype)))
+    h = enter(gather(h.to(torch.float32), mesh, axis, dim=-1), mesh, axis)
+    mu = F.linear(h.to(dtype), w1.to(dtype),
+                  bias("Dense_1.bias", w1.shape[0]).to(dtype))
+    return gather(mu.to(torch.float32), mesh, axis, dim=-1)
+
+
 class Encoder(nn.Module):
     """x -> tanh(Dense_0) -> (mu = Dense_1, clip(Dense_2, -6, 3)).
     ``dtype`` as the ``Decoder``'s; mu and the log-scale are cast to
@@ -152,10 +196,15 @@ def make_data(cfg: Config):
     return x.astype(np.float32)
 
 
-def make_model_and_guide(cfg: Config, x, rows=None):
+def make_model_and_guide(cfg: Config, x, rows=None, model_sharding=None):
     """Model and amortized guide on ``x``'s device.  The decoder init is
     drawn from a CPU generator seeded with ``cfg.seed``, so it does not
     depend on the device.
+
+    ``model_sharding = (mesh, axis)``: the decoder param holds this rank's
+    slice of its two kernels (``decoder_kernels``) and the model runs
+    ``sharded_decoder``; every other value is replicated, and the model,
+    the guide and the loss are the unsharded ones on every rank.
 
     ``rows = (lo, hi)``: ``x`` holds only the global rows lo..hi-1 of
     ``cfg.num_data`` (one rank's shard).  The plate still draws the global
@@ -164,6 +213,9 @@ def make_model_and_guide(cfg: Config, x, rows=None):
     shard, at the global scale N / B: summed over the ranks, the ELBO and
     its gradient are the unsharded ones, row for row."""
     device = x.device
+    if rows is not None and model_sharding is not None:
+        raise ValueError("make_model_and_guide: rows= and model_sharding= "
+                         "cannot be combined")
     n = int(x.shape[0]) if rows is None else int(cfg.num_data)
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', "
@@ -175,6 +227,15 @@ def make_model_and_guide(cfg: Config, x, rows=None):
     enc = Encoder(cfg.data_dim, cfg.hidden, cfg.latent_dim,
                   dtype=cdtype).to(device)
     dec_init = _params_of(dec, device)
+    if model_sharding is None:
+        def decode(dec_params, z):
+            return functional_call(dec, dec_params, (z,))
+    else:
+        dec_init = shard_params({"decoder": dec_init}, *model_sharding,
+                                decoder_kernels)["decoder"]
+
+        def decode(dec_params, z):
+            return sharded_decoder(dec_params, z, model_sharding, cdtype)
     b = cfg.batch_size
     scale = n / b
 
@@ -199,7 +260,7 @@ def make_model_and_guide(cfg: Config, x, rows=None):
                                                    cfg.latent_dim))
                 .to_event(2)
             )
-            mu = functional_call(dec, dec_params, (z,))
+            mu = decode(dec_params, z)
             sample("obs", dist.Normal(mu, sigma_x).to_event(2), obs=xb)
 
     def guide_init(generator):
@@ -244,7 +305,8 @@ def make_model_and_guide(cfg: Config, x, rows=None):
     return model, NeuralGuide(guide_init, guide_sample), dec, enc
 
 
-def run_svi(cfg: Config, generator=None, data_sharding=None):
+def run_svi(cfg: Config, generator=None, data_sharding=None,
+            model_sharding=None):
     """Generic-engine SVI on ``cfg.device``.  ``generator`` (on that device)
     drives the mini-batches, the noise and the encoder init.
 
@@ -253,7 +315,15 @@ def run_svi(cfg: Config, generator=None, data_sharding=None):
     ``local_slice`` of them, draws the same global mini-batches and noise
     from a generator seeded alike, evaluates the batch rows it holds, and
     the gradients are all-reduced before Adam; the losses are the global
-    ones.  Without it, one process trains on every row."""
+    ones.  Without it, one process trains on every row.
+
+    ``model_sharding`` (a ``Sharding`` or ``(mesh, axis)``) splits the
+    decoder's two kernels by output units over the axis
+    (``make_model_and_guide``): each rank trains its slices, and the
+    losses and every other parameter are the unsharded run's on every
+    rank.  The result's decoder kernels (in ``decoder_params`` and
+    ``result``) stay this rank's slices; ``parallel.tp.gather_params``
+    with ``decoder_kernels`` gathers them."""
     device = torch.device(cfg.device)
     gen = generator if generator is not None else \
         torch.Generator(device=device).manual_seed(cfg.seed)
@@ -268,7 +338,8 @@ def run_svi(cfg: Config, generator=None, data_sharding=None):
         def grad_transform(grads):
             return psum(grads, mesh, axis)
     x = torch.as_tensor(x, device=device)
-    model, guide, dec, enc = make_model_and_guide(cfg, x, rows)
+    model, guide, dec, enc = make_model_and_guide(cfg, x, rows,
+                                                  model_sharding)
     svi = SVI(model, guide, Adam(cfg.lr), model_args=(x,), device=device,
               grad_transform=grad_transform)
 

@@ -15,6 +15,23 @@ package:
   particle  SMC particles
   model     sharded latent blocks / obs dimension
 
+The collectives below are forward-only, but for three that autograd can
+differentiate, which a ``"model"``-axis split (``tp``) places around its
+sharded work.  On every rank the loss is the same replicated value, and
+its gradient must count that loss once:
+
+  enter     identity forward; the gradient all-reduced (summed) backward.
+            A replicated tensor that feeds sharded work gets, on each rank,
+            the gradient of only that rank's share of the work.
+  gather    the ranks' tensors concatenated along a dimension forward;
+            backward, this rank's slice of the (replicated) gradient.
+  reduce    the sum over the ranks forward; the gradient unchanged
+            backward (each rank's share of a replicated sum).
+
+``torch.distributed.nn``'s all_gather reduce-scatters its gradient and its
+all_reduce all-reduces it: under a replicated loss both give gradients P
+times too large, so these three are written here.
+
 Under NCCL every collective runs on the card.  Under gloo (the CPU tests,
 and two ranks that share one card) the tensors stay where they are too:
 gloo takes all_reduce, broadcast and all_gather on CUDA tensors (it
@@ -39,7 +56,7 @@ __all__ = ["AXES", "Sharding", "make_mesh", "shard_leading", "replicate",
            "put_sharded", "put_replicated", "local_slice", "local_chains",
            "axis_size",
            "axis_index", "psum", "pmean", "pmax", "all_gather",
-           "ppermute", "group_device"]
+           "ppermute", "group_device", "enter", "gather", "reduce"]
 
 AXES = ("data", "chain", "particle", "model")
 
@@ -154,7 +171,7 @@ def group_device(group=None):
 
 
 def _all_reduce(t, group, op):
-    out = t.clone()
+    out = t.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, op=op, group=group)
     return out
 
@@ -232,3 +249,60 @@ def ppermute(tree, mesh, axis: str, shift: int = -1):
         work.wait()
     return _tree_unflatten(tree, [r.to(x.device) for r, x in zip(recv,
                                                                  leaves)])
+
+
+# ---------------------------------------------------------------------------
+# differentiable collectives over one axis (the "model" axis's three)
+# ---------------------------------------------------------------------------
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.group, dist.ReduceOp.SUM), None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.dim, ctx.size = dim, x.shape[dim]
+        ctx.start = dist.get_rank(group) * ctx.size
+        return torch.cat(_all_gather(x, group), dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.start, ctx.size), None, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def enter(x, mesh, axis: str):
+    """``x`` unchanged; backward, its gradient summed over ``axis``.  Put it
+    where a replicated tensor enters work that ``axis`` shards."""
+    return _Enter.apply(x, mesh.get_group(axis))
+
+
+def gather(x, mesh, axis: str, dim=0):
+    """The ranks' ``x`` concatenated along ``dim`` in the order of their
+    coordinates on ``axis`` (the shards of a replicated result); backward,
+    this rank's slice of the gradient.  Every rank's ``x`` has one shape."""
+    dim = dim % x.dim()
+    return _Gather.apply(x, mesh.get_group(axis), dim)
+
+
+def reduce(x, mesh, axis: str):
+    """The sum of the ranks' ``x`` over ``axis`` (a replicated total of
+    sharded parts); backward, the gradient unchanged."""
+    return _Reduce.apply(x, mesh.get_group(axis))

@@ -144,7 +144,10 @@ hier trainer, the chain-sharded ``local_posterior_mcmc_fused``,
 ``systematic_resample_shard_map`` in both routings, ``gmm.run(
 particle_sharding=)`` in the fused and kernels modes at the GMM bench,
 ``run_dense_sharded`` and ``make_data`` and ``fused_train`` on the bench's
-1M ratings read from a file, each against its unsharded call bit for bit,
+1M ratings read from a file, and on the ``"model"`` axis
+``dlgm.run_svi(model_sharding=)`` in float32 and bf16,
+``sharded_logdensity`` on the linreg model and ``ShardedMeanFieldGuide``
+on the MF model, each against its unsharded call bit for bit,
 with the kernels' launches counted; then two ranks in processes of their
 own (``_rank_main``) that share the card under gloo (NCCL refuses two
 ranks on one card), at the bench shapes: the hier trainer
@@ -152,7 +155,10 @@ segment-averaged (300 segments of 10 steps), ``dp_gram`` and the linreg
 trainer, the DLGM's generic SVI with its rows sharded (50 steps), its
 fused NUTS with the 1024 chains split over the ranks, the GMM's fused and
 kernels modes with 4,096 particles a rank, ``run_dense_sharded`` with 750
-items a rank and each rank's shard of the ratings file, gated against the
+items a rank and each rank's shard of the ratings file, the DLGM decoder
+split over the ``"model"`` axis at the bench (50 steps), the linreg
+log-density on each rank's half of the observations and the MF guide's
+flat vector split (TP_MF), gated against the
 single-process paths run first; their rates and the collectives' bytes
 print beside the single-process ones, which is no scaling efficiency,
 since the ranks share one card.  Phase 9 also holds the keyed
@@ -185,6 +191,7 @@ and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -303,6 +310,17 @@ W1_SVI_STEPS, W1_SEGMENTS, W1_NUTS = 50, 20, 20
 # from a file; the resampler at the GMM bench's 8,192 particles
 W1_MF_STEPS, DP_MF_STEPS = 200, 1000
 DP_GMM_MODES = ("fused", "kernels")
+# phases 26-27 also run the "model" axis: the DLGM decoder split by columns
+# (at world size 1 on NUTS_SVI for W1_SVI_STEPS steps in float32 and bf16,
+# at two ranks at the bench for DP_DLGM_STEPS); the observation-sharded
+# linreg log-density at LINREG (TP_EVALS value-and-gradient evaluations
+# timed at two ranks); the MF mean-field guide split at the CPU test's
+# sizes, TP_MF, whose flat vector (496 entries) splits over the ranks,
+# TP_MF_STEPS steps at lr TP_MF_LR (at matrix_fact.Config() the vector has
+# 76,501 entries: odd, so JAX's rule leaves it replicated)
+TP_MF = dict(num_users=64, num_items=35, num_factors=4, num_ratings=4096,
+             batch_size=512)
+TP_MF_STEPS, TP_MF_LR, TP_EVALS = 50, 0.05, 200
 # phase 28, the breadth of dist and core: (a) 2^20 seeded points a family,
 # the card against the CPU at BREADTH_LIMITS (rtol, atol), at
 # BREADTH_SPECIAL for values through gammainc, the incomplete beta,
@@ -2757,6 +2775,83 @@ def _hier_segment_train(fh, n_total, batch, lr0, lr_total):
     return local_train
 
 
+def _flat_np(tree, prefix=""):
+    """A tree's tensor leaves as numpy arrays under "/"-joined keys."""
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items()
+                for k2, v2 in _flat_np(v, f"{prefix}/{k}").items()}
+    return {prefix: tree.detach().cpu().numpy()}
+
+
+def _tp_mf_svi(torch, dev, guide):
+    """The MF model's generic SVI at TP_MF on ``dev`` with ``guide`` (a
+    guide class or a factory of the model's info)."""
+    from bayesic_tpu_torch.infer.svi import SVI, Adam
+    from bayesic_tpu_torch.models import matrix_fact as mf
+
+    cfg = mf.Config(**TP_MF, device=str(dev))
+    args = tuple(torch.as_tensor(a, device=dev)
+                 for a in mf.make_data(cfg)[:3])
+    return SVI(mf.make_model(cfg), guide, Adam(TP_MF_LR), model_args=args)
+
+
+def _tp_linreg(torch, np, dev, rows=None):
+    """The linreg model's log-density at LINREG (``rows``: this rank's
+    ``(start, per)`` of the observations), its model args and a point
+    (w, b) from a seed."""
+    from bayesic_tpu_torch.core import build_logjoint
+    from bayesic_tpu_torch.models import linreg as lr
+
+    cfg = lr.Config(**LINREG, device=str(dev))
+    x, y, _, _ = lr.make_data(cfg)
+    if rows is not None:
+        x, y = x[rows[0]:rows[0] + rows[1]], y[rows[0]:rows[0] + rows[1]]
+    args = (torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev),
+            cfg.noise)
+    info, logdensity, _, _ = build_logjoint(
+        lr.model, *args, rng_key=torch.Generator(dev).manual_seed(0))
+    rng = np.random.default_rng(23)
+    u = {"w": torch.as_tensor(rng.normal(0, 1, cfg.dim).astype(np.float32),
+                              device=dev),
+         "b": torch.tensor(0.3, device=dev)}
+    return info, logdensity, args, u
+
+
+def _value_grad(torch, fn, u, args):
+    """``fn(u, model_args=args)`` and its gradient in ``u``'s order."""
+    u = {k: v.detach().requires_grad_() for k, v in u.items()}
+    value = fn(u, model_args=args)
+    return value.detach(), torch.autograd.grad(value, list(u.values()))
+
+
+class _CollectiveBytes:
+    """Counts the collectives and the bytes each rank hands to them while
+    it is entered, by wrapping ``torch.distributed``'s ``all_reduce`` and
+    ``all_gather`` (the only two the ``"model"`` axis calls): an
+    all-reduce's buffer, an all-gather's input."""
+
+    def __init__(self, dist):
+        self.dist, self.n, self.bytes = dist, 0, 0
+
+    def __enter__(self):
+        self.saved = self.dist.all_reduce, self.dist.all_gather
+        reduce_, gather_ = self.saved
+
+        def all_reduce(t, *a, **k):
+            self.n, self.bytes = self.n + 1, self.bytes + t.nbytes
+            return reduce_(t, *a, **k)
+
+        def all_gather(out, t, *a, **k):
+            self.n, self.bytes = self.n + 1, self.bytes + t.nbytes
+            return gather_(out, t, *a, **k)
+
+        self.dist.all_reduce, self.dist.all_gather = all_reduce, all_gather
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_reduce, self.dist.all_gather = self.saved
+
+
 def _dp_world1_phase(torch, np, card, dev):
     """Phase 26: every sharded path at world size 1 on NCCL, each against
     its unsharded call on the same seed, bit for bit."""
@@ -2780,6 +2875,8 @@ def _dp_world1_phase(torch, np, card, dev):
     from bayesic_tpu_torch.parallel.dp_fused import (dp_gram,
                                                      segment_averaged_train)
     from bayesic_tpu_torch.parallel.mesh import shard_leading
+    from bayesic_tpu_torch.parallel.tp import (ShardedMeanFieldGuide,
+                                               sharded_logdensity)
 
     def same(a, b):
         return all(torch.equal(u, v) for u, v in zip(a, b))
@@ -2828,6 +2925,42 @@ def _dp_world1_phase(torch, np, card, dev):
             checks["dlgm.run_svi(data_sharding=)"] = np.array_equal(
                 a["losses"], b["losses"]) and same(
                 a["decoder_params"].values(), b["decoder_params"].values())
+            # the "model" axis: the DLGM decoder split by columns in float32
+            # and bf16, the observation-sharded linreg log-density, the MF
+            # guide split
+            model = (make_mesh({"model": 1}), "model")
+            for dt in ("float32", "bfloat16"):
+                ccfg = dataclasses.replace(scfg, compute_dtype=dt)
+                if dt != "float32":
+                    a = dlgm.run_svi(ccfg,
+                                     torch.Generator(dev).manual_seed(0))
+                b = dlgm.run_svi(ccfg, torch.Generator(dev).manual_seed(0),
+                                 model_sharding=model)
+                checks[f"dlgm.run_svi(model_sharding=) {dt}"] = \
+                    np.array_equal(a["losses"], b["losses"]) and same(
+                        tree_leaves(a["result"].params),
+                        tree_leaves(b["result"].params))
+            info, ld, args, u = _tp_linreg(torch, np, dev)
+            va, ga = _value_grad(torch, ld, u, args)
+            vb, gb = _value_grad(
+                torch, sharded_logdensity(info, ld, model[0]), u, args)
+            checks["sharded_logdensity linreg"] = torch.equal(va, vb) and \
+                same(ga, gb)
+            # the MF model's index_select backward adds by atomics on the
+            # card, so two runs of it differ in the last bits unless the
+            # deterministic kernels are on
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                a = _tp_mf_svi(torch, dev, MeanFieldGuide).run(
+                    torch.Generator(dev).manual_seed(0), W1_SVI_STEPS)
+                b = _tp_mf_svi(torch, dev, functools.partial(
+                    ShardedMeanFieldGuide, mesh=model[0])).run(
+                    torch.Generator(dev).manual_seed(0), W1_SVI_STEPS)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            checks["ShardedMeanFieldGuide"] = torch.equal(
+                a.losses, b.losses) and same(a.params.values(),
+                                             b.params.values())
             # segment averaging on the hier trainer against its segments
             hcfg = hl.Config()
             rows, _ = _hier_dp_rows(np, hl, hcfg, 1)
@@ -2909,7 +3042,8 @@ def _dp_world1_phase(torch, np, card, dev):
     print(f"phase 26 sharded paths at world size 1 (NCCL) ok [{card}]: "
           + ", ".join(checks) + " each equal to the unsharded call bit for "
           "bit (linreg " + f"{LINREG_STEPS} steps, generic SVI "
-          f"{W1_SVI_STEPS} steps, {W1_SEGMENTS} x {DP_SPS} hier steps, "
+          f"{W1_SVI_STEPS} steps (the MF guide at {TP_MF['num_users']} x "
+          f"{TP_MF['num_items']}), {W1_SEGMENTS} x {DP_SPS} hier steps, "
           f"{NUTS_CHAINS} chains x {W1_NUTS} + {W1_NUTS}, the GMM bench "
           f"on seed {GMM_SEEDS[0]}, MF {W1_MF_STEPS} steps); kernel launches "
           + ", ".join(f"{k} {v}" for k, v in launches.items())
@@ -3111,6 +3245,82 @@ def _rank_work(torch, np, rank, tmp, dev):
     _, out["nuts_alone_s"] = timed(lambda: nuts_fit(dataclasses.replace(
         ncfg, num_chains=NUTS_CHAINS // RANKS), None))
     out.update(_rank_particle_work(torch, np, rank, tmp, dev, timed))
+    out.update(_rank_tp_work(torch, np, dev, timed))
+    return out
+
+
+def _rank_tp_work(torch, np, dev, timed):
+    """Phase 27's ``"model"``-axis runs on one rank: the DLGM decoder split
+    at the bench, the observation-sharded linreg log-density and the MF
+    guide split, each warmed first, timed, with the collectives and bytes
+    this rank hands them counted."""
+    import torch.distributed as dist
+
+    from bayesic_tpu_torch.models import dlgm
+    from bayesic_tpu_torch.parallel import make_mesh
+    from bayesic_tpu_torch.parallel.mesh import axis_index, local_slice
+    from bayesic_tpu_torch.parallel.tp import (ShardedMeanFieldGuide,
+                                               gather_params,
+                                               sharded_logdensity)
+
+    mesh = make_mesh({"model": RANKS})
+    model = (mesh, "model")
+    out = {}
+
+    def counted(fn_):
+        """(fn_(), its wall seconds, its collectives, their bytes)."""
+        with _CollectiveBytes(dist) as c:
+            res, sec = timed(fn_)
+        return res, sec, c.n, c.bytes
+
+    # the DLGM decoder split at the bench: a step's collectives are the
+    # difference between the run and its 2-step warm-up
+    bcfg = dlgm.Config(**BENCH, steps=DP_DLGM_STEPS, lr=LR, seed=0,
+                       device=dev.type)
+
+    def dlgm_fit(cfg_):
+        return dlgm.run_svi(cfg_, torch.Generator(dev).manual_seed(0),
+                            model_sharding=model)
+
+    _, _, n2, b2 = counted(lambda: dlgm_fit(dataclasses.replace(bcfg,
+                                                                steps=2)))
+    r, out["tp_dlgm_s"], n, b = counted(lambda: dlgm_fit(bcfg))
+    out["tp_dlgm_coll"] = np.array([(n - n2) / (DP_DLGM_STEPS - 2),
+                                    (b - b2) / (DP_DLGM_STEPS - 2)])
+    out["tp_dlgm_losses"] = r["losses"]
+    local = r["result"].params["model"]["decoder"]
+    out["tp_dlgm_shapes"] = np.array([tuple(local[f"Dense_{i}.weight"]
+                                            .shape) for i in range(2)])
+    for k, v in _flat_np(gather_params(r["result"].params, *model,
+                                       dlgm.decoder_kernels)).items():
+        out[f"tp_dlgm_p{k}"] = v
+
+    # the observation-sharded linreg log-density and its gradient
+    rows = local_slice(LINREG["n"], RANKS, axis_index(mesh, "model"))
+    info, ld, args, u = _tp_linreg(torch, np, dev, rows)
+    f = sharded_logdensity(info, ld, mesh)
+    _value_grad(torch, f, u, args)
+    (value, grad), sec, n, b = counted(lambda: [
+        _value_grad(torch, f, u, args) for _ in range(TP_EVALS)][-1])
+    out["tp_lin_s"], out["tp_lin_coll"] = sec, np.array([n / TP_EVALS,
+                                                         b / TP_EVALS])
+    out["tp_lin_value"] = value.cpu().numpy()
+    out["tp_lin_grad"] = torch.cat([g.reshape(-1) for g in grad]).cpu() \
+        .numpy()
+
+    # the MF guide split
+    svi = _tp_mf_svi(torch, dev, functools.partial(ShardedMeanFieldGuide,
+                                                   mesh=mesh))
+    svi.run(torch.Generator(dev).manual_seed(0), 2)
+    res, out["tp_mf_s"], n, b = counted(lambda: svi.run(
+        torch.Generator(dev).manual_seed(0), TP_MF_STEPS))
+    out["tp_mf_coll"] = np.array([n / TP_MF_STEPS, b / TP_MF_STEPS])
+    out["tp_mf_losses"] = res.losses.cpu().numpy()
+    out["tp_mf_local"] = np.array(res.params["loc"].numel())
+    gathered = gather_params(res.params, *model,
+                             lambda path, leaf: leaf.dim() == 1)
+    for k, v in _flat_np(gathered).items():
+        out[f"tp_mf_p{k}"] = v
     return out
 
 
@@ -3222,6 +3432,7 @@ def _dp_ranks_phase(torch, np, card, dev):
     nuts_fit(dataclasses.replace(ncfg, num_warmup=2, num_samples=2))
     (_, ref_nuts), nuts_s = timed(lambda: nuts_fit(ncfg))
 
+    trefs = _tp_refs(torch, np, dev, timed)
     with tempfile.TemporaryDirectory() as tmp:
         prefs = _particle_refs(torch, np, dev, tmp)
         torch.save({"decoder": {k: v.cpu() for k, v
@@ -3267,6 +3478,7 @@ def _dp_ranks_phase(torch, np, card, dev):
     launches = {k: [int(o[f"{k}_launches"]) for o in outs]
                 for k in ("hier", "linreg", "nuts")}
     plines, prates = _particle_gates(np, outs, prefs)
+    tlines, trates = _tp_gates(np, outs, ref_dlgm, dlgm_s, trefs)
     want = {"hier": DP_SEGMENTS, "linreg": 1,
             "nuts": NUTS_WARMUP + NUTS_SAMPLES}
     if any(c != [want[k]] * RANKS for k, c in launches.items()):
@@ -3351,7 +3563,7 @@ def _dp_ranks_phase(torch, np, card, dev):
         f"{k} {n / slow[k]:.1f} {u}/s over {RANKS} ranks against "
         f"{n / single[k]:.1f} in one process" for k, (n, u) in work.items())
     print(f"phase 27 two ranks on one card (gloo) ok [{card}]: "
-          + "; ".join(lines + plines) + f"; kernel launches a rank "
+          + "; ".join(lines + plines + tlines) + "; kernel launches a rank "
           f"{launches}", flush=True)
     alone = {k: max(float(o[f"{k}_alone_s"]) for o in outs)
              for k in ("hier", "nuts")}
@@ -3359,12 +3571,128 @@ def _dp_ranks_phase(torch, np, card, dev):
         "both ranks at once: " + "; ".join(
             f"{k} {work[k][0] / alone[k]:.1f} {work[k][1]}/s"
             for k in alone)
-    rates += "; " + prates
+    rates += "; " + prates + "; " + trates
     print(f"phase 27 rates [{card}]: {rates} (each sharded call's wall on "
           f"its slower rank, the DLGM's including its data; {RANKS} ranks "
           f"share one card, so the ratio is not a scaling efficiency); "
           f"the ranks' processes {ranks_s:.1f} s in all, the phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def _tp_refs(torch, np, dev, timed):
+    """Phase 27's one-process sides of the ``"model"``-axis runs (the DLGM
+    decoder's is the phase's ``run_svi`` at the bench): the linreg
+    log-density and gradient, TP_EVALS evaluations timed, and the MF run
+    with the replicated guide, each warmed first."""
+    from bayesic_tpu_torch.infer.svi import MeanFieldGuide
+
+    _, ld, args, u = _tp_linreg(torch, np, dev)
+    _value_grad(torch, ld, u, args)
+    (value, grad), lin_s = timed(lambda: [
+        _value_grad(torch, ld, u, args) for _ in range(TP_EVALS)][-1])
+    svi = _tp_mf_svi(torch, dev, MeanFieldGuide)
+    svi.run(torch.Generator(dev).manual_seed(0), 2)
+    res, mf_s = timed(lambda: svi.run(torch.Generator(dev).manual_seed(0),
+                                      TP_MF_STEPS))
+    return {"lin_value": value.cpu().numpy(),
+            "lin_grad": torch.cat([g.reshape(-1) for g in grad]).cpu()
+            .numpy(), "lin_s": lin_s, "mf_losses": res.losses.cpu().numpy(),
+            "mf_params": _flat_np(res.params), "mf_s": mf_s}
+
+
+def _tp_gates(np, outs, ref_dlgm, dlgm_s, refs):
+    """Phase 27's ``"model"``-axis gates against the one-process runs, and
+    its rates: each run's wall on its slower rank, and the collectives and
+    bytes a rank hands them a step (an evaluation for the linreg)."""
+    from bayesic_tpu_torch.models import matrix_fact as mf
+
+    def rel(got, want):
+        return float(np.max(np.abs(got - want) / np.abs(want)))
+
+    def close(o, prefix, want, tol):
+        """max |got - want| over the tree's leaves, and whether each leaf
+        is within rtol and atol ``tol``."""
+        err = max(float(np.abs(o[prefix + k] - a).max())
+                  for k, a in want.items())
+        return err, all(np.allclose(o[prefix + k], a, rtol=tol, atol=tol)
+                        for k, a in want.items())
+
+    same = all(np.array_equal(o[k], outs[0][k]) for o in outs
+               for k in outs[0] if k.startswith((
+                   "tp_dlgm_p", "tp_dlgm_losses", "tp_lin_value",
+                   "tp_lin_grad", "tp_mf_p", "tp_mf_losses")))
+    if not same:
+        raise AssertionError("phase 27: a model-axis result differs across "
+                             "ranks")
+    o = outs[0]
+
+    # the DLGM decoder split: the JAX test's limits
+    shapes = [[BENCH["hidden"] // RANKS, BENCH["latent_dim"]],
+              [BENCH["data_dim"] // RANKS, BENCH["hidden"]]]
+    loss_err = rel(o["tp_dlgm_losses"], ref_dlgm["losses"])
+    p_err, p_ok = close(o, "tp_dlgm_p", _flat_np(ref_dlgm["result"].params),
+                        5e-3)
+    if not (np.allclose(o["tp_dlgm_losses"], ref_dlgm["losses"], rtol=2e-4,
+                        atol=2e-4) and p_ok
+            and np.array_equal(o["tp_dlgm_shapes"], shapes)):
+        raise AssertionError(f"phase 27: DLGM model_sharding losses rel err "
+                             f"{loss_err}, params {p_err}, kernel shapes "
+                             f"{o['tp_dlgm_shapes'].tolist()} (want "
+                             f"{shapes})")
+    lines = [f"DLGM run_svi(model_sharding=) at the bench, {DP_DLGM_STEPS} "
+             f"steps, decoder kernels {shapes} a rank: losses max rel err "
+             f"{loss_err:.2e}, params max abs err {p_err:.2e} (rtol/atol "
+             f"2e-4, 5e-3)"]
+
+    # the observation-sharded linreg log-density: rtol 1e-5, the gradient
+    # against its largest entry
+    g = refs["lin_grad"]
+    val_err = rel(o["tp_lin_value"], refs["lin_value"])
+    grad_err = float(np.abs(o["tp_lin_grad"] - g).max() / np.abs(g).max())
+    if not (val_err < 1e-5 and grad_err < 1e-5):
+        raise AssertionError(f"phase 27: sharded_logdensity linreg value "
+                             f"rel err {val_err}, gradient {grad_err}")
+    lines.append(f"sharded_logdensity linreg N {LINREG['n']}, D "
+                 f"{LINREG['dim']}: value rel err {val_err:.2e}, gradient "
+                 f"{grad_err:.2e} of its max (limit 1e-5)")
+
+    # the MF guide split: 2e-4
+    def entries(c):
+        return (c["num_users"] + c["num_items"]) * (c["num_factors"] + 1) + 1
+
+    n = entries(TP_MF)
+    at_config = entries(dataclasses.asdict(mf.Config()))
+    mf_loss = rel(o["tp_mf_losses"], refs["mf_losses"])
+    mf_err, mf_ok = close(o, "tp_mf_p", refs["mf_params"], 2e-4)
+    if not (int(o["tp_mf_local"]) == n // RANKS and mf_ok
+            and np.allclose(o["tp_mf_losses"], refs["mf_losses"], rtol=2e-4,
+                            atol=2e-4)):
+        raise AssertionError(f"phase 27: ShardedMeanFieldGuide "
+                             f"{int(o['tp_mf_local'])} entries a rank, "
+                             f"losses rel err {mf_loss}, params {mf_err} "
+                             f"(rtol/atol 2e-4)")
+    lines.append(f"ShardedMeanFieldGuide MF {TP_MF['num_users']} x "
+                 f"{TP_MF['num_items']}, {TP_MF_STEPS} steps: {n} entries, "
+                 f"{int(o['tp_mf_local'])} a rank, losses max rel err "
+                 f"{mf_loss:.2e}, params max abs err {mf_err:.2e} (rtol/atol "
+                 f"2e-4); at matrix_fact.Config() the vector has {at_config} "
+                 f"entries, " + ("odd, so JAX's rule would leave it "
+                                 "replicated" if at_config % 2 else "even"))
+
+    work = {"DLGM model_sharding": ("dlgm", DP_DLGM_STEPS, "step", dlgm_s),
+            "linreg sharded_logdensity": ("lin", TP_EVALS, "evaluation",
+                                          refs["lin_s"]),
+            "MF ShardedMeanFieldGuide": ("mf", TP_MF_STEPS, "step",
+                                         refs["mf_s"])}
+    rates = []
+    for name, (k, count, unit, one) in work.items():
+        slow = max(float(o_[f"tp_{k}_s"]) for o_ in outs)
+        n_coll, n_bytes = o[f"tp_{k}_coll"]
+        rates.append(f"{name} {count / slow:.1f} {unit}s/s over {RANKS} "
+                     f"ranks against {count / one:.1f} in one process, "
+                     f"{n_coll:.1f} collectives and {n_bytes:,.0f} B a rank "
+                     f"per {unit}")
+    return lines, "; ".join(rates)
 
 
 def _particle_refs(torch, np, dev, tmp):

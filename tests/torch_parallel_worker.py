@@ -4,7 +4,10 @@ the inputs both sides build from seeds.
 Run as ``python torch_parallel_worker.py MODE RANK WORLD INIT OUTDIR``:
 MODE ``world`` runs every multi-rank case of the port's ``parallel``
 layer in one world (``INIT`` a ``file://`` rendezvous) and writes this
-rank's outputs to ``OUTDIR/rank{RANK}.npz``; the other modes read
+rank's outputs to ``OUTDIR/rank{RANK}.npz``; MODE ``tp`` does the same for
+the ``"model"``-axis cases that ``test_torch_tensor_parallel.py`` reads
+(it reads the flax decoder that test writes to ``OUTDIR/decoder.npz``
+before it starts the world); the other modes read
 ``RANK``/``WORLD_SIZE``/``MASTER_*`` from the environment, as ``torchrun``
 sets them: ``launcher`` runs the launcher, desync and checkpoint cases,
 ``crash`` checkpoints a run and then loses rank 1 (exit code 17), and
@@ -69,6 +72,24 @@ MF = dict(num_users=512, num_items=256, num_factors=8, num_ratings=40_000,
 # make_data from a file: a count that 4 ranks do not divide
 MF_FILE = dict(num_users=50, num_items=30, num_factors=4, num_ratings=10_001,
                device="cpu")
+
+# the "model" axis (mode tp): a {"data": 2, "model": 2} mesh of the
+# world's 4 ranks; TP_X (5,) replicated and TP_W (8, 5), TP_V (4, 8) split
+# by rows for the collectives' gradients; the JAX test_sharding.py
+# observation-sharded log-density (n 128, mu 0.7), its DLGM decoder case
+# (60 steps) with a (TP_Z_ROWS, latent) z for the decoder's forward, and
+# its MF guide case at 35 items, whose flat vector (496 = 8 x 62) splits
+# over 8 devices and 4 ranks (at its own 32 items, 481 splits over
+# neither), run on TP_MF_SEEDS seeds for the comparison in law
+TP_MESH = {"data": 2, "model": 2}
+TP_OBS_N, TP_OBS_MU = 128, 0.7
+TP_DLGM = dict(num_data=512, data_dim=16, latent_dim=4, hidden=32,
+               batch_size=64, steps=60, device="cpu")
+TP_BF16_STEPS, TP_Z_ROWS = 20, 64
+TP_MF = dict(num_users=64, num_items=35, num_factors=4, num_ratings=4096,
+             batch_size=512, device="cpu")
+TP_MF_SMALL = dict(TP_MF, num_items=32)
+TP_MF_STEPS, TP_MF_LR, TP_MF_SEEDS = 50, 0.05, 4
 
 
 def linear_data(n=LIN_N, seed=7):
@@ -207,6 +228,66 @@ def mf_params(cfg):
                 .astype(np.float32),
                 rng.normal(-1.5, 0.3, s).astype(np.float32))
             for k, s in shapes.items()}
+
+
+def tp_inputs():
+    """(x (5,), W (8, 5), V (4, 8)) for the collectives' gradients."""
+    rng = np.random.default_rng(11)
+    return tuple(rng.normal(0, 1, s).astype(np.float32)
+                 for s in ((5,), (8, 5), (4, 8)))
+
+
+def tp_functions(x, w, v, enter=None, gather=None, reduce=None):
+    """The three test functions of the collectives: each the loss of one
+    replicated value.  Without the collectives (the defaults) they are the
+    unsharded functions of the whole ``w`` and ``v``; with them, ``w`` and
+    ``v`` are this rank's rows."""
+    import torch
+
+    def same(t):
+        return t
+    enter, gather, reduce = enter or same, gather or same, reduce or same
+    h = torch.tanh(w @ enter(x))
+    return {
+        # a sum of the ranks' parts
+        "reduce": reduce(torch.sum(h * h)) + torch.sum(x * x),
+        # a replicated function of the gathered parts
+        "gather": torch.sum(torch.sin(gather(h))) + torch.sum(x * x),
+        # the gathered parts feed sharded work again
+        "gather_enter": torch.sum(gather(v @ enter(gather(h))) ** 2),
+    }
+
+
+def obs_data():
+    return np.random.default_rng(3).normal(0.3, 1.0, TP_OBS_N) \
+        .astype(np.float32)
+
+
+def obs_model(ya):
+    from bayesic_tpu_torch import dist
+    from bayesic_tpu_torch.core import sample
+
+    mu = sample("mu", dist.Normal(0.0, 10.0))
+    sample("obs", dist.Normal(mu, 1.0).expand(ya.shape).to_event(1), obs=ya)
+
+
+def decoder_z():
+    cfg = TP_DLGM
+    return np.random.default_rng(12).normal(
+        0, 1, (TP_Z_ROWS, cfg["latent_dim"])).astype(np.float32)
+
+
+def mf_svi(cfg, guide):
+    """The MF model's generic SVI on ``cfg``'s data with ``guide`` (a guide
+    class or factory of ``info``)."""
+    import torch
+
+    from bayesic_tpu_torch.infer.svi import SVI, Adam
+    from bayesic_tpu_torch.models import matrix_fact as mf
+
+    args = tuple(torch.as_tensor(a) for a in mf.make_data(cfg)[:3])
+    return SVI(mf.make_model(cfg), guide, Adam(TP_MF_LR), model_args=args,
+               device="cpu")
 
 
 def toy_local_train(data_local, state, seed, t0):
@@ -469,6 +550,156 @@ def particle_cases(rank, world, out, outdir):
 
 
 # ---------------------------------------------------------------------------
+# the "model" axis's cases
+# ---------------------------------------------------------------------------
+
+def tp_cases(rank, world, outdir):
+    import functools
+
+    import torch
+
+    from bayesic_tpu_torch.core import build_logjoint, plate
+    from bayesic_tpu_torch.infer.svi import MeanFieldGuide
+    from bayesic_tpu_torch.interop import flax_to_state_dict
+    from bayesic_tpu_torch.models import dlgm
+    from bayesic_tpu_torch.models import matrix_fact as mf
+    from bayesic_tpu_torch.parallel import make_mesh
+    from bayesic_tpu_torch.parallel.mesh import (axis_index, enter, gather,
+                                                 local_slice, psum, reduce)
+    from bayesic_tpu_torch.parallel.tp import (ShardedMeanFieldGuide,
+                                               gather_params, shard_params,
+                                               sharded_logdensity)
+
+    out = {}
+    # the mesh: a 2-D mesh, collectives inside one axis's groups
+    mesh2 = make_mesh(TP_MESH)
+    out["mesh/shape"] = np.array(mesh2.shape)
+    out["mesh/names"] = np.array(mesh2.mesh_dim_names)
+    out["mesh/coords"] = np.array([axis_index(mesh2, a) for a in TP_MESH])
+    me = torch.tensor([float(rank)])
+    for a in TP_MESH:
+        out[f"mesh/psum/{a}"] = _np(psum(me, mesh2, a))
+        out[f"mesh/gather/{a}"] = _np(gather(me, mesh2, a))
+    try:
+        make_mesh({"data": 3})
+        out["mesh/bad"] = np.array("no error")
+    except ValueError as e:
+        out["mesh/bad"] = np.array(f"ValueError: {e}")
+
+    mesh = make_mesh({"model": world})
+    model = (mesh, "model")
+    index = axis_index(mesh, "model")
+
+    def rows(a):
+        start, per = local_slice(a.shape[0], world, index)
+        return a[start:start + per]
+
+    # the collectives' gradients, each function's loss and gradients
+    x, w, v = tp_inputs()
+    x, w, v = (torch.tensor(a, requires_grad=True)
+               for a in (x, rows(w), rows(v)))
+    losses = tp_functions(
+        x, w, v, functools.partial(enter, mesh=mesh, axis="model"),
+        functools.partial(gather, mesh=mesh, axis="model"),
+        functools.partial(reduce, mesh=mesh, axis="model"))
+    for name, loss in losses.items():
+        gx, gw, gv = torch.autograd.grad(loss, (x, w, v), retain_graph=True,
+                                         allow_unused=True)
+        out[f"grad/{name}/loss"] = _np(loss)
+        out[f"grad/{name}/x"], out[f"grad/{name}/w"] = _np(gx), _np(gw)
+        if gv is not None:
+            out[f"grad/{name}/v"] = _np(gv)
+
+    # the observation-sharded log-density and its gradient
+    y = torch.as_tensor(rows(obs_data()))
+    info, logdensity, _, _ = build_logjoint(
+        obs_model, y, rng_key=torch.Generator().manual_seed(0))
+    f = sharded_logdensity(info, logdensity, mesh)
+    u = {"mu": torch.tensor(TP_OBS_MU, requires_grad=True)}
+    value = f(u, model_args=(y,))
+    out["obs/value"] = _np(value)
+    out["obs/grad"] = _np(torch.autograd.grad(value, u["mu"])[0])
+
+    def subsampled(ya):
+        with plate("rows", TP_OBS_N, subsample_size=16):
+            obs_model(ya)
+    try:
+        sharded_logdensity(*build_logjoint(
+            subsampled, y, rng_key=torch.Generator().manual_seed(0))[:2],
+            mesh)
+        out["obs/refused"] = np.array("no error")
+    except ValueError as e:
+        out["obs/refused"] = np.array(f"ValueError: {e}")
+
+    # the DLGM decoder: flax's parameters (written by the test) split by
+    # columns, forward in both compute dtypes
+    with np.load(os.path.join(outdir, "decoder.npz")) as fz:
+        flax = {f"Dense_{i}": {"kernel": fz[f"Dense_{i}/kernel"],
+                               "bias": fz[f"Dense_{i}/bias"]}
+                for i in range(2)}
+    dec = shard_params({"decoder": flax_to_state_dict(flax)}, *model,
+                       dlgm.decoder_kernels)["decoder"]
+    out["decoder/shapes"] = np.array([dec[f"Dense_{i}.weight"].shape
+                                      for i in range(2)])
+    _tree_np("decoder/gathered", gather_params(
+        {"decoder": dec}, *model, dlgm.decoder_kernels)["decoder"], out)
+    z = torch.as_tensor(decoder_z())
+    for dt in ("float32", "bfloat16"):
+        with torch.no_grad():
+            out[f"decoder/mu/{dt}"] = _np(dlgm.sharded_decoder(
+                dec, z, model, getattr(torch, dt)))
+
+    # the DLGM's generic SVI with its decoder split, float32 and bf16
+    for dt, steps in (("float32", TP_DLGM["steps"]),
+                      ("bfloat16", TP_BF16_STEPS)):
+        r = dlgm.run_svi(dlgm.Config(**dict(TP_DLGM, steps=steps,
+                                            compute_dtype=dt)),
+                         generator=torch.Generator().manual_seed(0),
+                         model_sharding=model)
+        out[f"dlgm/{dt}/losses"] = r["losses"]
+        _tree_np(f"dlgm/{dt}/local", r["result"].params, out)
+        _tree_np(f"dlgm/{dt}/params", gather_params(
+            r["result"].params, *model, dlgm.decoder_kernels), out)
+        _tree_np(f"dlgm/{dt}/adam_mu", gather_params(
+            r["result"].state, *model, dlgm.decoder_kernels).opt_state.mu,
+            out)
+
+    # the MF mean-field guide split: the sharded guide's own init and the
+    # replicated init split by shard_params, then TP_MF_SEEDS runs
+    cfg = mf.Config(**TP_MF)
+    sharded = mf_svi(cfg, functools.partial(ShardedMeanFieldGuide,
+                                            mesh=mesh, axis="model"))
+    state = shard_params(
+        mf_svi(cfg, MeanFieldGuide).init(torch.Generator().manual_seed(0)),
+        *model, lambda path, leaf: leaf.dim() == 1)
+    own = sharded.guide.init(torch.Generator().manual_seed(0))
+    out["mf/dim"] = np.array(sharded.guide.dim)
+    out["mf/local_sizes"] = np.array([state.params[k].numel()
+                                      for k in ("loc", "log_scale")]
+                                     + [own[k].numel()
+                                        for k in ("loc", "log_scale")])
+    out["mf/init_equal"] = np.array(all(
+        torch.equal(own[k], state.params[k]) for k in own))
+    for seed in range(TP_MF_SEEDS):
+        res = sharded.run(torch.Generator().manual_seed(seed), TP_MF_STEPS,
+                          state=state if seed == 0 else None)
+        out[f"mf/{seed}/losses"] = _np(res.losses)
+        _tree_np(f"mf/{seed}/params", gather_params(
+            res.params, *model, lambda path, leaf: leaf.dim() == 1), out)
+        if seed == 0:
+            out["mf/entropy"] = _np(sharded.guide.entropy(res.params))
+            _tree_np("mf/stats", sharded.guide.stats(res.params), out)
+    small = mf_svi(mf.Config(**TP_MF_SMALL), MeanFieldGuide)
+    try:
+        shard_params(small.init(torch.Generator().manual_seed(0)).params,
+                     *model, lambda path, leaf: leaf.dim() == 1)
+        out["mf/small"] = np.array("no error")
+    except ValueError as e:
+        out["mf/small"] = np.array(f"ValueError: {e}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the launcher world: torchrun's variables, desync, checkpoint and resume
 # ---------------------------------------------------------------------------
 
@@ -582,6 +813,10 @@ def main(argv):
             initialize(init_method=init, world_size=world, rank=rank,
                        device="cpu", timeout=TIMEOUT)
             out = world_cases(rank, world, outdir)
+        elif mode == "tp":
+            initialize(init_method=init, world_size=world, rank=rank,
+                       device="cpu", timeout=TIMEOUT)
+            out = tp_cases(rank, world, outdir)
         else:           # torchrun's variables are in the environment
             initialize(device="cpu", timeout=TIMEOUT)
             if mode == "launcher":
