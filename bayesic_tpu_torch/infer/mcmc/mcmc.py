@@ -9,7 +9,10 @@ per-chain draw comes from a stream keyed by ``(seed, phase, t, chain)``
 run beside it, nor on which rank runs it: with ``chain_sharding`` each rank
 of a mesh axis runs its contiguous share of the chains by their global
 indices, and pooled adaptation gathers every chain's statistics before it
-reduces them as one process would.
+reduces them as one process would.  Under a profiler a run records the
+spans ``bayesic.mcmc.init`` (the initial points and the chains' first
+potential), ``bayesic.mcmc.warmup`` and ``bayesic.mcmc.sample`` (each loop,
+all its chunks) and ``bayesic.mcmc.transition`` (``utils.metrics``).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 from ...core.logjoint import build_logjoint, default_device, init_to_uniform
 from ...parallel.mesh import all_gather, local_chains
 from ...utils import diagnostics as diag
+from ...utils.metrics import named_scope
 from ..svi.guides import unraveler
 from .adapt import (
     build_schedule,
@@ -256,27 +260,31 @@ class MCMC:
                             device=self.device)
 
     def _initial_carry(self, seed):
-        states = self._init_states(seed)
-        mass = self._initial_mass()
-        if self.shared_adapt:
-            step0 = torch.tensor(self.init_step_size, device=self.device)
-        else:
-            n = self.chains.shape[0]
-            mass = mass.expand((n,) + mass.shape).clone()
-            step0 = torch.full((n,), self.init_step_size,
-                               device=self.device)
-        return _WarmupCarry(states, da_init(step0), self._welford_init(),
-                            mass, step0)
+        with named_scope("bayesic.mcmc.init"):
+            states = self._init_states(seed)
+            mass = self._initial_mass()
+            if self.shared_adapt:
+                step0 = torch.tensor(self.init_step_size,
+                                     device=self.device)
+            else:
+                n = self.chains.shape[0]
+                mass = mass.expand((n,) + mass.shape).clone()
+                step0 = torch.full((n,), self.init_step_size,
+                                   device=self.device)
+            return _WarmupCarry(states, da_init(step0),
+                                self._welford_init(), mass, step0)
 
     # ------------------------------------------------------------------
     def _transition(self, key, state, step_size, inv_mass):
         """One transition of every chain: the batched override (the fused
         kernel path) when set, else the kernel on streams drawn here."""
-        if self.batched_transition is not None:
-            return self.batched_transition(key, state, step_size, inv_mass)
-        streams = nuts_streams(key, self.chains, self.dim, self._depth,
-                               self.device)
-        return self._kernel(streams, state, step_size, inv_mass)
+        with named_scope("bayesic.mcmc.transition"):
+            if self.batched_transition is not None:
+                return self.batched_transition(key, state, step_size,
+                                               inv_mass)
+            streams = nuts_streams(key, self.chains, self.dim, self._depth,
+                                   self.device)
+            return self._kernel(streams, state, step_size, inv_mass)
 
     def _pooled(self, x):
         """Every chain's rows of ``x``, in global chain order: gathered
@@ -366,24 +374,26 @@ class MCMC:
 
     def _run_from(self, seed, carry, warmup_chunk, sample_chunk, fence,
                   to_host):
-        for lo in range(0, self.num_warmup, warmup_chunk):
-            carry = self._warmup(seed, carry,
-                                 lo, min(lo + warmup_chunk, self.num_warmup))
-            fence(carry.step_size)
+        with named_scope("bayesic.mcmc.warmup"):
+            for lo in range(0, self.num_warmup, warmup_chunk):
+                carry = self._warmup(seed, carry, lo,
+                                     min(lo + warmup_chunk, self.num_warmup))
+                fence(carry.step_size)
 
-        step_size = torch.exp(carry.da.log_step_avg)
-        state, inv_mass = carry.state, carry.inv_mass
-        chunks = []
-        for lo in range(0, self.num_samples, sample_chunk):
-            coll = []
-            for t in range(lo, min(lo + sample_chunk, self.num_samples)):
-                state, kept = self._sample_step(seed, state, step_size,
-                                                inv_mass, t)
-                coll.append(kept)
-            coll = [torch.stack(a) for a in zip(*coll)]
-            fence(coll[0])
-            chunks.append([a.cpu() for a in coll] if to_host else coll)
-        cat = [torch.cat([c[i] for c in chunks]) for i in range(5)]
+        with named_scope("bayesic.mcmc.sample"):
+            step_size = torch.exp(carry.da.log_step_avg)
+            state, inv_mass = carry.state, carry.inv_mass
+            chunks = []
+            for lo in range(0, self.num_samples, sample_chunk):
+                coll = []
+                for t in range(lo, min(lo + sample_chunk, self.num_samples)):
+                    state, kept = self._sample_step(seed, state, step_size,
+                                                    inv_mass, t)
+                    coll.append(kept)
+                coll = [torch.stack(a) for a in zip(*coll)]
+                fence(coll[0])
+                chunks.append([a.cpu() for a in coll] if to_host else coll)
+            cat = [torch.cat([c[i] for c in chunks]) for i in range(5)]
         return (*cat, step_size, inv_mass)
 
     def _package(self, qs, divs, accs, depths, nsteps, step_size,

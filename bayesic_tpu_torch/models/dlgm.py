@@ -53,6 +53,7 @@ from ..parallel.mesh import (axis_index, axis_size, enter, gather,
 from ..parallel.tp import shard_params
 from ..utils import diagnostics as diag
 from ..utils.config import dump_config, parse_config
+from ..utils.metrics import named_scope
 from .common import bench_line, timed_steps
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -484,18 +485,21 @@ def local_posterior_mcmc_fused(cfg: Config, dec, dec_params, sigma_x,
     is no chain block to size; every product is fp32, so there is no
     precision split to choose; and a CPU tensor runs the plain version, so
     no interpret mode is needed."""
-    chain0 = 0
-    if chain_sharding is not None:
-        mesh, axis = chain_sharding
-        chain0 = local_slice(cfg.num_chains, axis_size(mesh, axis),
-                             axis_index(mesh, axis))[0]
-    bt = make_batched_transition(dec_params, float(sigma_x), x_batch,
-                                 max_doublings=max_doublings, chain0=chain0)
-    mcmc = MCMC(local_posterior_model(cfg, dec, dec_params, sigma_x, x_batch),
-                num_warmup=cfg.num_warmup, num_samples=cfg.num_samples,
-                num_chains=cfg.num_chains, init_step_size=0.2,
-                shared_adapt=True, batched_transition=bt,
-                chain_sharding=chain_sharding, device=x_batch.device)
+    with named_scope("bayesic.models.dlgm.local_posterior_mcmc_fused"):
+        chain0 = 0
+        if chain_sharding is not None:
+            mesh, axis = chain_sharding
+            chain0 = local_slice(cfg.num_chains, axis_size(mesh, axis),
+                                 axis_index(mesh, axis))[0]
+        bt = make_batched_transition(dec_params, float(sigma_x), x_batch,
+                                     max_doublings=max_doublings,
+                                     chain0=chain0)
+        mcmc = MCMC(local_posterior_model(cfg, dec, dec_params, sigma_x,
+                                          x_batch),
+                    num_warmup=cfg.num_warmup, num_samples=cfg.num_samples,
+                    num_chains=cfg.num_chains, init_step_size=0.2,
+                    shared_adapt=True, batched_transition=bt,
+                    chain_sharding=chain_sharding, device=x_batch.device)
     if run_seed is not None:
         return mcmc, mcmc.run(run_seed)
     return mcmc

@@ -42,6 +42,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.metrics import named_scope
 from . import _build
 from ._kernel_common import adam_leaf, thin_losses
 from ._kernel_common import loss_thin as _thin
@@ -259,12 +260,13 @@ def _launch(x, params, m, v, dims, *, steps, lr, seed, t0, thin, idx, eps,
                                     else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fused_vae_train(
-            ptr(x), ptr(p), ptr(mf), ptr(vf), ptr(losses), ptr(scratch),
-            ptr(idx), ptr(eps), dims.n, dims.d, dims.h, dims.z, dims.b,
-            int(steps), int(t0), int(thin), float(lr), float(scale),
-            int(seed) & 0xFFFFFFFFFFFFFFFF, int(bool(bf16)),
-            ctypes.c_void_p(stream))
+        with named_scope("bayesic.ops.fused_vae.launch"):
+            err = lib.fused_vae_train(
+                ptr(x), ptr(p), ptr(mf), ptr(vf), ptr(losses), ptr(scratch),
+                ptr(idx), ptr(eps), dims.n, dims.d, dims.h, dims.z, dims.b,
+                int(steps), int(t0), int(thin), float(lr), float(scale),
+                int(seed) & 0xFFFFFFFFFFFFFFFF, int(bool(bf16)),
+                ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(
             f"fused_vae kernel launch failed: CUDA error {err} "
@@ -289,35 +291,38 @@ def fused_train(x, params, m, v, *, steps, lr, seed, batch=256, t0=0,
     CUDA tensors run the kernel with in-kernel Philox streams; CPU tensors
     run ``reference_train`` with streams from a ``torch.Generator`` seeded
     from (seed, t0) — a different, equally uniform stream, so the two agree
-    in distribution, not bitwise.
+    in distribution, not bitwise.  Under a profiler the call is the span
+    ``bayesic.ops.fused_vae.fused_train``, and on a card its C call the
+    child span ``bayesic.ops.fused_vae.launch``.
     """
     global LAUNCHES, LAUNCHES_BF16
-    steps = int(steps)
-    thin = _thin(steps)
-    bf16 = _is_bf16(compute_dtype)
-    if x.device.type == "cuda":
-        dims = _check(x, params, m, v, batch)
-        out = _launch(x, params, m, v, dims, steps=steps, lr=lr, seed=seed,
-                      t0=t0, thin=thin, idx=None, eps=None,
-                      scale=_scale(dims.n, dims.b, n_total), bf16=bf16)
-        if bf16:
-            LAUNCHES_BF16 += 1
-        else:
-            LAUNCHES += 1
-        return out
-    if x.device.type != "cpu":
-        raise ValueError(f"fused_train: unsupported device {x.device}")
-    n = x.shape[0]
-    z = params["wmu"].shape[1]
-    gen = torch.Generator().manual_seed(
-        (int(seed) * 1_000_003 + int(t0)) % (2**63))
-    idx = torch.randint(0, n, (steps, int(batch)), generator=gen)
-    eps = torch.randn((steps, int(batch), z), generator=gen)
-    p, mm, vv, losses = reference_train(x, params, m, v, idx_stream=idx,
-                                        eps_stream=eps, lr=lr, t0=t0,
-                                        n_total=n_total,
-                                        compute_dtype=compute_dtype)
-    return p, mm, vv, thin_losses(losses, steps)
+    with named_scope("bayesic.ops.fused_vae.fused_train"):
+        steps = int(steps)
+        thin = _thin(steps)
+        bf16 = _is_bf16(compute_dtype)
+        if x.device.type == "cuda":
+            dims = _check(x, params, m, v, batch)
+            out = _launch(x, params, m, v, dims, steps=steps, lr=lr, seed=seed,
+                          t0=t0, thin=thin, idx=None, eps=None,
+                          scale=_scale(dims.n, dims.b, n_total), bf16=bf16)
+            if bf16:
+                LAUNCHES_BF16 += 1
+            else:
+                LAUNCHES += 1
+            return out
+        if x.device.type != "cpu":
+            raise ValueError(f"fused_train: unsupported device {x.device}")
+        n = x.shape[0]
+        z = params["wmu"].shape[1]
+        gen = torch.Generator().manual_seed(
+            (int(seed) * 1_000_003 + int(t0)) % (2**63))
+        idx = torch.randint(0, n, (steps, int(batch)), generator=gen)
+        eps = torch.randn((steps, int(batch), z), generator=gen)
+        p, mm, vv, losses = reference_train(x, params, m, v, idx_stream=idx,
+                                            eps_stream=eps, lr=lr, t0=t0,
+                                            n_total=n_total,
+                                            compute_dtype=compute_dtype)
+        return p, mm, vv, thin_losses(losses, steps)
 
 
 def fused_train_injected(x, params, m, v, *, idx_stream, eps_stream, lr):

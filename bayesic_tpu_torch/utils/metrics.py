@@ -1,9 +1,17 @@
-"""Structured metrics: a JSONL logger, profiler scopes and traces.
+"""Structured metrics: a JSONL logger, profiler spans and traces.
 
 Counterpart of ``bayesic_tpu/utils/metrics.py``.  The hot loop calls no
 logger: the training loop reads its metrics every ``log_every`` steps,
 and this module only formats and emits them, on rank 0 of a
 ``torch.distributed`` world (or the one process).
+
+``named_scope`` marks a span of host work, named ``bayesic.<module
+path>.<what>`` at the port's layer boundaries.  While a ``torch.profiler``
+records (``profile_trace``, or any ``torch.profiler.profile``) the span is
+a ``record_function``: it lands on the trace's clock, beside the device's
+work, nested by containment on its thread.  While none records it is one
+shared no-op context manager, a fraction of a microsecond: no span is
+created, and nothing selects tracing but the profiler itself.
 """
 
 from __future__ import annotations
@@ -16,8 +24,15 @@ import torch
 
 __all__ = ["MetricsLogger", "named_scope", "profile_trace"]
 
-# annotate a phase in a torch.profiler trace (jax.named_scope's role)
-named_scope = torch.profiler.record_function
+_NO_SPAN = contextlib.nullcontext()
+
+
+def named_scope(name):
+    """A span named ``name`` on the recording ``torch.profiler`` trace
+    (``jax.named_scope``'s role), or a shared no-op when none records."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def _rank0():
